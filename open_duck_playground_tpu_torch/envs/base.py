@@ -45,13 +45,16 @@ class OpenDuckMiniV2Env:
         xml_path: str,
         config: Config,
         config_overrides: Optional[Dict[str, Union[str, int, list]]] = None,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
         seed: int = 0,
     ) -> None:
         self._config = config
         if config_overrides:
             self._config.update_from_flattened_dict(config_overrides)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the env runs on the card unless given "
+                               "device='cpu' (physics then runs the kernel's plain version)")
         # the env's own stream of draws (noise, pushes, delays, commands)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 

@@ -105,7 +105,7 @@ class Joystick(duck_base.OpenDuckMiniV2Env):
         task: str = "flat_terrain",
         config: Optional[Config] = None,
         config_overrides: Optional[Dict[str, Union[str, int, list]]] = None,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
         seed: int = 0,
     ):
         super().__init__(

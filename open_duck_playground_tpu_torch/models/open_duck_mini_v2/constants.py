@@ -22,11 +22,25 @@ def asset_root() -> str:
 
 
 def task_to_xml(task_name: str) -> str:
-    """Task name -> scene MJCF path (flat scenes only in the port)."""
+    """Task name -> scene MJCF path.
+
+    'rough_terrain' maps to scene_rough_terrain.xml, which the reference
+    does not ship (only the backlash rough scene exists): selecting it
+    raises FileNotFoundError on use, as upstream. 'rough_judge_backlash' is
+    the generated 64x64 judge scene (judge_terrain.py).
+    """
+    if task_name == "rough_judge_backlash":
+        from open_duck_playground_tpu_torch.models.open_duck_mini_v2.judge_terrain import (
+            ensure_judge_scene,
+        )
+
+        return ensure_judge_scene()
     xmls = os.path.join(asset_root(), "xmls")
     return {
         "flat_terrain": os.path.join(xmls, "scene_flat_terrain.xml"),
+        "rough_terrain": os.path.join(xmls, "scene_rough_terrain.xml"),
         "flat_terrain_backlash": os.path.join(xmls, "scene_flat_terrain_backlash.xml"),
+        "rough_terrain_backlash": os.path.join(xmls, "scene_rough_terrain_backlash.xml"),
     }[task_name]
 
 

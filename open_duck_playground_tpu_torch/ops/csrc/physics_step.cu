@@ -4,11 +4,12 @@
 //
 // Replaces the TPU kernel open_duck_playground_tpu/ops/pallas_step.py::
 // _build_kernel (its pl.pallas_call), whose body is
-// ops/lane_physics.py::LanePhysics.substep. Both the step variant
-// (n_substeps = 10) and the init variant (n_substeps = 1, integration thrown
-// away by the wrapper) run through this kernel. The plain PyTorch version of
-// the same program is ops/lane_physics.py of this package; the wrapper is
-// ops/cuda_step.py.
+// ops/lane_physics.py::LanePhysics.substep, in all its variants: the step
+// variant (n_substeps = 10) and the init variant (n_substeps = 1, integration
+// thrown away by the wrapper), with has_hf False (plane-hull and hull-hull
+// contacts, the flat scenes) and True (heightfield-hull contacts, the rough
+// scenes). The plain PyTorch version of the same program is
+// ops/lane_physics.py of this package; the wrapper is ops/cuda_step.py.
 //
 // Design:
 // - One thread per env, 1-D grid, ragged edge masked: no (8, 128) lanes and
@@ -18,8 +19,10 @@
 //   also writes the derived outputs from its pre-integration state.
 // - The model is data, not code: the wrapper packs the structural arrays
 //   (tree, addresses, types, constants, hulls, constraint-row tables, LDL
-//   sparsity masks) once into device tensors and passes them in DuckModel.
-//   One build serves every scene that fits the compile-time maxima below.
+//   sparsity masks, the heightfield table) once into device tensors and
+//   passes them in DuckModel. One build serves every scene that fits the
+//   compile-time maxima below. Every pair type is handled by name; the
+//   wrapper admits no other.
 // - Domain randomization comes as optional per-env pointers (DuckDR); a null
 //   pointer means the model constant is used (the with_dr=False variant).
 // - Per-env work arrays (mass matrix, Newton Hessian, constraint Jacobian)
@@ -27,16 +30,26 @@
 //   a thread), which the hardware interleaves across the threads of a warp,
 //   so a warp's access to one field is one contiguous line. Sparse loops
 //   follow bit masks of the tree / LDL pattern, in the twin's order.
+// - The heightfield (256 x 256 floats, 256 KB, on the rough scene) is larger
+//   than a block's shared memory, so it stays in device memory: each foot
+//   vertex reads the 4 corners of its cell with __ldg, about 1,300 loads per
+//   env per control step, served from L2 after the first touch (the TPU
+//   kernel gathered them with a one-hot matmul, as Mosaic has no vector
+//   gather). Its per-vertex state (local coordinates, normals) adds ~0.4 KB
+//   to each thread's local memory.
 //
-// What bounds it on an H100: not device-memory traffic for the state (a few
-// hundred bytes in and out per env per control step) but each thread's
-// latency chain: ~1e5 flops per substep per env, most of them on the
-// Jacobian (MAX_EFC x MAX_NV floats) and the two dense nv x nv matrices in
-// local memory, served by L1/L2. 4096 envs are one warp per SM, so nothing
-// hides that latency. The design takes that cost for now so the arithmetic
-// stays the twin's, operation for operation (built with -fmad=false, no
-// fast math); making it fast (warp-cooperative rows and solves, more warps
-// per env group, shared-memory model constants) is later work.
+// What bounds it on an H100: not device-memory traffic (a few hundred bytes
+// of state in and out per env per control step, the table once) but each
+// thread's latency chain: ~1e5 dependent flops per substep per env, most of
+// them on the Jacobian (MAX_EFC x MAX_NV floats) and the two dense nv x nv
+// matrices in local memory, served by L1/L2. 4096 envs are one warp per SM,
+// so nothing hides that latency. The design takes that cost for now so the
+// arithmetic stays the twin's, operation for operation (built with
+// -fmad=false, no fast math; the heightfield constants are divided by, as
+// the twin divides, since a last-bit change in a cell coordinate can move a
+// vertex to another cell); making it fast (warp-cooperative rows and solves,
+// more warps per env group, shared-memory model constants and judge table)
+// is later work.
 //
 // NaN is never clamped away: min/max/clip propagate NaN like jax.numpy and
 // torch do, so a NaN action still terminates the env.
@@ -55,6 +68,7 @@
 #define MAX_HV 32
 #define MAX_HF 64
 #define MAX_EFC 128
+#define MAX_HFIELD_N 4096  // heightfield rows, and columns
 
 #define MINVAL 1e-10f
 #define TINY 1e-12f
@@ -64,7 +78,13 @@
 #define IMP_N 10   // k, b, dmin, dmax, width, mid, power, c_low, c_high, dd
 #define LIM_N 14   // IMP_N + lo, hi, margin, invweight
 #define PAIR_NI 13 // type, g1, g2, b1, b2, root1, root2, hull1, hull2, mu_g1, mu_g2, dofs1, dofs2
-#define PAIR_NF 27 // IMP_N + diag_const, mu_const, n[3], ppn, frame[9], invweight, impratio
+#define PAIR_NF 39 // IMP_N + diag_const, mu_const, n[3], ppn, frame[9], invweight, impratio,
+                   // then PAIR_HF: the heightfield's pose hp[3], R[9] (row major)
+#define PAIR_HF (IMP_N + 17)
+// hfield_prm: rx, ry, 2 rx, 2 ry, ncol - 1, nrow - 1, ncol - 1.001, nrow - 1.001,
+// ztop, dx = 2 rx / (ncol - 1), dy = 2 ry / (nrow - 1); each rounded to float
+// once, as the twin's python floats are when they meet a float32 tile
+#define HFP_N 11
 #define ACT_NF 9   // ctrl_lo, ctrl_hi, gear, gain0, bias0, bias1, bias2, force_lo, force_hi
 
 extern "C" {
@@ -72,6 +92,7 @@ extern "C" {
 struct DuckModel {
   int nq, nv, nu, nbody, njnt, ngeom, nsite, nsensor, npair, nfri, nlim, hv, hf;
   int iterations, ls_iterations;
+  int hfield_nrow, hfield_ncol;  // 0 without a heightfield
   float dt, gx, gy, gz;
   const int *body_parentid, *body_rootid, *body_jntadr, *body_jntnum,
       *body_dofadr, *body_dofnum;
@@ -99,7 +120,9 @@ struct DuckModel {
   const float *qpos0;
   const int *pair_i;
   const float *pair_f;
-  const float *hull_vert, *hull_face_n;  // (nhull, hv, 3), (nhull, hf, 3)
+  const float *hull_vert, *hull_face_n;  // (nhull, hv, 3), (nhull, hf, 3): hf counts hull faces
+  const float *hfield_data;  // (hfield_nrow, hfield_ncol) row major, or null
+  const float *hfield_prm;   // HFP_N constants, or null
 };
 
 struct DuckDR {  // per-env rows, or null for the model constant
@@ -110,7 +133,7 @@ struct DuckDR {  // per-env rows, or null for the model constant
 }  // extern "C"
 
 enum { J_FREE = 0 };        // else HINGE: the wrapper lets in no other joint type
-enum { P_PLANE_HULL = 0 };  // else HULL_HULL: the wrapper lets in no other pair type
+enum { P_PLANE_HULL = 0, P_HFIELD_HULL = 1, P_HULL_HULL = 2 };  // ops/types.py PairType
 enum {
   S_GYRO = 0, S_VELOCIMETER, S_ACCELEROMETER, S_FRAMEXAXIS, S_FRAMEZAXIS,
   S_FRAMELINVEL, S_FRAMEANGVEL, S_FRAMEPOS, S_FRAMEQUAT
@@ -592,11 +615,12 @@ __device__ __forceinline__ int argmax_first(const float* s, int n) {
   return bi;
 }
 
-// lane_physics._manifold (dyn=false: normal n constant, candidate a is the
-// deepest vertex) and _manifold_dyn (dyn=true: candidate a is the first
-// masked vertex, dist from `depth`)
-__device__ void manifold(const V3* wv, const float* support, const uint8_t* mask, int V,
-                         V3 n, bool dyn, float depth, Cand* out) {
+// the four candidate vertices of lane_physics._manifold (dyn=false: spread
+// about the constant normal n, candidate a the deepest vertex) and
+// _manifold_dyn (dyn=true: candidate a the first masked vertex), with their
+// validity after dedup; candidate 0 is always valid
+__device__ void manifold_pick(const V3* wv, const float* support, const uint8_t* mask, int V,
+                              V3 n, bool dyn, int* idx, bool* valid) {
   float dm[MAX_HV], sc[MAX_HV];
   for (int v = 0; v < V; ++v) dm[v] = mask[v] ? 0.0f : -1e6f;
   int ia = argmax_first(dyn ? dm : support, V);
@@ -612,24 +636,110 @@ __device__ void manifold(const V3* wv, const float* support, const uint8_t* mask
   for (int v = 0; v < V; ++v)
     sc[v] = fabsf(dot(sub(b, wv[v]), bc)) + fabsf(dot(sub(a, wv[v]), ac)) + dm[v];
   int id = argmax_first(sc, V);
-  int idx[4] = {ia, ib, ic, id};
+  idx[0] = ia; idx[1] = ib; idx[2] = ic; idx[3] = id;
   for (int k = 0; k < 4; ++k) {
-    int i = idx[k];
     bool seen = false;
-    for (int j = 0; j < k; ++j) seen = seen || (idx[j] == i);
-    bool valid = (k == 0) ? true : (mask[i] && !seen);
-    V3 pk = wv[i];
+    for (int j = 0; j < k; ++j) seen = seen || (idx[j] == idx[k]);
+    valid[k] = (k == 0) ? true : (mask[idx[k]] && !seen);
+  }
+}
+
+// _manifold (plane: dist from the support, offset along n) and _manifold_dyn
+// (hull-hull: dist from `depth`, offset along the SAT axis)
+__device__ void manifold(const V3* wv, const float* support, const uint8_t* mask, int V,
+                         V3 n, bool dyn, float depth, Cand* out) {
+  int idx[4];
+  bool valid[4];
+  manifold_pick(wv, support, mask, V, n, dyn, idx, valid);
+  for (int k = 0; k < 4; ++k) {
+    V3 pk = wv[idx[k]];
     if (!dyn) {
-      float dist = -support[i];
+      float dist = -support[idx[k]];
       float h = 0.5f * dist;
       out[k].pos = v3(pk.x - h * n.x, pk.y - h * n.y, pk.z - h * n.z);
-      out[k].dist = valid ? dist : BIGD;
+      out[k].dist = valid[k] ? dist : BIGD;
     } else {
       float h = 0.5f * depth;
       out[k].pos = v3(pk.x + h * n.x, pk.y + h * n.y, pk.z + h * n.z);
-      out[k].dist = (valid && depth > 0.0f) ? -depth : BIGD;
+      out[k].dist = (valid[k] && depth > 0.0f) ? -depth : BIGD;
     }
   }
+}
+
+// per-env contact frame rows [n, t1, t2] (lane_physics._dyn_frame)
+__device__ void dyn_frame(V3 n, float* fr) {
+  bool refy = fabsf(n.y) < 0.9f;
+  V3 ref = v3(0.0f, refy ? 1.0f : 0.0f, refy ? 0.0f : 1.0f);
+  V3 t1 = cross(ref, n);
+  float inv = 1.0f / vmax(sqrtf(dot(t1, t1)), 1e-12f);
+  t1 = scl(t1, inv);
+  V3 t2 = cross(n, t1);
+  fr[0] = n.x; fr[1] = n.y; fr[2] = n.z;
+  fr[3] = t1.x; fr[4] = t1.y; fr[5] = t1.z;
+  fr[6] = t2.x; fr[7] = t2.y; fr[8] = t2.z;
+}
+
+// heightfield vs hull (lane_physics._hfield_hull): each hull vertex against
+// the triangulated surface of its cell, the candidates spread about the
+// heightfield's up axis, and one frame from the deepest vertex's normal
+__device__ void hfield_hull(const DuckModel& m, const int* pi, const float* pf, Work& w,
+                            Cand* out, float* fr) {
+  const int HV = m.hv, nrow = m.hfield_nrow, ncol = m.hfield_ncol;
+  const float* hp = pf + PAIR_HF;  // the heightfield frame: world <- local
+  M3 R;
+  for (int k = 0; k < 9; ++k) R.m[k] = hp[3 + k];
+  const float* c = m.hfield_prm;
+  const float rx = c[0], ry = c[1], two_rx = c[2], two_ry = c[3], cols1 = c[4], rows1 = c[5],
+              gx_max = c[6], gy_max = c[7], ztop = c[8], dx = c[9], dy = c[10];
+  const float* verts = m.hull_vert + (size_t)pi[8] * HV * 3;
+  V3 gpos; M3 gmat;
+  geom_pose(m, pi[2], w, gpos, gmat);
+  V3 n_loc[MAX_HV];
+  float smax = 0.f;
+  for (int v = 0; v < HV; ++v) {
+    V3 wv = add(gpos, mvec(gmat, vld(verts + 3 * v)));
+    w.w2[v] = wv;
+    V3 loc = mtvec(R, v3(wv.x - hp[0], wv.y - hp[1], wv.z - hp[2]));  // R^T (w - hp)
+    // cell and fractions (_hf_indices): divide, as the twin does
+    float gx = vclip((loc.x + rx) / two_rx * cols1, 0.0f, gx_max);
+    float gy = vclip((loc.y + ry) / two_ry * rows1, 0.0f, gy_max);
+    float flx = floorf(gx), fly = floorf(gy);
+    float fx = gx - flx, fy = gy - fly;
+    // a NaN coordinate reads cell 0 (its fraction stays NaN); finite ones
+    // are within [0, n - 2] already
+    int ix = flx > 0.0f ? min((int)flx, ncol - 2) : 0;
+    int iy = fly > 0.0f ? min((int)fly, nrow - 2) : 0;
+    const float* cell = m.hfield_data + (size_t)iy * ncol + ix;
+    float z00 = __ldg(cell) * ztop, z10 = __ldg(cell + 1) * ztop;
+    float z01 = __ldg(cell + ncol) * ztop, z11 = __ldg(cell + ncol + 1) * ztop;
+    // triangulated height and normal (_hf_interp)
+    bool lower = fx + fy < 1.0f;
+    float z = lower ? z00 + fx * (z10 - z00) + fy * (z01 - z00)
+                    : z11 + (1.0f - fx) * (z01 - z11) + (1.0f - fy) * (z10 - z11);
+    float gxs = lower ? (z10 - z00) / dx : (z11 - z01) / dx;
+    float gys = lower ? (z01 - z00) / dy : (z11 - z10) / dy;
+    float inv = 1.0f / sqrtf(gxs * gxs + gys * gys + 1.0f);
+    n_loc[v] = v3(-gxs * inv, -gys * inv, inv);
+    w.sup_v[v] = -((loc.z - z) * n_loc[v].z);
+    smax = v ? vmax(smax, w.sup_v[v]) : w.sup_v[v];
+  }
+  // candidate band within 1 mm of the deepest vertex, as the plane path
+  float band = vmax(smax - 1e-3f, 0.0f);
+  for (int v = 0; v < HV; ++v) w.mask_v[v] = w.sup_v[v] > band;
+  int idx[4];
+  bool valid[4];
+  manifold_pick(w.w2, w.sup_v, w.mask_v, HV, mcol(R, 2), false, idx, valid);
+  // world normal of the deepest vertex: the contact normal of all four
+  V3 n0 = mvec(R, n_loc[idx[0]]);
+  n0 = scl(n0, 1.0f / vmax(sqrtf(dot(n0, n0)), 1e-12f));
+  for (int k = 0; k < 4; ++k) {
+    V3 pk = w.w2[idx[k]];
+    float dist = -w.sup_v[idx[k]];
+    float h = 0.5f * dist;
+    out[k].pos = v3(pk.x - h * n0.x, pk.y - h * n0.y, pk.z - h * n0.z);
+    out[k].dist = valid[k] ? dist : BIGD;
+  }
+  dyn_frame(n0, fr);
 }
 
 __device__ void collide(const DuckModel& m, Work& w) {
@@ -654,7 +764,9 @@ __device__ void collide(const DuckModel& m, Work& w) {
       for (int v = 0; v < HV; ++v) w.mask_v[v] = w.sup_v[v] > band;
       manifold(w.w2, w.sup_v, w.mask_v, HV, n, false, 0.f, w.cand[p]);
       for (int k = 0; k < 9; ++k) w.frame[p][k] = pf[IMP_N + 6 + k];
-    } else {  // HULL_HULL
+    } else if (type == P_HFIELD_HULL) {
+      hfield_hull(m, pi, pf, w, w.cand[p], w.frame[p]);
+    } else if (type == P_HULL_HULL) {
       const float* v1 = m.hull_vert + (size_t)pi[7] * HV * 3;
       const float* v2 = m.hull_vert + (size_t)pi[8] * HV * 3;
       const float* f1 = m.hull_face_n + (size_t)pi[7] * HF * 3;
@@ -690,18 +802,11 @@ __device__ void collide(const DuckModel& m, Work& w) {
       float thresh = smax - 1e-4f;
       for (int v = 0; v < HV; ++v) w.mask_v[v] = (w.sup_v[v] >= thresh) && (best_d > 0.0f);
       manifold(w.w2, w.sup_v, w.mask_v, HV, best_ax, true, best_d, w.cand[p]);
-      // per-env frame (lane_physics._dyn_frame)
-      V3 n = best_ax;
-      bool refy = fabsf(n.y) < 0.9f;
-      V3 ref = v3(0.0f, refy ? 1.0f : 0.0f, refy ? 0.0f : 1.0f);
-      V3 t1 = cross(ref, n);
-      float inv = 1.0f / vmax(sqrtf(dot(t1, t1)), 1e-12f);
-      t1 = scl(t1, inv);
-      V3 t2 = cross(n, t1);
-      float* fr = w.frame[p];
-      fr[0] = n.x; fr[1] = n.y; fr[2] = n.z;
-      fr[3] = t1.x; fr[4] = t1.y; fr[5] = t1.z;
-      fr[6] = t2.x; fr[7] = t2.y; fr[8] = t2.z;
+      dyn_frame(best_ax, w.frame[p]);
+    } else {
+      // unreachable: pack_model admits no other pair type. No contact.
+      for (int k = 0; k < 4; ++k) { w.cand[p][k].dist = BIGD; w.cand[p][k].pos = v3(0.f, 0.f, 0.f); }
+      for (int k = 0; k < 9; ++k) w.frame[p][k] = (k % 4 == 0) ? 1.0f : 0.0f;
     }
   }
 }
@@ -1110,7 +1215,8 @@ extern "C" {
 int duck_limits(int* out) {
   out[0] = MAX_NQ; out[1] = MAX_NV; out[2] = MAX_NU; out[3] = MAX_BODY; out[4] = MAX_JNT;
   out[5] = MAX_SITE; out[6] = MAX_PAIR; out[7] = MAX_HV; out[8] = MAX_HF; out[9] = MAX_EFC;
-  return 10;
+  out[10] = MAX_HFIELD_N; out[11] = MAX_HFIELD_N;
+  return 12;
 }
 
 int duck_physics_step(const DuckModel* m, const DuckDR* dr, int B, int n_substeps,

@@ -15,8 +15,10 @@ the last substep, taken before its integration.
   (``lane_physics.LanePhysics``), the same program on ``(B,)`` tensors.
 - ``launches`` counts the kernel launches of this object, and nothing else.
 
-The model is data, not code: the structural arrays are packed once per
-device into tensors whose pointers the kernel reads at run time. Domain
+The model is data, not code: the structural arrays (and a rough scene's
+heightfield table) are packed once per device into tensors whose pointers
+the kernel reads at run time. Every scene of the duck runs through it:
+plane-hull, hull-hull and heightfield-hull contact pairs. Domain
 randomization comes as the flat ``(B, rows)`` fields of ``DR_FIELDS``.
 """
 
@@ -40,6 +42,7 @@ from open_duck_playground_tpu_torch.ops.lane_physics import (
     _kbi_const,
     _np_quat_mul,
     _np_quat_rot,
+    _np_quat_to_mat,
 )
 from open_duck_playground_tpu_torch.ops.types import JointType, Model, PairType
 
@@ -64,7 +67,8 @@ _DR_SHAPES = {
     "actuator_gainprm": ("nu", 3),
     "actuator_biasprm": ("nu", 3),
 }
-_LIMIT_NAMES = ("nq", "nv", "nu", "nbody", "njnt", "nsite", "npair", "hv", "hf", "nefc")
+_LIMIT_NAMES = ("nq", "nv", "nu", "nbody", "njnt", "nsite", "npair", "hv", "hf", "nefc",
+                "hfield_nrow", "hfield_ncol")
 
 
 def dr_rows(m: Model, field: str) -> int:
@@ -121,7 +125,8 @@ class _DuckModel(ctypes.Structure):
     _fields_ = (
         [(n, ctypes.c_int) for n in (
             "nq", "nv", "nu", "nbody", "njnt", "ngeom", "nsite", "nsensor", "npair",
-            "nfri", "nlim", "hv", "hf", "iterations", "ls_iterations")]
+            "nfri", "nlim", "hv", "hf", "iterations", "ls_iterations", "hfield_nrow",
+            "hfield_ncol")]
         + [(n, ctypes.c_float) for n in ("dt", "gx", "gy", "gz")]
         + [(n, ctypes.c_void_p) for n in (
             "body_parentid", "body_rootid", "body_jntadr", "body_jntnum", "body_dofadr",
@@ -132,7 +137,7 @@ class _DuckModel(ctypes.Structure):
             "geom_bodyid", "geom_pos", "geom_quat", "geom_friction", "site_bodyid",
             "site_pos", "site_quat", "sensor_type", "sensor_objid", "sensor_adr", "act_adr",
             "act_prm", "gainprm", "biasprm", "qpos0", "pair_i", "pair_f", "hull_vert",
-            "hull_face_n")]
+            "hull_face_n", "hfield_data", "hfield_prm")]
     )
 
 
@@ -198,7 +203,8 @@ def _bits(dofs) -> int:
 
 def pack_model(lane: LanePhysics) -> Dict[str, dict]:
     """What the kernel reads: ``sizes`` and ``scalars`` (python numbers) and
-    ``arrays`` (int32 / float32 numpy, C-contiguous)."""
+    ``arrays`` (int32 / float32 numpy, C-contiguous). Each pair type is
+    packed by name; any other raises."""
     m, c = lane.m, lane.c
     for t in m.jnt_type:
         if int(t) not in (JointType.FREE, JointType.HINGE):
@@ -223,7 +229,7 @@ def pack_model(lane: LanePhysics) -> Dict[str, dict]:
     pair_i, pair_f = [], []
     for p in range(m.npair):
         g1, g2, ptype = int(m.pair_geom1[p]), int(m.pair_geom2[p]), int(m.pair_type[p])
-        if ptype not in (PairType.PLANE_HULL, PairType.HULL_HULL):
+        if ptype not in (PairType.PLANE_HULL, PairType.HFIELD_HULL, PairType.HULL_HULL):
             raise NotImplementedError(f"pair type {ptype} in the fused kernel")
         b1, b2 = int(m.geom_bodyid[g1]), int(m.geom_bodyid[g2])
         p1, p2 = int(m.geom_priority[g1]), int(m.geom_priority[g2])
@@ -239,7 +245,13 @@ def pack_model(lane: LanePhysics) -> Dict[str, dict]:
             solref, solimp = c.geom_solref[gsrc], c.geom_solimp[gsrc]
         invweight = float(c.body_invweight0[b1, 0] + c.body_invweight0[b2, 0])
         diag = max((invweight + mu * mu * invweight) * 2.0 * mu * mu / impratio, _MINVAL)
-        n, ppn, frame = [0.0] * 3, 0.0, [0.0] * 9
+        n, ppn, frame, hf_pose = [0.0] * 3, 0.0, [0.0] * 9, [0.0] * 12
+        if ptype == PairType.HFIELD_HULL:
+            # the terrain's body is static: a constant pose, as the twin's
+            bpos, bquat = lane._static_body_pose(b1)
+            hp = bpos + _np_quat_rot(bquat, c.geom_pos[g1])
+            R = _np_quat_to_mat(_np_quat_mul(bquat, c.geom_quat[g1]))
+            hf_pose = [float(v) for v in hp] + [float(v) for v in R.ravel()]
         if ptype == PairType.PLANE_HULL:
             bpos, bquat = lane._static_body_pose(b1)
             pp = bpos + _np_quat_rot(bquat, c.geom_pos[g1])
@@ -253,7 +265,7 @@ def pack_model(lane: LanePhysics) -> Dict[str, dict]:
                        hull1, int(m.geom_dataid[g2]), mu_g[0], mu_g[1],
                        _bits(lane._body_dofs(b1)), _bits(lane._body_dofs(b2))])
         pair_f.append(_imp_block(solref, solimp) + [diag, mu] + [float(v) for v in n]
-                      + [ppn] + frame + [invweight, impratio])
+                      + [ppn] + frame + [invweight, impratio] + hf_pose)
 
     act_adr, act_prm = [], []
     for u in range(m.nu):
@@ -264,12 +276,28 @@ def pack_model(lane: LanePhysics) -> Dict[str, dict]:
                         c.actuator_biasprm[u, 1], c.actuator_biasprm[u, 2],
                         c.actuator_forcerange[u, 0], c.actuator_forcerange[u, 1]])
 
+    hfield = {}
+    nrow = ncol = 0
+    if any(int(t) == PairType.HFIELD_HULL for t in m.pair_type):
+        # the table row major as the model holds it (the TPU kernel took it
+        # transposed, for its one-hot matmul), and its constants, each
+        # rounded to float32 once as the twin's python floats are
+        nrow, ncol = c.hfield_data.shape
+        if min(nrow, ncol) < 2:
+            raise ValueError(f"heightfield of {nrow} x {ncol}: the kernel needs 2 x 2 or more")
+        rx, ry, ztop = (float(v) for v in c.hfield_size[:3])
+        hfield = dict(
+            hfield_data=f32(c.hfield_data),
+            hfield_prm=f32([rx, ry, 2.0 * rx, 2.0 * ry, ncol - 1, nrow - 1, ncol - 1.001,
+                            nrow - 1.001, ztop, 2.0 * rx / (ncol - 1), 2.0 * ry / (nrow - 1)]))
+
     return dict(
         sizes=dict(nq=m.nq, nv=m.nv, nu=m.nu, nbody=m.nbody, njnt=m.njnt, ngeom=m.ngeom,
                    nsite=m.nsite, nsensor=len(m.sensor_type), npair=m.npair,
                    nfri=len(lane.fri_dofs), nlim=len(lane.lim_jnts),
                    hv=int(c.hull_vert.shape[1]), hf=int(c.hull_face_n.shape[1]),
                    iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations),
+                   hfield_nrow=nrow, hfield_ncol=ncol,
                    nefc=len(lane.fri_dofs) + len(lane.lim_jnts) + 16 * m.npair),
         scalars=dict(dt=float(m.opt.timestep), gx=float(c.gravity[0]),
                      gy=float(c.gravity[1]), gz=float(c.gravity[2])),
@@ -298,6 +326,7 @@ def pack_model(lane: LanePhysics) -> Dict[str, dict]:
             gainprm=f32(c.actuator_gainprm), biasprm=f32(c.actuator_biasprm),
             qpos0=f32(c.qpos0), pair_i=i32(pair_i), pair_f=f32(pair_f),
             hull_vert=f32(c.hull_vert), hull_face_n=f32(c.hull_face_n),
+            **hfield,
         ),
     )
 

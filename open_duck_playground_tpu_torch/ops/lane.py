@@ -1,6 +1,7 @@
 """Tile primitives of the physics step, on ``(B,)`` torch tensors.
 
-Counterpart of ``open_duck_playground_tpu/ops/lane.py:31-262``. A "tile" is
+Counterpart of ``open_duck_playground_tpu/ops/lane.py`` (the heightfield
+gather in its "direct" mode only). A "tile" is
 one scalar per environment: a ``(B,)`` tensor, or a python float for a
 model constant (it broadcasts for free). Geometric objects are plain python
 lists of tiles:
@@ -46,6 +47,17 @@ def minimum(a, b):
     if _is_t(b):
         return torch.clamp(b, max=a)
     return min(a, b)
+
+
+def div(a, c: float):
+    """a / c for a model constant c, rounded to float32 and divided by, as
+    jax.numpy and the CUDA kernel divide, on every device: torch divides a
+    CUDA tensor by a python number as a multiplication by its reciprocal,
+    which can differ in the last bit (and move a heightfield vertex to
+    another cell)."""
+    if _is_t(a):
+        return a / torch.full((), c, dtype=a.dtype, device=a.device)
+    return a / c
 
 
 # ---------------------------------------------------------------------------
@@ -289,3 +301,28 @@ def rotate_inertia(diag_inertia, ximat):
                 + R[3 * r + 2] * iz * R[3 * c + 2]
             )
     return out
+
+
+# ---------------------------------------------------------------------------
+# heightfield table gather
+# ---------------------------------------------------------------------------
+
+
+def hf_bilinear_gather(H, iy, ix):
+    """The 4 cell-corner heights H[iy, ix], H[iy, ix+1], H[iy+1, ix],
+    H[iy+1, ix+1] of integer tiles (iy, ix), from the (nrow, ncol) table H
+    on the tiles' device, by indexed loads (the JAX package's "direct"
+    mode; its "onehot" mode is a matmul because Mosaic has no vector
+    gather). The indices are clamped to the table: a no-op for the cells
+    of finite coordinates, which _hf_indices keeps within [0, n-2]; a NaN
+    coordinate then reads some cell and stays NaN through its fraction."""
+    nrow, ncol = H.shape
+    iy = iy.long().clamp(0, nrow - 2)
+    ix = ix.long().clamp(0, ncol - 2)
+    return H[iy, ix], H[iy, ix + 1], H[iy + 1, ix], H[iy + 1, ix + 1]
+
+
+def hf_window_corners(H, iys, ixs):
+    """Bilinear corners for the V vertices of a hull: length-V lists of
+    integer tiles -> length-V list of (z00, z10, z01, z11) tuples."""
+    return [hf_bilinear_gather(H, iy, ix) for iy, ix in zip(iys, ixs)]

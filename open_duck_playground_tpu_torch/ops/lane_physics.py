@@ -15,8 +15,11 @@ algebra follows the kinematic tree's sparsity (tree-sparse LDL^T, sparse
 constraint rows).
 
 MuJoCo Euler pipeline with the Newton solver at iterations=1 /
-ls_iterations=5. PLANE_HULL and HULL_HULL contact pairs (the flat duck
-scenes); the heightfield path is not ported yet.
+ls_iterations=5. PLANE_HULL, HULL_HULL and HFIELD_HULL contact pairs: every
+duck scene. The heightfield's corner heights come from the model's
+(nrow, ncol) table by indexed loads (``lane.hf_window_corners``), the JAX
+package's "direct" gather; its one-hot matmul gather is a TPU device for a
+machine without vector gathers and is not ported.
 
 On a CUDA device every one of its thousands of elementwise operations is a
 separate kernel launch; it runs there only as the reference the fused
@@ -63,7 +66,8 @@ class _Const:
         "geom_quat", "geom_friction", "geom_solref", "geom_solimp",
         "site_pos", "site_quat", "actuator_gainprm", "actuator_biasprm",
         "actuator_ctrlrange", "actuator_forcerange", "actuator_gear",
-        "qpos0", "hull_vert", "hull_face_n", "hull_face_d",
+        "qpos0", "hull_vert", "hull_face_n", "hull_face_d", "hfield_data",
+        "hfield_size",
     )
 
     def __init__(self, m: Model):
@@ -193,7 +197,7 @@ def _kbi_const(solref, solimp):
 
 def _impedance(pos, dmin, dmax, width, mid, power):
     """Position-dependent impedance on a tile `pos`."""
-    x = torch.abs(pos) / width
+    x = ln.div(torch.abs(pos), width)
     if power == 2.0:
         y_low = x * x * (mid ** (1.0 - power))
         xm = 1.0 - x
@@ -232,6 +236,7 @@ class LanePhysics:
                     pat.add((i, j))
         self.ldl = LDLTree(m.nv, self.tree_pat)
         self.ldl_h = LDLTree(m.nv, sorted(pat))
+        self._hf_tables = {}  # device -> the heightfield table there
 
     # -- static structure for constraint rows --------------------------------
     def _efc_meta(self):
@@ -576,9 +581,7 @@ class LanePhysics:
     def collide(self, xpos, xquat):
         """Returns per-pair list of 4 candidates (dist, pos, frame_const).
 
-        PLANE_HULL and HULL_HULL pairs (the flat scenes); heightfield pairs
-        are not ported yet and raise.
-        """
+        HFIELD_HULL pairs read the model's own heightfield table."""
         m, c = self.m, self.c
         contacts = []
         for p in range(m.npair):
@@ -617,9 +620,171 @@ class LanePhysics:
                 contacts.append((cand, frame, None))
             elif ptype == PairType.HULL_HULL:
                 contacts.append(self._hull_hull(p, g1, g2, xpos, xquat))
+            elif ptype == PairType.HFIELD_HULL:
+                contacts.append(self._hfield_hull(p, g1, g2, xpos, xquat))
             else:
                 raise NotImplementedError(f"pair type {ptype} in lane kernel")
         return contacts
+
+    def _hf_table(self, device) -> torch.Tensor:
+        """The (nrow, ncol) float32 heightfield table on `device`."""
+        key = str(device)
+        if key not in self._hf_tables:
+            self._hf_tables[key] = torch.as_tensor(
+                np.asarray(self.c.hfield_data, np.float32), device=device)
+        return self._hf_tables[key]
+
+    def _hf_indices(self, x, y):
+        """Local hfield-frame (x, y) -> integer cell indices + fractions."""
+        c = self.c
+        nrow, ncol = c.hfield_data.shape
+        rx = float(c.hfield_size[0])
+        ry = float(c.hfield_size[1])
+        gx = ln.div(x + rx, 2.0 * rx) * (ncol - 1)
+        gy = ln.div(y + ry, 2.0 * ry) * (nrow - 1)
+        gx = torch.clamp(gx, 0.0, ncol - 1.001)
+        gy = torch.clamp(gy, 0.0, nrow - 1.001)
+        ix = torch.floor(gx).to(torch.int32)
+        iy = torch.floor(gy).to(torch.int32)
+        fx = gx - ix.to(gx.dtype)
+        fy = gy - iy.to(gy.dtype)
+        return ix, iy, fx, fy
+
+    def _hf_interp(self, fx, fy, corners):
+        """Triangulated surface height + local normal from cell corners
+        (collision.hfield_height_normal on lane tiles)."""
+        c = self.c
+        nrow, ncol = c.hfield_data.shape
+        rx = float(c.hfield_size[0])
+        ry = float(c.hfield_size[1])
+        ztop = float(c.hfield_size[2])
+        z00, z10, z01, z11 = (z * ztop for z in corners)
+        dx = 2.0 * rx / (ncol - 1)
+        dy = 2.0 * ry / (nrow - 1)
+        lower = fx + fy < 1.0
+        z_lo = z00 + fx * (z10 - z00) + fy * (z01 - z00)
+        gx_lo = ln.div(z10 - z00, dx)
+        gy_lo = ln.div(z01 - z00, dy)
+        z_hi = z11 + (1.0 - fx) * (z01 - z11) + (1.0 - fy) * (z10 - z11)
+        gx_hi = ln.div(z11 - z01, dx)
+        gy_hi = ln.div(z11 - z10, dy)
+        z = torch.where(lower, z_lo, z_hi)
+        gxs = torch.where(lower, gx_lo, gx_hi)
+        gys = torch.where(lower, gy_lo, gy_hi)
+        nvec = [-gxs, -gys, torch.ones_like(gxs)]
+        nrm = torch.sqrt(ln.v3_dot(nvec, nvec))
+        nvec = ln.v3_scale(nvec, 1.0 / nrm)
+        return z, nvec
+
+    def _hfield_hull(self, p, g1, g2, xpos, xquat):
+        """collision.hfield_hull on lane tiles: per-vertex surface test,
+        manifold spread along the hfield up axis, frame from the deepest
+        vertex's surface normal."""
+        m, c = self.m, self.c
+        bpos, bquat = self._static_body_pose(int(m.geom_bodyid[g1]))
+        hp = bpos + _np_quat_rot(bquat, c.geom_pos[g1])
+        hq = _np_quat_mul(bquat, c.geom_quat[g1])
+        R = _np_quat_to_mat(hq)  # hfield frame: world <- local
+
+        hull = int(m.geom_dataid[g2])
+        verts = c.hull_vert[hull]
+        gpos, gmat = self._geom_pose(g2, xpos, xquat)
+        V = verts.shape[0]
+        w = [ln.v3_add(gpos, ln.m3_vec(gmat, [float(x) for x in verts[v]]))
+             for v in range(V)]
+        # per-vertex local coords + cell indices; corner heights by indexed
+        # loads from the table
+        locs, ixs, iys, fxs, fys = [], [], [], [], []
+        for v in range(V):
+            d = [w[v][i] - float(hp[i]) for i in range(3)]
+            # local = R^T d
+            loc = [
+                sum(float(R[i][j]) * d[i] for i in range(3)) for j in range(3)
+            ]
+            locs.append(loc)
+            ix, iy, fx, fy = self._hf_indices(loc[0], loc[1])
+            ixs.append(ix)
+            iys.append(iy)
+            fxs.append(fx)
+            fys.append(fy)
+        corners = ln.hf_window_corners(self._hf_table(w[0][0].device), iys, ixs)
+        support, n_loc = [], []
+        for v in range(V):
+            z_surf, nv = self._hf_interp(fxs[v], fys[v], corners[v])
+            gap = (locs[v][2] - z_surf) * nv[2]
+            support.append(-gap)
+            n_loc.append(nv)
+        # candidate band within 1mm of the deepest vertex (see plane path)
+        smax = support[0]
+        for s in support[1:]:
+            smax = ln.maximum(smax, s)
+        band = ln.maximum(0.0, smax - 1e-3)
+        mask = [s > band for s in support]
+        up = [float(R[i][2]) for i in range(3)]
+        cand, n0_loc = self._manifold_hf(w, support, mask, up, n_loc)
+        # world normal of the deepest vertex -> shared contact frame
+        n0 = [
+            sum(float(R[i][j]) * n0_loc[j] for j in range(3)) for i in range(3)
+        ]
+        nrm = ln.maximum(torch.sqrt(ln.v3_dot(n0, n0)), 1e-12)
+        n0 = ln.v3_scale(n0, 1.0 / nrm)
+        # pos = w[idx] - 0.5 * dist * n0 with the per-lane n0
+        out = []
+        for (dist, pos_k, valid) in cand:
+            pos = [pos_k[i] - 0.5 * dist * n0[i] for i in range(3)]
+            dist = torch.where(valid, dist, _BIG)
+            out.append((dist, pos, valid))
+        frame = self._dyn_frame(n0)
+        return (out, frame, None)
+
+    def _manifold_hf(self, w, support, mask, up_const, n_loc):
+        """_manifold with the spreading axis constant (hfield up) but the
+        deepest vertex's LOCAL normal carried through for the frame.
+
+        Returns ([(dist, pos_raw, valid)] x4, n0_local vec3 of candidate a);
+        pos_raw is the raw vertex position (caller applies the n0 offset)."""
+        V = len(w)
+        neg = -1e6
+        dist_mask = [torch.where(mask[v], 0.0, neg) for v in range(V)]
+        payload = [(support[v], w[v][0], w[v][1], w[v][2],
+                    torch.where(mask[v], 1.0, 0.0),
+                    n_loc[v][0], n_loc[v][1], n_loc[v][2]) for v in range(V)]
+        # a: deepest vertex overall (see _manifold)
+        a_i, a_p = self._running_argmax(support, payload)
+        a = [a_p[1], a_p[2], a_p[3]]
+        n0_loc = [a_p[5], a_p[6], a_p[7]]
+        sc_b = [ln.v3_dot(ln.v3_sub(a, w[v]), ln.v3_sub(a, w[v])) + dist_mask[v]
+                for v in range(V)]
+        b_i, b_p = self._running_argmax(sc_b, payload)
+        b = [b_p[1], b_p[2], b_p[3]]
+        ab = ln.v3_cross(up_const, ln.v3_sub(a, b))
+        sc_c = [torch.abs(ln.v3_dot(ln.v3_sub(a, w[v]), ab)) + dist_mask[v]
+                for v in range(V)]
+        c_i, c_p = self._running_argmax(sc_c, payload)
+        cpt = [c_p[1], c_p[2], c_p[3]]
+        ac = ln.v3_cross(up_const, ln.v3_sub(a, cpt))
+        bc = ln.v3_cross(up_const, ln.v3_sub(b, cpt))
+        sc_d = [torch.abs(ln.v3_dot(ln.v3_sub(b, w[v]), bc))
+                + torch.abs(ln.v3_dot(ln.v3_sub(a, w[v]), ac)) + dist_mask[v]
+                for v in range(V)]
+        d_i, d_p = self._running_argmax(sc_d, payload)
+        idxs = [a_i, b_i, c_i, d_i]
+        pays = [a_p, b_p, c_p, d_p]
+        out = []
+        for k in range(4):
+            sup_k = pays[k][0]
+            pos_k = [pays[k][1], pays[k][2], pays[k][3]]
+            mask_k = pays[k][4] > 0.5
+            seen = None
+            for j in range(k):
+                eq = idxs[k] == idxs[j]
+                seen = eq if seen is None else (seen | eq)
+            valid = mask_k if seen is None else (~seen & mask_k)
+            if k == 0:
+                valid = torch.ones_like(valid)
+            dist = -sup_k
+            out.append((dist, pos_k, valid))
+        return out, n0_loc
 
     @staticmethod
     def _const_frame(n):
@@ -1224,4 +1389,13 @@ def _np_quat_rot(q, v):
     qv = np.asarray(q[1:4])
     uv = np.cross(qv, v)
     return np.asarray(v) + 2.0 * (qw * uv + np.cross(qv, uv))
+
+
+def _np_quat_to_mat(q):
+    w, x, y, z = [float(v) for v in q]
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
 

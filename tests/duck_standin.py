@@ -15,7 +15,8 @@ the JAX package and its PyTorch port can build ``Joystick`` on it:
 - the soles ``left_foot_bottom_tpu`` / ``right_foot_bottom_tpu`` are one
   binary-STL mesh, a convex symmetric octagonal slab (16 vertices) whose 8
   bottom vertices lie in one plane, so resting soles tie on depth;
-- contact pairs: floor-left, floor-right (PLANE_HULL), left-right (HULL_HULL);
+- contact pairs: floor-left, floor-right (PLANE_HULL, HFIELD_HULL on the
+  rough scene), left-right (HULL_HULL);
 - the 15 sensors of the real duck, in its order (``upvector`` z is
   sensordata[11]);
 - ``data/polynomial_coefficients.pkl``: a synthetic 6x4x10 ``dx_dy_dtheta``
@@ -27,11 +28,24 @@ hip_yaw joint to the sole when straight, standing base height 0.1992 m at
 floor). Under ``ctrl = home ctrl`` it stands: 20 control steps keep base z
 in [0.18, 0.21] and upvector z above 0.95 (``STAND_Z_BAND``).
 
+The rough scene ``scene_rough_terrain_backlash.xml`` is the backlash duck on
+a heightfield: ``xmls/assets/hfield.png``, a 256x256 8-bit PNG made with
+``judge_heightfield``'s recipe (seed ``HFIELD_SEED``), in the reference's
+``<hfield size="10 10 .01 0.1"/>`` (10 x 10 m, bumps up to 1 cm), on a geom
+named ``floor`` (friction 1.0, condim 3) at the origin of a static body
+with no ``<inertial>`` (so its mass comes from the geom). The reference's
+exact layout is not in the repository. Here the terrain sits where the
+flat floor is (z = 0 at the lowest point) and the home keyframe stands
+``rough_home_lift()`` (7.5 mm) higher than the flat one, so that at reset the
+highest point of the terrain under the two soles touches a sole vertex and
+the duck stands on the bumps.
+
 It also holds what the fused kernel is checked with on the stand-in:
 ``settled_states`` and the ``parity`` limits on |kernel - twin|, shared by
 ``chip_smoke.py``, ``tests/test_torch_cuda.py`` and the CPU tests.
 
-Imports only numpy and scipy, so the card's machine (no jax) can run it.
+Imports numpy, scipy, Pillow and the port (for the heightfield recipe and
+its PNG writer), never jax, so the card's machine can run it.
 """
 
 from __future__ import annotations
@@ -71,6 +85,11 @@ HOME_LEG = (0.0, 0.0, 0.3, -0.6, 0.3)
 SOLE_HALF = (0.04, 0.02, 0.005)  # octagon half extents, half thickness
 SOLE_CHAMFER = 0.01
 STAND_Z_BAND = (0.18, 0.21)  # base z after 20 control steps at home
+# rough scene: the terrain (judge_heightfield's recipe at 256 rows, fixed
+# seed) and the reference's <hfield size>: 10 x 10 m, 1 cm bumps, 0.1 m base
+HFIELD_NROW = 256
+HFIELD_SEED = 1
+HFIELD_SIZE = (10.0, 10.0, 0.01, 0.1)
 
 
 def _sole_vertices() -> np.ndarray:
@@ -107,15 +126,67 @@ def _rot(axis: str, angle: float) -> np.ndarray:
     return np.eye(3) + np.sin(angle) * k + (1 - np.cos(angle)) * k @ k
 
 
-def standing_height() -> float:
-    """Base height that puts both soles flat on z=0 at the home pose."""
-    pos, R = np.array([0.0, HIP_Y, HIP_Z]), np.eye(3)
+def _ankle_pose(side: float):
+    """Ankle body pose relative to the base at the home pose (side +1 left,
+    -1 right)."""
+    pos, R = np.array([0.0, side * HIP_Y, HIP_Z]), np.eye(3)
     for (_, axis, off, _, _), q in zip(_LEG_CHAIN, HOME_LEG):
         if off is not None:
             pos = pos + R @ np.asarray(off)
         R = R @ _rot(axis, q)
+    return pos, R
+
+
+def standing_height() -> float:
+    """Base height that puts both soles flat on z=0 at the home pose."""
+    pos, R = _ankle_pose(1.0)
     sole = pos + R @ np.array([0.01, 0.0, -SOLE_DROP])
     return float(-sole[2])
+
+
+def _terrain() -> np.ndarray:
+    from open_duck_playground_tpu_torch.models.open_duck_mini_v2.judge_terrain import (
+        judge_heightfield,
+    )
+
+    return judge_heightfield(HFIELD_NROW, HFIELD_SEED)
+
+
+def terrain_heights() -> np.ndarray:
+    """The rough scene's terrain as the compiler reads it back from the
+    8-bit PNG: (HFIELD_NROW, HFIELD_NROW) in [0, 1], row index along +y."""
+    return (_terrain() * 255).astype(np.uint8) / 255.0
+
+
+def surface_height(data: np.ndarray, x: float, y: float) -> float:
+    """Terrain surface z at world (x, y), for the terrain geom at the origin:
+    the collider's cell lookup and triangulated interpolation (the twin's
+    _hf_indices / _hf_interp), in float64."""
+    nrow, ncol = data.shape
+    rx, ry, ztop = HFIELD_SIZE[:3]
+    gx = min(max((x + rx) / (2 * rx) * (ncol - 1), 0.0), ncol - 1.001)
+    gy = min(max((y + ry) / (2 * ry) * (nrow - 1), 0.0), nrow - 1.001)
+    ix, iy = int(np.floor(gx)), int(np.floor(gy))
+    fx, fy = gx - ix, gy - iy
+    z00, z10, z01, z11 = (ztop * data[iy + a, ix + b] for a, b in ((0, 0), (0, 1), (1, 0), (1, 1)))
+    if fx + fy < 1.0:
+        return z00 + fx * (z10 - z00) + fy * (z01 - z00)
+    return z11 + (1.0 - fx) * (z01 - z11) + (1.0 - fy) * (z10 - z11)
+
+
+def rough_home_lift() -> float:
+    """Highest terrain point under the 16 sole-bottom vertices at the home
+    pose (base at x = y = 0): the rough scene's home keyframe stands this
+    much higher than the flat one, so the soles rest on the bumps."""
+    data = terrain_heights()
+    bottom = _sole_vertices()[:8] + np.array([0.01, 0.0, -SOLE_DROP + SOLE_HALF[2]])
+    lift = 0.0
+    for side in (1.0, -1.0):
+        pos, R = _ankle_pose(side)
+        for v in bottom:
+            w = pos + R @ v
+            lift = max(lift, surface_height(data, float(w[0]), float(w[1])))
+    return lift
 
 
 def _chain_xml(prefix, chain, backlash, indent, leaf, first_off=None):
@@ -148,9 +219,19 @@ def _foot_leaf(side: str) -> str:
     )
 
 
-def scene_xml(backlash: bool) -> str:
+def scene_xml(backlash: bool, rough: bool = False) -> str:
+    """The flat scene, or with `rough` the heightfield scene: the floor
+    plane becomes the terrain geom and the home keyframe rises by
+    rough_home_lift()."""
     kp = 17.11 if backlash else 13.37
-    h = standing_height()
+    h = standing_height() + (rough_home_lift() if rough else 0.0)
+    if rough:
+        hfield = ('    <hfield name="hfield" file="assets/hfield.png" size="'
+                  + " ".join(str(v) for v in HFIELD_SIZE) + '"/>\n')
+        floor = '<geom name="floor" type="hfield" hfield="hfield" friction="1.0" condim="3"/>'
+    else:
+        hfield = ""
+        floor = '<geom name="floor" type="plane" size="0 0 0.05" friction="0.6" condim="3"/>'
     legs = {
         side: _chain_xml(f"{side}_", _LEG_CHAIN, backlash, "      ",
                          _foot_leaf(side), first_off=(0.0, sgn * HIP_Y, HIP_Z))
@@ -206,7 +287,7 @@ def scene_xml(backlash: bool) -> str:
   </default>
   <asset>
     <mesh name="foot_bottom_tpu" file="foot_bottom_tpu.stl"/>
-  </asset>
+{hfield}  </asset>
   <worldbody>
     <body name="base" pos="0 0 {h}">
       <freejoint name="floating_base"/>
@@ -217,7 +298,7 @@ def scene_xml(backlash: bool) -> str:
 {legs["left"]}{head}{legs["right"]}      </body>
     </body>
     <body name="ground">
-      <geom name="floor" type="plane" size="0 0 0.05" friction="0.6" condim="3"/>
+      {floor}
     </body>
   </worldbody>
   <actuator>
@@ -271,10 +352,16 @@ def write_standin(root: str) -> str:
     os.makedirs(os.path.join(root, "data"), exist_ok=True)
     with open(os.path.join(assets, "foot_bottom_tpu.stl"), "wb") as f:
         f.write(_binary_stl(_sole_vertices()))
-    for name, backlash in (("scene_flat_terrain.xml", False),
-                           ("scene_flat_terrain_backlash.xml", True)):
+    from open_duck_playground_tpu_torch.models.open_duck_mini_v2.judge_terrain import (
+        heightfield_png,
+    )
+
+    heightfield_png(os.path.join(assets, "hfield.png"), _terrain())
+    for name, backlash, rough in (("scene_flat_terrain.xml", False, False),
+                                  ("scene_flat_terrain_backlash.xml", True, False),
+                                  ("scene_rough_terrain_backlash.xml", True, True)):
         with open(os.path.join(root, "xmls", name), "w") as f:
-            f.write(scene_xml(backlash))
+            f.write(scene_xml(backlash, rough))
     with open(os.path.join(root, "data", "polynomial_coefficients.pkl"), "wb") as f:
         pickle.dump(_gait_pickle(), f)
     return root
@@ -390,6 +477,38 @@ PARITY_LIMITS = {
         "sensordata", "actuator_force", "contact_dist", "site_xpos", "site_xmat")}
        for with_dr in (False, True)},
 }
+# The heightfield scenes (rough and judge, the backlash duck) have limits of
+# their own, set the same way from chip_smoke.py's heightfield cases (rough
+# 1024 envs DR off / on, 8192 DR on, judge 1024 DR on; NVIDIA H100 80GB
+# HBM3, 700 W). With DR on every reading was 0: the twin divides by model
+# constants as the kernel does (lane.div), so the two agree bit for bit; DR
+# off differs as on the flat scenes (the twin folds constants in float64).
+_EXACT = {f: (1e-5, 1e-5, 1e-5) if f in ("qacc_warmstart", "accelerometer") else (1e-6,) * 3
+          for f in PARITY_LIMITS[("step", True)]}
+ROUGH_PARITY_LIMITS = {
+    ("step", False): {
+        "qpos": (4e-5, 8e-4, 2e-3),
+        "qvel": (5e-3, 7e-2, 1e-1),
+        "qacc_warmstart": (7e-1, 9e0, 2e1),
+        "accelerometer": (2e-1, 2e0, 2e0),
+        "sensordata": (8e-5, 2e-2, 1e-1),
+        "actuator_force": (7e-4, 2e-2, 2e-2),
+        "contact_dist": (1e-6, 6e-5, 9e-5),
+        "site_xpos": (7e-6, 8e-5, 2e-4),
+        "site_xmat": (3e-5, 8e-4, 2e-3),
+    },
+    ("step", True): dict(_EXACT),
+    ("init", False): {
+        **{f: (1e-6, 1e-6, 1e-6) for f in (
+            "sensordata", "actuator_force", "contact_dist", "site_xpos", "site_xmat")},
+        "qpos": (1e-6, 2e-5, 4e-5),
+        "qvel": (8e-6, 2e-2, 2e-2),
+        "qacc_warmstart": (4e-3, 6e0, 1e1),
+        "accelerometer": (9e-4, 1e0, 2e0),
+    },
+    ("init", True): dict(_EXACT),
+    **{("tilted", with_dr): PARITY_LIMITS[("tilted", with_dr)] for with_dr in (False, True)},
+}
 # init and tilted variants: site and contact outputs are kinematics of
 # identical inputs, held to a max as well
 INIT_MAX = {"site_xpos": 1e-4, "contact_dist": 1e-4, "site_xmat": 1e-4}
@@ -409,8 +528,14 @@ def parity_outputs(out: dict, accel_adr: int) -> dict:
     return out
 
 
+def parity_limits(variant: str, with_dr: bool, rough: bool = False) -> dict:
+    """{output: (q50, q95, worst column's q95)} of one variant and DR
+    setting, for the flat scenes or (`rough`) the heightfield scenes."""
+    return (ROUGH_PARITY_LIMITS if rough else PARITY_LIMITS)[(variant, with_dr)]
+
+
 def parity(kernel: np.ndarray, twin: np.ndarray, variant: str, with_dr: bool,
-           field: str) -> dict:
+           field: str, rough: bool = False) -> dict:
     """|kernel - twin| of one (B, width) output against its limits.
 
     Returns q50, q95, the worst column's q95 and its index, max (for
@@ -434,7 +559,7 @@ def parity(kernel: np.ndarray, twin: np.ndarray, variant: str, with_dr: bool,
              col_q95=float(col.max()), col=int(col.argmax()),
              max=float(err[both].max()) if both.any() else 0.0, flips=flips,
              scale=float(np.quantile(np.abs(p[valid]), 0.95)) if valid.any() else 0.0)
-    q50, q95, c95 = PARITY_LIMITS[(variant, with_dr)][field]
+    q50, q95, c95 = parity_limits(variant, with_dr, rough)[field]
     ok = finite and r["q50"] <= q50 and r["q95"] <= q95 and r["col_q95"] <= c95
     if variant != "step" and field in INIT_MAX:
         ok = ok and flips == 0 and r["max"] <= INIT_MAX[field]

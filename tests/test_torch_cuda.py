@@ -42,11 +42,14 @@ def _settled(m, n, dev, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [("flat_terrain", 1024, False), ("flat_terrain", 1024, True),
-                                  ("flat_terrain_backlash", 1024, True)])
+                                  ("flat_terrain_backlash", 1024, True),
+                                  ("rough_terrain_backlash", 1024, False),
+                                  ("rough_terrain_backlash", 1024, True)])
 def test_kernel_matches_twin(card, root, case):
     """chip_smoke.py's phase 2 at 1024 envs: all outputs of both variants
-    within duck_standin.PARITY_LIMITS (quantiles per output and per column;
-    see there for their origin)."""
+    within duck_standin.PARITY_LIMITS (ROUGH_PARITY_LIMITS on the rough
+    scene, through the kernel's heightfield branch; quantiles per output and
+    per column; see there for their origin)."""
     import chip_smoke  # the repo root is on sys.path under `python -m pytest`
 
     report = {}
@@ -86,6 +89,32 @@ def test_env_path_runs_through_the_kernel(card, root):
         assert torch.isfinite(v).all()
     # zero action: the duck stands
     assert float(state.done.max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_rough_env_path_runs_through_the_kernel(card, root):
+    """The rough path on the card: one launch per reset and per step, and
+    under zero action the duck stands on the terrain for 1 s (50 control
+    steps) through the kernel's heightfield branch, both soles in contact."""
+    env = Joystick("rough_terrain_backlash", device=card)
+    te = TrainEnv(env, num_envs=64, episode_length=1000,
+                  randomization_fn=randomize.domain_randomize,
+                  randomization_generator=torch.Generator(device=card).manual_seed(0))
+    state = te.reset(torch.Generator(device=card).manual_seed(1))
+    done = torch.zeros(64, device=card)
+    for _ in range(50):
+        state = te.step(state, torch.zeros(64, env.action_size, device=card))
+        done = torch.maximum(done, state.done)
+    assert env.physics.launches == 51
+    assert state.obs["state"].shape == (64, 101)
+    assert state.obs["privileged_state"].shape == (64, 212)
+    for v in (*state.obs.values(), state.data.qpos):
+        assert torch.isfinite(v).all()
+    assert float(done.max()) == 0.0
+    m = env.model
+    for p in range(m.npair):
+        if int(m.pair_type[p]) == 1:  # HFIELD_HULL: the sole rests on the terrain
+            assert float(state.data.contact.dist[:, 4 * p].max()) < 1e-3
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """The env path of the port against the JAX package: Joystick + TrainEnv
-with domain randomization on the stand-in duck, 8 envs.
+with domain randomization on the stand-in duck, 8 envs (flat scene; the
+rough scene for the env logic and a port-only rollout).
 
 The config overrides make a step deterministic apart from physics: noise
 level 0, action and IMU max delay 1 (every delay index is 0), pushes off.
@@ -7,12 +8,17 @@ The JAX reset state and its DR model are carried across with interop, and
 both packages take the same numpy actions.
 
 - env logic: JAX's physics outputs are injected into the port's step, so
-  obs, reward, done and info must match to 1e-5;
+  obs, reward, done and info must match to 1e-5; on the rough scene the
+  JAX side's physics is a cheap deterministic stand-in (compiling its XLA
+  heightfield pipeline takes minutes), which the terrain-blind env logic
+  consumes like any other physics output;
 - the slice: 5 control steps, JAX on its CPU XLA pipeline, the port on the
   kernel's plain version (its CPU path); `done` must be identical, obs and
   reward are held to quantile bounds;
 - the port's own draws (DR recipe, reset jitter) fall in the JAX ranges;
-- importing the port and running its env path never imports jax."""
+- importing the port and running its env path (flat and rough) never
+  imports jax;
+- the env runs on the card unless given device="cpu"."""
 
 import os
 import subprocess
@@ -26,6 +32,7 @@ import torch
 from open_duck_playground_tpu.envs import randomize as jax_randomize
 from open_duck_playground_tpu.envs.joystick import Joystick as JaxJoystick
 from open_duck_playground_tpu.envs.wrapper import TrainEnv as JaxTrainEnv
+from open_duck_playground_tpu.ops import forward as jax_fwd
 from open_duck_playground_tpu_torch import interop
 from open_duck_playground_tpu_torch.envs import randomize
 from open_duck_playground_tpu_torch.envs.joystick import Joystick
@@ -50,10 +57,42 @@ def root(tmp_path_factory):
         yield r
 
 
-@pytest.fixture(scope="module")
-def jax_run(root):
+def _standin_physics(env):
+    """A cheap, deterministic stand-in for the JAX env's physics (init and
+    step, one env): joints drift, sensors, sites, forces and contact
+    distances move with time and ctrl, the upvector stays near +z."""
+    import jax.numpy as jnp
+
+    m = env.model
+    up = int(m.sensor_adr[m.sensor("upvector")])
+
+    def fill(d, ctrl, t):
+        ph = 7.0 * t + jnp.sum(ctrl)
+        sd = 0.3 * jnp.sin(ph + jnp.arange(m.nsensordata))
+        sd = sd.at[up:up + 3].set(jnp.stack([0.1 * jnp.sin(ph), 0.1 * jnp.cos(ph), 0.99]))
+        return d.replace(
+            ctrl=ctrl, time=t, actuator_force=0.5 * jnp.tanh(ctrl), sensordata=sd,
+            site_xpos=0.05 * jnp.sin(ph + jnp.arange(3 * m.nsite)).reshape(m.nsite, 3),
+            site_xmat=jnp.tile(jnp.eye(3), (m.nsite, 1, 1)),
+            contact=d.contact.replace(dist=0.01 * jnp.sin(3.0 * ph + jnp.arange(m.ncon))))
+
+    def init(model, qpos, qvel, ctrl):
+        return fill(jax_fwd.make_data(m).replace(qpos=qpos, qvel=qvel), ctrl, jnp.float32(0.0))
+
+    def step(model, d, ctrl):
+        t = d.time + env.dt
+        qpos = d.qpos.at[7:].add(0.01 * jnp.sin(7.0 * t + jnp.arange(m.nq - 7)))
+        qvel = 0.1 * jnp.cos(7.0 * t + jnp.arange(m.nv))
+        return fill(d.replace(qpos=qpos, qvel=qvel, qacc_warmstart=qvel), ctrl, t)
+
+    return init, step
+
+
+def _jax_run(task):
     """JAX TrainEnv (DR on): reset + N_STEPS steps, every state as numpy."""
-    env = JaxJoystick("flat_terrain", config_overrides=OVERRIDES)
+    env = JaxJoystick(task, config_overrides=OVERRIDES)
+    if task != "flat_terrain":
+        env._physics_init_fn, env._physics_step_fn = _standin_physics(env)
     te = JaxTrainEnv(env, num_envs=N_ENVS, episode_length=1000,
                      randomization_fn=jax_randomize.domain_randomize,
                      randomization_rng=jax.random.PRNGKey(0))
@@ -65,11 +104,21 @@ def jax_run(root):
     for k in range(N_STEPS):
         state = step(state, actions[k])
         states.append(numpy_tree(state))
-    return dict(states=states, actions=actions, model=jax_model_fields(te._model_v))
+    return dict(task=task, states=states, actions=actions, model=jax_model_fields(te._model_v))
+
+
+@pytest.fixture(scope="module")
+def jax_run(root):
+    return _jax_run("flat_terrain")
+
+
+@pytest.fixture(scope="module")
+def jax_run_rough(root):
+    return _jax_run("rough_terrain_backlash")
 
 
 def _port(jax_run):
-    env = Joystick("flat_terrain", config_overrides=OVERRIDES)
+    env = Joystick(jax_run["task"], config_overrides=OVERRIDES, device="cpu")
     model_v = interop.model_from_numpy(jax_run["model"])
     te = TrainEnv(env, num_envs=N_ENVS, episode_length=1000,
                   randomization_fn=lambda model, n, g: model_v)
@@ -80,7 +129,7 @@ def _info_keys(info):
     return [k for k in info if k not in ("rng", "first_data", "first_obs")]
 
 
-def test_env_logic_matches_jax_with_injected_physics(jax_run, monkeypatch):
+def _env_logic_matches_jax(jax_run, monkeypatch):
     env, te = _port(jax_run)
     states, actions = jax_run["states"], jax_run["actions"]
     for k in range(N_STEPS):
@@ -101,6 +150,16 @@ def test_env_logic_matches_jax_with_injected_physics(jax_run, monkeypatch):
             np.testing.assert_allclose(out.metrics[key].numpy(), v, atol=1e-5, err_msg=key)
     assert out.obs["state"].shape == (N_ENVS, 101)
     assert out.obs["privileged_state"].shape == (N_ENVS, 212)
+
+
+def test_env_logic_matches_jax_with_injected_physics(jax_run, monkeypatch):
+    _env_logic_matches_jax(jax_run, monkeypatch)
+
+
+def test_env_logic_matches_jax_with_injected_physics_rough(jax_run_rough, monkeypatch):
+    """The same on the rough scene (nq=31, a heightfield floor): the env
+    logic is terrain-blind."""
+    _env_logic_matches_jax(jax_run_rough, monkeypatch)
 
 
 def test_slice_matches_jax(jax_run):
@@ -133,7 +192,7 @@ def test_port_draws_fall_in_jax_ranges(root):
     """The DR recipe and the reset jitter: the port's draws and JAX's land
     in the same ranges (their streams differ: torch is not threefry)."""
     n = 64
-    env = Joystick("flat_terrain")
+    env = Joystick("flat_terrain", device="cpu")
     base = env.model
     mv = randomize.domain_randomize(base, n, torch.Generator().manual_seed(3))
     jenv = JaxJoystick("flat_terrain")
@@ -190,10 +249,11 @@ def test_port_never_imports_jax(root):
         "from open_duck_playground_tpu_torch.envs import randomize\n"
         "from open_duck_playground_tpu_torch.envs.joystick import Joystick\n"
         "from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv\n"
-        "te = TrainEnv(Joystick('flat_terrain'), num_envs=2, episode_length=10,\n"
-        "              randomization_fn=randomize.domain_randomize)\n"
-        "st = te.step(te.reset(torch.Generator().manual_seed(0)), torch.zeros(2, 14))\n"
-        "assert st.obs['state'].shape == (2, 101)\n"
+        "for task in ('flat_terrain', 'rough_terrain_backlash'):\n"
+        "    te = TrainEnv(Joystick(task, device='cpu'), num_envs=2, episode_length=10,\n"
+        "                  randomization_fn=randomize.domain_randomize)\n"
+        "    st = te.step(te.reset(torch.Generator().manual_seed(0)), torch.zeros(2, 14))\n"
+        "    assert st.obs['state'].shape == (2, 101)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ml_collections', 'mujoco'))\n"
         "assert not bad, bad\n"
@@ -208,7 +268,7 @@ def test_port_never_imports_jax(root):
 def test_nan_action_terminates_on_cpu(root):
     """NaN action probe on the port's CPU path: done -> 1 within 3 control
     steps (the delay buffer may serve an older clean action first)."""
-    env = Joystick("flat_terrain")
+    env = Joystick("flat_terrain", device="cpu")
     te = TrainEnv(env, num_envs=2, episode_length=1000)
     state = te.reset(torch.Generator().manual_seed(0))
     nan = torch.full((2, env.action_size), float("nan"))
@@ -217,3 +277,33 @@ def test_nan_action_terminates_on_cpu(root):
         state = te.step(state, nan)
         done = torch.maximum(done, state.done)
     assert bool((done == 1).all()), done
+
+
+def test_env_defaults_to_the_card(root):
+    """The env runs on the card unless given a CPU device: without CUDA, a
+    call that names no device raises instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Joystick("flat_terrain")
+    assert Joystick("flat_terrain", device="cpu").device == torch.device("cpu")
+
+
+def test_rough_rollout_on_cpu(root):
+    """The rough path end to end on the port's CPU path (the kernel's plain
+    version): TrainEnv on rough_terrain_backlash, 4 envs, DR on, reset + 3
+    random steps."""
+    env = Joystick("rough_terrain_backlash", device="cpu")
+    assert env.model.hfield_nrow == 256
+    te = TrainEnv(env, num_envs=4, episode_length=1000,
+                  randomization_fn=randomize.domain_randomize,
+                  randomization_generator=torch.Generator().manual_seed(0))
+    state = te.reset(torch.Generator().manual_seed(1))
+    actions = torch.rand((3, 4, env.action_size), generator=torch.Generator().manual_seed(2)) * 2 - 1
+    for a in actions:
+        state = te.step(state, a)
+    assert {k: tuple(v.shape) for k, v in state.obs.items()} == {
+        "state": (4, 101), "privileged_state": (4, 212)}
+    for v in (*state.obs.values(), state.reward, state.data.qpos, state.data.contact.dist):
+        assert torch.isfinite(v).all()
+    assert env.physics.launches == 0

@@ -1,5 +1,6 @@
 """The generated stand-in duck: it compiles in both packages and in MuJoCo,
-carries every name and width the envs look up, and stands."""
+carries every name and width the envs look up, and stands (on the flat
+floor, and on the rough scene's heightfield)."""
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,8 @@ SCENES = {
     "scene_flat_terrain.xml": dict(nq=21, nv=20, nu=14),
     "scene_flat_terrain_backlash.xml": dict(nq=31, nv=30, nu=14),
 }
+ROUGH = "scene_rough_terrain_backlash.xml"
+SIZES = {**SCENES, ROUGH: dict(nq=31, nv=30, nu=14)}
 SENSORS = ["upvector", "global_linvel", "global_angvel", "local_linvel", "accelerometer",
            "gyro", "left_foot_pos", "right_foot_pos", "left_foot_global_linvel",
            "right_foot_global_linvel"]
@@ -32,10 +35,10 @@ def root(tmp_path_factory):
         yield r
 
 
-@pytest.mark.parametrize("name", sorted(SCENES))
+@pytest.mark.parametrize("name", sorted(SIZES))
 def test_standin_names_and_widths(root, name):
     for m in (jax_compile(scene(root, name)), torch_compile(scene(root, name))):
-        for k, v in SCENES[name].items():
+        for k, v in SIZES[name].items():
             assert getattr(m, k) == v, (name, k)
         assert m.njnt == 1 + 14 + (10 if "backlash" in name else 0)
         assert int(m.jnt_type[m.joint("floating_base")]) == 0
@@ -53,7 +56,8 @@ def test_standin_names_and_widths(root, name):
         left, right = (m.geom(n) for n in constants.FEET_GEOMS)
         for g in (left, right):
             assert int(m.geom_type[g]) == 7  # mesh
-        assert {int(t) for t in m.pair_type} == {0, 2}  # PLANE_HULL, HULL_HULL
+        # PLANE_HULL (HFIELD_HULL on the rough scene), HULL_HULL
+        assert {int(t) for t in m.pair_type} == ({1, 2} if name == ROUGH else {0, 2})
         for a, b in ((floor, left), (floor, right), (left, right)):
             m.find_pair(a, b)
         assert int(m.hull_nvert[0]) >= 8
@@ -67,6 +71,58 @@ def test_standin_compiles_in_mujoco(root):
         mm = mujoco.MjModel.from_xml_path(scene(root, name))
         assert (mm.nq, mm.nv, mm.nu) == (sizes["nq"], sizes["nv"], sizes["nu"])
         assert mm.nsensordata == 46
+
+
+def test_rough_standin_compiles_in_mujoco(root):
+    """Compile only: MuJoCo's prism collider ejects the duck at 256x256
+    (models/open_duck_mini_v2/judge_terrain.py)."""
+    pytest.importorskip("mujoco")
+    from open_duck_playground_tpu.deploy.mujoco_infer_base import load_mj_model
+
+    mm = load_mj_model(scene(root, ROUGH))
+    assert (mm.nq, mm.nv, mm.nu) == (31, 30, 14) and mm.nsensordata == 46
+    assert (int(mm.hfield_nrow[0]), int(mm.hfield_ncol[0])) == (256, 256)
+    np.testing.assert_allclose(mm.hfield_size[0], duck_standin.HFIELD_SIZE)
+
+
+def test_rough_home_stands_on_the_bumps(root):
+    """At the home keyframe the highest terrain point under the soles
+    touches a sole vertex (contact dist 0 up to float32 rounding), the
+    rest hover within the bumps' 1 cm, on both feet."""
+    m = torch_compile(scene(root, ROUGH), timestep=0.002)
+    kf = m.keyframe("home")
+    assert abs(float(kf.qpos[2]) - duck_standin.standing_height()
+               - duck_standin.rough_home_lift()) < 1e-6
+    qpos, qvel, ctrl = (torch.tensor(np.asarray(x, np.float32))[None] for x in (
+        kf.qpos, np.zeros(m.nv), kf.ctrl))
+    cd = FusedPhysics(m).plain(qpos, qvel, torch.zeros_like(qvel), ctrl, 1)["contact_dist"][0]
+    deepest = [float(cd[4 * p]) for p in range(m.npair) if int(m.pair_type[p]) == 1]
+    assert len(deepest) == 2 and all(-1e-5 < d < 0.01 for d in deepest), deepest
+    assert min(abs(d) for d in deepest) < 1e-5, deepest
+
+
+def test_rough_standin_stands_under_the_twin(root):
+    """Zero action (ctrl = home ctrl) from the home keyframe on the rough
+    scene, through the twin for 5 control steps (0.1 s, 50 substeps; 1 s
+    is held on the card through the kernel, tests/test_torch_cuda.py): no
+    fall through the terrain, no ejection, both soles in contact."""
+    m = torch_compile(scene(root, ROUGH), timestep=0.002)
+    fp = FusedPhysics(m)
+    kf = m.keyframe("home")
+    qpos = torch.tensor(np.asarray(kf.qpos, np.float32))[None]
+    ctrl = torch.tensor(np.asarray(kf.ctrl, np.float32))[None]
+    qvel = warm = torch.zeros(1, m.nv)
+    z0 = float(qpos[0, 2])
+    for _ in range(5):
+        out = fp.plain(qpos, qvel, warm, ctrl, 10)
+        qpos, qvel, warm = out["qpos"], out["qvel"], out["qacc_warmstart"]
+        assert abs(float(qpos[0, 2]) - z0) < 0.01, float(qpos[0, 2])
+    assert float(qvel.abs().max()) < 0.5
+    assert float(out["sensordata"][0, 11]) > 0.99  # upvector z
+    cd = out["contact_dist"][0]
+    for p in range(m.npair):
+        if int(m.pair_type[p]) == 1:
+            assert float(cd[4 * p]) < 1e-3  # the sole rests on the terrain
 
 
 def test_standin_stands(root):
@@ -123,9 +179,13 @@ def test_tilted_states_turn_the_base(root):
     assert np.abs(qvel[:, 3:6]).max() <= 2.0 and np.quantile(np.abs(qvel[:, 3:6]), 0.5) > 0.5
 
 
-@pytest.mark.parametrize("variant,field", [(v, f) for (v, dr) in duck_standin.PARITY_LIMITS
-                                           if not dr for f in duck_standin.PARITY_LIMITS[(v, dr)]])
-def test_parity_limits_catch_a_wrong_column_or_env(twin_outputs, field, variant):
+@pytest.mark.parametrize(
+    "variant,field,rough",
+    [pytest.param(v, f, False, id=f"{v}-{f}") for (v, dr) in duck_standin.PARITY_LIMITS
+     if not dr for f in duck_standin.PARITY_LIMITS[(v, dr)]]
+    + [pytest.param(v, f, True, id=f"rough-{v}-{f}") for (v, dr) in duck_standin.PARITY_LIMITS
+       if not dr for f in duck_standin.PARITY_LIMITS[(v, dr)]])
+def test_parity_limits_catch_a_wrong_column_or_env(twin_outputs, field, variant, rough):
     """The kernel-vs-twin check (duck_standin.parity) passes a kernel equal
     to the twin, and fails one that is wrong in a single column (every env)
     or in every column of one env in ten, by as much as the column's own
@@ -140,14 +200,17 @@ def test_parity_limits_catch_a_wrong_column_or_env(twin_outputs, field, variant)
     env_subset = p.copy()
     env_subset[::10] += np.where(valid[::10], mag, 0.0)
     for with_dr in (False, True):
-        assert duck_standin.parity(p, p, variant, with_dr, field)["ok"]
+        assert duck_standin.parity(p, p, variant, with_dr, field, rough)["ok"]
         for wrong in (one_col, env_subset):
-            r = duck_standin.parity(wrong, p, variant, with_dr, field)
-            assert r["q50"] == 0.0 and not r["ok"], (with_dr, r)
+            r = duck_standin.parity(wrong, p, variant, with_dr, field, rough)
+            assert r["q50"] == 0.0 and not r["ok"], (with_dr, rough, r)
 
 
 def test_parity_q50_limits_within_the_tpu_table():
-    """No step-variant q50 limit is looser than 10x the TPU kernel's q50."""
-    for with_dr in (False, True):
-        for f, q50 in duck_standin.TPU_Q50.items():
-            assert duck_standin.PARITY_LIMITS[("step", with_dr)][f][0] <= 10 * q50, (f, with_dr)
+    """No step-variant q50 limit is looser than 10x the TPU kernel's q50,
+    on the flat scenes or the heightfield ones."""
+    for rough in (False, True):
+        for with_dr in (False, True):
+            for f, q50 in duck_standin.TPU_Q50.items():
+                lim = duck_standin.parity_limits("step", with_dr, rough)[f][0]
+                assert lim <= 10 * q50, (f, with_dr, rough)
