@@ -4,7 +4,10 @@
 
 Phases:
 1. build the fused physics kernel (ops/csrc/physics_step.cu) with nvcc into
-   build/kernels/, or reuse an earlier build of the same source;
+   build/kernels/, or reuse an earlier build of the same source; print
+   ptxas' registers, stack and spills, and the launch geometry at each main
+   path's shape (shared bytes per env, envs per block, resident blocks per
+   SM, waves);
 2. kernel vs its plain PyTorch version ("twin", ops/lane_physics.py) on the
    card: the step variant (10 substeps) and the init variant (1 substep)
    from settled stand-in states, and the init variant from tilted ones
@@ -115,6 +118,11 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def phase_build():
+    """Build the kernel, print ptxas' report and, for each main path's
+    shape, the launch geometry: shared memory per env, envs (warps) per
+    block, resident blocks per SM and waves."""
+    from open_duck_playground_tpu_torch.mjcf import compile_mjcf
+    from open_duck_playground_tpu_torch.models.open_duck_mini_v2 import constants
     from open_duck_playground_tpu_torch.ops import cuda_step
 
     t0 = time.perf_counter()
@@ -125,6 +133,13 @@ def phase_build():
             if "registers" in line or "stack" in line or "spill" in line:
                 log(f"[build] ptxas: {line.strip()}")
     log(f"[build] limits {cuda_step.kernel_limits()}")
+    for task, B in (FLAT_MAIN, ROUGH_MAIN):
+        fp = cuda_step.FusedPhysics(compile_mjcf(constants.task_to_xml(task), timestep=0.002))
+        geo = fp.geometry(B, torch.device("cuda"))
+        log(f"[build] geometry {task} B={B}: {fp.packed()['layout']['env_bytes']} shared bytes "
+            f"per env, {geo['envs_per_block']} envs per block, {geo['blocks_per_sm']} blocks "
+            f"({geo['warps_per_sm']} warps) resident per SM of {geo['sms']}, {geo['blocks']} "
+            f"blocks in {geo['waves']} waves")
 
 
 def phase_kernel_vs_twin(cases, report) -> bool:

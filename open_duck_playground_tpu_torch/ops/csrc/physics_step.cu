@@ -11,45 +11,52 @@
 // scenes). The plain PyTorch version of the same program is
 // ops/lane_physics.py of this package; the wrapper is ops/cuda_step.py.
 //
-// Design:
-// - One thread per env, 1-D grid, ragged edge masked: no (8, 128) lanes and
-//   no BLOCK padding. The wrapper picks the block size (32 to 128 threads)
-//   so that the blocks reach every SM. Each thread runs the whole straight-line program of
-//   every substep; a runtime loop runs the first n-1 substeps, the last one
-//   also writes the derived outputs from its pre-integration state.
+// Design: one warp per env, the env's working set in shared memory.
+// - A block holds k warps, one env each; the grid has ceil(B / k) blocks, and
+//   a warp whose env is >= B returns at once (the block never synchronises).
+//   The wrapper picks k from the shared memory one env needs and the
+//   occupancy the runtime reports (duck_occupancy).
+// - Every per-env array lives in the block's dynamic shared memory, in the
+//   env's own slice, at offsets the wrapper computes from the model's sizes
+//   (DuckModel.lay, cuda_step.shared_layout): state, kinematics, inertias,
+//   M and the Newton Hessian as packed lower triangles, the constraint
+//   Jacobian stored over each row's support only (efc_off / efc_col, the
+//   twin's column order), and per-stage scratch that later stages reuse.
+//   Nothing is sized by compile-time maxima and no thread keeps a work array
+//   (ptxas: 32 bytes of stack, 0 spills). The stand-in duck needs 12,224
+//   bytes per env flat and 16,032 rough: 18 and 14 envs resident per SM.
+// - Lanes split independent outputs, never the terms of one sum: one
+//   constraint row, dof, M or H entry, hull vertex, separating axis, body or
+//   spatial component per lane. Every float sum keeps the twin's order term
+//   for term, on one lane where the twin adds in row order (the costs, the
+//   line search's derivatives), and the warp reductions over vertices and
+//   axes return exactly what the twin's serial scans return, ties and NaN
+//   included. Built with -fmad=false and no fast math (the heightfield
+//   constants are divided by, as the twin divides), the kernel is bit-for-bit
+//   equal to the twin with DR on.
 // - The model is data, not code: the wrapper packs the structural arrays
 //   (tree, addresses, types, constants, hulls, constraint-row tables, LDL
-//   sparsity masks, the heightfield table) once into device tensors and
-//   passes them in DuckModel. One build serves every scene that fits the
-//   compile-time maxima below. Every pair type is handled by name; the
-//   wrapper admits no other.
+//   sparsity masks, the heightfield table) once into device tensors, read
+//   through the read-only path (__ldg). Every pair type is handled by name;
+//   the wrapper admits no other.
 // - Domain randomization comes as optional per-env pointers (DuckDR); a null
 //   pointer means the model constant is used (the with_dr=False variant).
-// - Per-env work arrays (mass matrix, Newton Hessian, constraint Jacobian)
-//   are dense and sized by the maxima, in the thread's local memory (~45 KB
-//   a thread), which the hardware interleaves across the threads of a warp,
-//   so a warp's access to one field is one contiguous line. Sparse loops
-//   follow bit masks of the tree / LDL pattern, in the twin's order.
 // - The heightfield (256 x 256 floats, 256 KB, on the rough scene) is larger
 //   than a block's shared memory, so it stays in device memory: each foot
-//   vertex reads the 4 corners of its cell with __ldg, about 1,300 loads per
-//   env per control step, served from L2 after the first touch (the TPU
-//   kernel gathered them with a one-hot matmul, as Mosaic has no vector
-//   gather). Its per-vertex state (local coordinates, normals) adds ~0.4 KB
-//   to each thread's local memory.
+//   vertex reads the 4 corners of its cell with __ldg, served from L2 after
+//   the first touch.
 //
-// What bounds it on an H100: not device-memory traffic (a few hundred bytes
-// of state in and out per env per control step, the table once) but each
-// thread's latency chain: ~1e5 dependent flops per substep per env, most of
-// them on the Jacobian (MAX_EFC x MAX_NV floats) and the two dense nv x nv
-// matrices in local memory, served by L1/L2. 4096 envs are one warp per SM,
-// so nothing hides that latency. The design takes that cost for now so the
-// arithmetic stays the twin's, operation for operation (built with
-// -fmad=false, no fast math; the heightfield constants are divided by, as
-// the twin divides, since a last-bit change in a cell coordinate can move a
-// vertex to another cell); making it fast (warp-cooperative rows and solves,
-// more warps per env group, shared-memory model constants and judge table)
-// is later work.
+// What bounds it on an H100: the instructions each warp issues along its
+// env's dependent chain, not memory (a few hundred bytes of state per env
+// and control step) and not the arithmetic (~45x the float32 bound). With
+// 14-18 warps per SM the schedulers are mostly busy; the longest chains are
+// the two column-by-column LDL factorizations (nv columns, two warp
+// barriers each), the row-ordered sums of the costs and line search on one
+// lane, the tree walks down 7 levels, and the collision's warp scans. A
+// next redesign would cut instructions there: keep rows and the pivot row
+// in registers, fold the factor's two barriers per column into one, and
+// (only with the twin changed alike) sum rows in a tree instead of in order.
+// Built with -DDUCK_PROFILE the kernel reports each stage's clock cycles.
 //
 // NaN is never clamped away: min/max/clip propagate NaN like jax.numpy and
 // torch do, so a NaN action still terminates the env.
@@ -58,17 +65,9 @@
 #include <math.h>
 #include <stdint.h>
 
-#define MAX_NQ 40
-#define MAX_NV 32
-#define MAX_NU 32
-#define MAX_BODY 40
-#define MAX_JNT 40
-#define MAX_SITE 8
-#define MAX_PAIR 4
-#define MAX_HV 32
-#define MAX_HF 64
-#define MAX_EFC 128
-#define MAX_HFIELD_N 4096  // heightfield rows, and columns
+#define MAX_NV 32  // dof bit masks are 32 bits wide
+#define MAX_HV 32  // one lane per hull vertex
+#define FULL 0xffffffffu
 
 #define MINVAL 1e-10f
 #define TINY 1e-12f
@@ -87,13 +86,47 @@
 #define HFP_N 11
 #define ACT_NF 9   // ctrl_lo, ctrl_hi, gear, gain0, bias0, bias1, bias2, force_lo, force_hi
 
+// The env's shared-memory slice: offsets (in floats) of each array, in the
+// order of cuda_step.LAYOUT_NAMES. The first group lives through a whole
+// substep, the second from kinematics to the bias forces; each later group
+// is one stage's scratch, overlaid as cuda_step.shared_layout places it.
+enum {
+  L_QPOS, L_QVEL, L_WARM, L_CTRL,
+  L_XPOS, L_XQUAT, L_SUBTREE_COM, L_CDOF, L_CDOFDOT, L_CVEL,
+  L_M, L_QACC_SMOOTH, L_QACC, L_ACT_FORCE,
+  L_CAND, L_FRAME,
+  L_EFC_J, L_EFC_D, L_EFC_AREF, L_EFC_POS, L_EFC_FLOSS, L_EFC_JAREF, L_EFC_JD,
+  L_SCAL,
+  // kinematics to the bias forces
+  L_XANCHOR, L_XAXIS, L_CINERT,
+  // com_pos
+  L_XIPOS, L_SEG,
+  // crb
+  L_CRB, L_FVEC,
+  // collide
+  L_W1, L_W2,
+  // com_vel, rne, actuation
+  L_VPRE, L_CACC, L_CFRC, L_BIAS, L_QFRC_ACT,
+  // smooth acceleration (overlays the kinematics-to-bias arrays)
+  L_LDLM, L_DINV,
+  // make_efc
+  L_CMETA, L_JNT,
+  // solver
+  L_H, L_SOL_DINV, L_GRAD, L_MAERR, L_DIR, L_TMP, L_TMP2, L_EFC_F, L_EFC_W, L_TERMS,
+  // derived outputs
+  L_SPOS, L_SMAT, L_PCACC,
+  L_COUNT
+};
+
 extern "C" {
 
 struct DuckModel {
   int nq, nv, nu, nbody, njnt, ngeom, nsite, nsensor, npair, nfri, nlim, hv, hf;
   int iterations, ls_iterations;
   int hfield_nrow, hfield_ncol;  // 0 without a heightfield
+  int nefc, max_depth, env_floats;  // constraint rows; tree depth; floats of one env's slice
   float dt, gx, gy, gz;
+  int lay[L_COUNT];
   const int *body_parentid, *body_rootid, *body_jntadr, *body_jntnum,
       *body_dofadr, *body_dofnum;
   const float *body_pos, *body_quat, *body_ipos, *body_iquat, *body_mass,
@@ -123,6 +156,10 @@ struct DuckModel {
   const float *hull_vert, *hull_face_n;  // (nhull, hv, 3), (nhull, hf, 3): hf counts hull faces
   const float *hfield_data;  // (hfield_nrow, hfield_ncol) row major, or null
   const float *hfield_prm;   // HFP_N constants, or null
+  const int *efc_off;        // (nefc + 1,) row r's support is efc_col[efc_off[r]:efc_off[r+1]]
+  const int *efc_col;        // the dofs of each row's support, ascending (the twin's order)
+  const int *efc_dof_rows;   // (nv, 2) each dof's friction row and limit row, or -1
+  const int *body_depth;     // depth of each body in the tree (world 0)
 };
 
 struct DuckDR {  // per-env rows, or null for the model constant
@@ -138,6 +175,13 @@ enum {
   S_GYRO = 0, S_VELOCIMETER, S_ACCELEROMETER, S_FRAMEXAXIS, S_FRAMEZAXIS,
   S_FRAMELINVEL, S_FRAMEANGVEL, S_FRAMEPOS, S_FRAMEQUAT
 };
+
+// model reads go through the read-only data path
+#define G(x) __ldg(&(x))
+// this env's array `name` in shared memory (`sm` and `m` in scope)
+#define SA(name) (sm + m.lay[L_##name])
+// packed lower triangle, i >= j
+#define TRI(i, j) ((i) * ((i) + 1) / 2 + (j))
 
 // ---------------------------------------------------------------------------
 // scalar helpers with jax.numpy / torch NaN semantics
@@ -169,6 +213,13 @@ struct M3 { float m[9]; };
 __device__ __forceinline__ V3 v3(float x, float y, float z) { V3 r = {x, y, z}; return r; }
 __device__ __forceinline__ V3 vld(const float* p) { return v3(p[0], p[1], p[2]); }
 __device__ __forceinline__ Q4 qld(const float* p) { Q4 q = {p[0], p[1], p[2], p[3]}; return q; }
+__device__ __forceinline__ V3 vldg(const float* p) { return v3(__ldg(p), __ldg(p + 1), __ldg(p + 2)); }
+__device__ __forceinline__ Q4 qldg(const float* p) {
+  Q4 q = {__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3)};
+  return q;
+}
+__device__ __forceinline__ void vst(float* p, V3 v) { p[0] = v.x; p[1] = v.y; p[2] = v.z; }
+__device__ __forceinline__ void qst(float* p, Q4 q) { p[0] = q.w; p[1] = q.x; p[2] = q.y; p[3] = q.z; }
 __device__ __forceinline__ V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
 __device__ __forceinline__ V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
 __device__ __forceinline__ V3 scl(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
@@ -220,9 +271,6 @@ __device__ __forceinline__ V3 mtvec(const M3& m, V3 v) {
 __device__ __forceinline__ V3 mcol(const M3& m, int j) { return v3(m.m[j], m.m[3 + j], m.m[6 + j]); }
 
 // spatial 6-vectors [ang(3), lin(3)]
-__device__ __forceinline__ void v6_axpy(float* a, const float* x, float s) {
-  for (int i = 0; i < 6; ++i) a[i] = a[i] + x[i] * s;
-}
 __device__ __forceinline__ float v6_dot(const float* a, const float* b) {
   float s = a[0] * b[0];
   for (int i = 1; i < 6; ++i) s = s + a[i] * b[i];
@@ -250,7 +298,7 @@ __device__ __forceinline__ void sym6_vec(const float* s, const float* v, float* 
     out[i] = acc;
   }
 }
-__device__ void spatial_inertia_sym(float mass, const M3& I, V3 c, float* out) {
+__device__ __forceinline__ void spatial_inertia_sym(float mass, const M3& I, V3 c, float* out) {
   float xx = mass * (c.y * c.y + c.z * c.z);
   float yy = mass * (c.x * c.x + c.z * c.z);
   float zz = mass * (c.x * c.x + c.y * c.y);
@@ -271,7 +319,7 @@ __device__ void spatial_inertia_sym(float mass, const M3& I, V3 c, float* out) {
   out[s6(3, 3)] = mass * 1.0f; out[s6(4, 3)] = zero; out[s6(4, 4)] = mass * 1.0f;
   out[s6(5, 3)] = zero; out[s6(5, 4)] = zero; out[s6(5, 5)] = mass * 1.0f;
 }
-__device__ M3 rotate_inertia(V3 d, const M3& R) {
+__device__ __forceinline__ M3 rotate_inertia(V3 d, const M3& R) {
   M3 out;
   for (int r = 0; r < 3; ++r)
     for (int c = 0; c < 3; ++c)
@@ -285,421 +333,562 @@ __device__ M3 rotate_inertia(V3 d, const M3& R) {
 // impedance (lane_physics._impedance) from a packed IMP_N block
 // ---------------------------------------------------------------------------
 
-__device__ float impedance(float pos, const float* p) {
-  const float dmin = p[2], dmax = p[3], width = p[4], mid = p[5], power = p[6];
+__device__ __forceinline__ float impedance(float pos, const float* p) {
+  const float dmin = G(p[2]), dmax = G(p[3]), width = G(p[4]), mid = G(p[5]), power = G(p[6]);
   float x = fabsf(pos) / width;
   float y_low, y_high;
   if (power == 2.0f) {
-    y_low = x * x * p[7];
+    y_low = x * x * G(p[7]);
     float xm = 1.0f - x;
-    y_high = 1.0f - xm * xm * p[8];
+    y_high = 1.0f - xm * xm * G(p[8]);
   } else if (power == 1.0f) {
     y_low = x;
     y_high = x;
   } else {
-    y_low = powf(x, power) * p[7];
-    y_high = 1.0f - powf(1.0f - x, power) * p[8];
+    y_low = powf(x, power) * G(p[7]);
+    y_high = 1.0f - powf(1.0f - x, power) * G(p[8]);
   }
   float y = x < mid ? y_low : y_high;
-  float imp = dmin + y * p[9];
+  float imp = dmin + y * G(p[9]);
   imp = x >= 1.0f ? dmax : imp;
   return vclip(imp, dmin, dmax);
 }
 
-// ---------------------------------------------------------------------------
-// per-thread work state
-// ---------------------------------------------------------------------------
-
-struct Cand { float dist; V3 pos; };
-
-struct Work {
-  // kinematics
-  V3 xpos[MAX_BODY];
-  Q4 xquat[MAX_BODY];
-  V3 xanchor[MAX_JNT];
-  V3 xaxis[MAX_JNT];
-  // com / inertia
-  V3 subtree_com[MAX_BODY];
-  float cinert[MAX_BODY][21];
-  float cdof[MAX_NV][6];
-  float cdofdot[MAX_NV][6];
-  float cvel[MAX_BODY][6];
-  float M[MAX_NV][MAX_NV];
-  float H[MAX_NV][MAX_NV];
-  float dinv[MAX_NV];
-  float qacc_smooth[MAX_NV];
-  float actuator_force[MAX_NU];
-  // contacts: per pair 4 candidates + frame (rows n, t1, t2)
-  Cand cand[MAX_PAIR][4];
-  float frame[MAX_PAIR][9];
-  // constraint rows
-  int nefc;
-  float J[MAX_EFC][MAX_NV];
-  uint32_t sup[MAX_EFC];
-  float D[MAX_EFC], aref[MAX_EFC], pos[MAX_EFC], floss[MAX_EFC];
-  float Jaref[MAX_EFC], Jd[MAX_EFC];
-  uint8_t is_fri[MAX_EFC];
-  // solver
-  float qacc[MAX_NV];
-  float dir[MAX_NV];
-  float tmp[MAX_NV];
-  float tmp2[MAX_NV];
-  // hull vertices in world frame
-  V3 w1[MAX_HV];
-  V3 w2[MAX_HV];
-  float sup_v[MAX_HV];
-  uint8_t mask_v[MAX_HV];
+// Built with -DDUCK_PROFILE, lane 0 of every warp adds the clock cycles of
+// each stage of each substep into duck_prof (read by duck_profile): the
+// share of the warp's time each stage takes. Without it PROF is the
+// __syncwarp() that ends the stage.
+enum {
+  PROF_KINEMATICS, PROF_COM_POS, PROF_CRB, PROF_COLLIDE, PROF_DYNAMICS, PROF_SMOOTH_SOLVE,
+  PROF_MAKE_EFC, PROF_COSTS, PROF_GRAD_H, PROF_FACTOR_H, PROF_LINE_SEARCH, PROF_OUTPUT,
+  PROF_COUNT
 };
+#ifdef DUCK_PROFILE
+__device__ unsigned long long duck_prof[PROF_COUNT];
+#define PROF_START() long long prof_t = clock64()
+#define PROF(stage)                                                                \
+  do {                                                                             \
+    __syncwarp();                                                                  \
+    if (lane == 0) {                                                               \
+      long long prof_now = clock64();                                              \
+      atomicAdd(&duck_prof[stage], (unsigned long long)(prof_now - prof_t));       \
+      prof_t = prof_now;                                                           \
+    }                                                                              \
+  } while (0)
+#else
+#define PROF_START() do {} while (0)
+#define PROF(stage) __syncwarp()
+#endif
 
 // DR-or-constant accessors
-#define DRF(field, off) (dr.field ? dr.field[env * (size_t)(stride_##field) + (off)] : m.field[(off)])
+#define DRF(field, off) \
+  (dr.field ? __ldg(dr.field + env * (size_t)(stride_##field) + (off)) : __ldg(m.field + (off)))
+
+// lane-strided loop over [0, n)
+#define LANES(i, n) for (int i = lane; i < (n); i += 32)
 
 // ---------------------------------------------------------------------------
-// stages
+// warp reductions that return, on every lane, exactly what the twin's serial
+// scan returns. Lane order is sequence order: at butterfly step o a lane's
+// segment and its partner's are neighbours, the lower lane's first, and
+// each combine takes (earlier, later) in that order.
 // ---------------------------------------------------------------------------
 
-__device__ void kinematics(const DuckModel& m, const DuckDR& dr, int env,
-                           const float* qpos, Work& w) {
+// first best: the serial `best = s[0]; for v: if (s[v] > best) take v` (or <).
+// A leaf can win if `valid`: index 0 always, another only if its score is
+// not NaN (a NaN never compares true); lanes past the end pass valid=false.
+// A NaN at index 0 therefore keeps index 0, as the scan does.
+__device__ __forceinline__ void warp_first_best(float& s, int& idx, bool& valid, bool greater) {
+  const int lane = threadIdx.x & 31;
+  int iv = valid ? idx : -1;  // the index, or -1 for a leaf that cannot win
+  for (int o = 1; o < 32; o <<= 1) {
+    float s2 = __shfl_xor_sync(FULL, s, o);
+    int i2 = __shfl_xor_sync(FULL, iv, o);
+    bool first = (lane & o) == 0;
+    float ls = first ? s : s2, hs = first ? s2 : s;
+    int li = first ? iv : i2, hi = first ? i2 : iv;
+    bool take = hi >= 0 && (li < 0 || (greater ? hs > ls : hs < ls));
+    s = take ? hs : ls;
+    iv = take ? hi : li;
+  }
+  valid = iv >= 0;
+  idx = valid ? iv : 0;
+}
+
+// the serial `acc = x[0]; for v: acc = vmax(acc, x[v])`: vmax(earlier, later)
+// at every combine keeps the scan's tie rule (the later of equal values) and
+// its NaN propagation
+__device__ __forceinline__ float warp_fold_vmax(float x, bool valid) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < 32; o <<= 1) {
+    float x2 = __shfl_xor_sync(FULL, x, o);
+    bool v2 = __shfl_xor_sync(FULL, (int)valid, o) != 0;
+    bool first = (lane & o) == 0;
+    float lx = first ? x : x2, hx = first ? x2 : x;
+    bool lv = first ? valid : v2, hv = first ? v2 : valid;
+    x = !lv ? hx : (!hv ? lx : vmax(lx, hx));
+    valid = lv || hv;
+  }
+  return x;
+}
+
+// (i, j), i >= j, of packed lower-triangle entry e
+__device__ __forceinline__ void tri_ij(int e, int& i, int& j) {
+  int r = (int)((sqrtf(8.0f * (float)e + 1.0f) - 1.0f) * 0.5f);
+  while (r * (r + 1) / 2 > e) --r;
+  while ((r + 1) * (r + 2) / 2 <= e) ++r;
+  i = r;
+  j = e - r * (r + 1) / 2;
+}
+
+// ---------------------------------------------------------------------------
+// stages: every lane of the env's warp calls each one; lanes split
+// independent outputs, and every sum keeps the twin's order term for term.
+// Each stage ends with __syncwarp(), so the next one reads its results.
+// ---------------------------------------------------------------------------
+
+// bodies of one tree depth at a time, one body per lane
+__device__ __forceinline__ void kinematics(const DuckModel& m, const DuckDR& dr, int env, float* sm,
+                                           int lane) {
   const int stride_qpos0 = m.nq;
-  w.xpos[0] = v3(0.f, 0.f, 0.f);
-  Q4 one = {1.f, 0.f, 0.f, 0.f};
-  w.xquat[0] = one;
-  for (int b = 1; b < m.nbody; ++b) {
-    int p = m.body_parentid[b];
-    V3 pos = add(w.xpos[p], qrot(w.xquat[p], vld(m.body_pos + 3 * b)));
-    Q4 quat = qmul(w.xquat[p], qld(m.body_quat + 4 * b));
-    int jadr = m.body_jntadr[b], jnum = m.body_jntnum[b];
-    for (int j = jadr; j < jadr + jnum; ++j) {
-      int qadr = m.jnt_qposadr[j];
-      if (m.jnt_type[j] == J_FREE) {
-        pos = v3(qpos[qadr], qpos[qadr + 1], qpos[qadr + 2]);
-        Q4 q = {qpos[qadr + 3], qpos[qadr + 4], qpos[qadr + 5], qpos[qadr + 6]};
-        quat = qnormalize(q);
-        w.xanchor[j] = pos;
-        w.xaxis[j] = qrot(quat, vld(m.jnt_axis + 3 * j));
-      } else {
-        float q0 = DRF(qpos0, qadr);
-        float angle = qpos[qadr] - q0;
-        V3 jp = vld(m.jnt_pos + 3 * j), ax = vld(m.jnt_axis + 3 * j);
-        V3 anchor = add(pos, qrot(quat, jp));
-        float s = sinf(angle * 0.5f), c = cosf(angle * 0.5f);
-        Q4 qloc = {c, ax.x * s, ax.y * s, ax.z * s};
-        quat = qnormalize(qmul(quat, qloc));
-        pos = sub(anchor, qrot(quat, jp));
-        w.xanchor[j] = anchor;
-        w.xaxis[j] = qrot(quat, ax);
+  const float* qpos = SA(QPOS);
+  float *xpos = SA(XPOS), *xquat = SA(XQUAT), *xanchor = SA(XANCHOR), *xaxis = SA(XAXIS);
+  if (lane == 0) {
+    vst(xpos, v3(0.f, 0.f, 0.f));
+    Q4 one = {1.f, 0.f, 0.f, 0.f};
+    qst(xquat, one);
+  }
+  __syncwarp();
+  for (int level = 1; level <= m.max_depth; ++level) {
+    LANES(b, m.nbody) {
+      if (b == 0 || G(m.body_depth[b]) != level) continue;
+      int p = G(m.body_parentid[b]);
+      V3 pos = add(vld(xpos + 3 * p), qrot(qld(xquat + 4 * p), vldg(m.body_pos + 3 * b)));
+      Q4 quat = qmul(qld(xquat + 4 * p), qldg(m.body_quat + 4 * b));
+      int jadr = G(m.body_jntadr[b]), jnum = G(m.body_jntnum[b]);
+      for (int j = jadr; j < jadr + jnum; ++j) {
+        int qadr = G(m.jnt_qposadr[j]);
+        if (G(m.jnt_type[j]) == J_FREE) {
+          pos = v3(qpos[qadr], qpos[qadr + 1], qpos[qadr + 2]);
+          Q4 q = {qpos[qadr + 3], qpos[qadr + 4], qpos[qadr + 5], qpos[qadr + 6]};
+          quat = qnormalize(q);
+          vst(xanchor + 3 * j, pos);
+          vst(xaxis + 3 * j, qrot(quat, vldg(m.jnt_axis + 3 * j)));
+        } else {
+          float q0 = DRF(qpos0, qadr);
+          float angle = qpos[qadr] - q0;
+          V3 jp = vldg(m.jnt_pos + 3 * j), ax = vldg(m.jnt_axis + 3 * j);
+          V3 anchor = add(pos, qrot(quat, jp));
+          float s = sinf(angle * 0.5f), c = cosf(angle * 0.5f);
+          Q4 qloc = {c, ax.x * s, ax.y * s, ax.z * s};
+          quat = qnormalize(qmul(quat, qloc));
+          pos = sub(anchor, qrot(quat, jp));
+          vst(xanchor + 3 * j, anchor);
+          vst(xaxis + 3 * j, qrot(quat, ax));
+        }
       }
+      vst(xpos + 3 * b, pos);
+      qst(xquat + 4 * b, quat);
     }
-    w.xpos[b] = pos;
-    w.xquat[b] = quat;
+    __syncwarp();
   }
 }
 
-__device__ void com_pos(const DuckModel& m, const DuckDR& dr, int env, Work& w) {
+__device__ __forceinline__ void com_pos(const DuckModel& m, const DuckDR& dr, int env, float* sm,
+                                        int lane) {
   const int stride_body_ipos = 3 * m.nbody, stride_body_mass = m.nbody;
-  V3 xipos[MAX_BODY], seg[MAX_BODY];
-  float segm[MAX_BODY];
-  for (int b = 0; b < m.nbody; ++b) {
+  const float *xpos = SA(XPOS), *xquat = SA(XQUAT), *xanchor = SA(XANCHOR), *xaxis = SA(XAXIS);
+  float *xipos = SA(XIPOS), *seg = SA(SEG), *com = SA(SUBTREE_COM);
+  float *cinert = SA(CINERT), *cdof = SA(CDOF);
+  LANES(b, m.nbody) {
     V3 ip = v3(DRF(body_ipos, 3 * b), DRF(body_ipos, 3 * b + 1), DRF(body_ipos, 3 * b + 2));
-    xipos[b] = b ? add(w.xpos[b], qrot(w.xquat[b], ip)) : w.xpos[b];
+    V3 xi = b ? add(vld(xpos + 3 * b), qrot(qld(xquat + 4 * b), ip)) : vld(xpos + 3 * b);
+    vst(xipos + 3 * b, xi);
     float mass = DRF(body_mass, b);
-    seg[b] = scl(xipos[b], mass);
-    segm[b] = mass;
+    vst(seg + 4 * b, scl(xi, mass));
+    seg[4 * b + 3] = mass;
   }
-  for (int b = m.nbody - 1; b > 0; --b) {
-    int p = m.body_parentid[b];
-    seg[p] = add(seg[p], seg[b]);
-    segm[p] = segm[p] + segm[b];
-  }
-  for (int b = 0; b < m.nbody; ++b)
-    w.subtree_com[b] = scl(seg[b], 1.0f / vmax(segm[b], 1e-12f));
-  for (int b = 0; b < m.nbody; ++b) {
-    V3 root_com = w.subtree_com[m.body_rootid[b]];
-    M3 ximat = qmat(qmul(w.xquat[b], qld(m.body_iquat + 4 * b)));
-    M3 I = rotate_inertia(vld(m.body_inertia + 3 * b), ximat);
-    spatial_inertia_sym(DRF(body_mass, b), I, sub(xipos[b], root_com), w.cinert[b]);
-  }
-  for (int b = 1; b < m.nbody; ++b) {
-    int jadr = m.body_jntadr[b], jnum = m.body_jntnum[b];
-    V3 root_com = w.subtree_com[m.body_rootid[b]];
+  __syncwarp();
+  if (lane < 4)  // one component (x, y, z, mass) per lane, leaves to root
+    for (int b = m.nbody - 1; b > 0; --b) {
+      int p = G(m.body_parentid[b]);
+      seg[4 * p + lane] = seg[4 * p + lane] + seg[4 * b + lane];
+    }
+  __syncwarp();
+  LANES(b, m.nbody)
+    vst(com + 3 * b, scl(vld(seg + 4 * b), 1.0f / vmax(seg[4 * b + 3], 1e-12f)));
+  __syncwarp();
+  LANES(b, m.nbody) {
+    V3 root_com = vld(com + 3 * G(m.body_rootid[b]));
+    M3 ximat = qmat(qmul(qld(xquat + 4 * b), qldg(m.body_iquat + 4 * b)));
+    M3 I = rotate_inertia(vldg(m.body_inertia + 3 * b), ximat);
+    spatial_inertia_sym(DRF(body_mass, b), I, sub(vld(xipos + 3 * b), root_com), cinert + 21 * b);
+    if (b == 0) continue;
+    int jadr = G(m.body_jntadr[b]), jnum = G(m.body_jntnum[b]);
     for (int j = jadr; j < jadr + jnum; ++j) {
-      int vadr = m.jnt_dofadr[j];
-      V3 neg = scl(sub(w.xanchor[j], root_com), -1.0f);
-      if (m.jnt_type[j] == J_FREE) {
+      int vadr = G(m.jnt_dofadr[j]);
+      V3 neg = scl(sub(vld(xanchor + 3 * j), root_com), -1.0f);
+      if (G(m.jnt_type[j]) == J_FREE) {
         for (int i = 0; i < 3; ++i)
-          for (int k = 0; k < 6; ++k) w.cdof[vadr + i][k] = (k == 3 + i) ? 1.0f : 0.0f;
-        M3 xmat = qmat(w.xquat[b]);
+          for (int k = 0; k < 6; ++k) cdof[6 * (vadr + i) + k] = (k == 3 + i) ? 1.0f : 0.0f;
+        M3 xmat = qmat(qld(xquat + 4 * b));
         for (int i = 0; i < 3; ++i) {
           V3 axis = mcol(xmat, i), cr = cross(axis, neg);
-          float* cd = w.cdof[vadr + 3 + i];
-          cd[0] = axis.x; cd[1] = axis.y; cd[2] = axis.z; cd[3] = cr.x; cd[4] = cr.y; cd[5] = cr.z;
+          float* cd = cdof + 6 * (vadr + 3 + i);
+          vst(cd, axis); vst(cd + 3, cr);
         }
       } else {
-        V3 axis = w.xaxis[j], cr = cross(axis, neg);
-        float* cd = w.cdof[vadr];
-        cd[0] = axis.x; cd[1] = axis.y; cd[2] = axis.z; cd[3] = cr.x; cd[4] = cr.y; cd[5] = cr.z;
+        V3 axis = vld(xaxis + 3 * j), cr = cross(axis, neg);
+        float* cd = cdof + 6 * vadr;
+        vst(cd, axis); vst(cd + 3, cr);
       }
     }
   }
+  __syncwarp();
 }
 
-__device__ void crb(const DuckModel& m, const DuckDR& dr, int env, Work& w) {
+// composite inertias (one sym6 entry per lane), then one M entry per lane
+__device__ __forceinline__ void crb(const DuckModel& m, const DuckDR& dr, int env, float* sm,
+                                    int lane) {
   const int stride_dof_armature = m.nv;
-  float crb_in[MAX_BODY][21];
-  for (int b = 0; b < m.nbody; ++b)
-    for (int k = 0; k < 21; ++k) crb_in[b][k] = w.cinert[b][k];
-  for (int b = m.nbody - 1; b > 0; --b) {
-    int p = m.body_parentid[b];
-    if (p > 0)
-      for (int k = 0; k < 21; ++k) crb_in[p][k] = crb_in[p][k] + crb_in[b][k];
+  const float *cinert = SA(CINERT), *cdof = SA(CDOF);
+  float *crb_in = SA(CRB), *F = SA(FVEC), *M = SA(M);
+  LANES(e, 21 * m.nbody) crb_in[e] = cinert[e];
+  __syncwarp();
+  if (lane < 21)
+    for (int b = m.nbody - 1; b > 0; --b) {
+      int p = G(m.body_parentid[b]);
+      if (p > 0) crb_in[21 * p + lane] = crb_in[21 * p + lane] + crb_in[21 * b + lane];
+    }
+  __syncwarp();
+  LANES(i, m.nv) sym6_vec(crb_in + 21 * G(m.dof_bodyid[i]), cdof + 6 * i, F + 6 * i);
+  __syncwarp();
+  LANES(e, m.nv * (m.nv + 1) / 2) {
+    int i, j;
+    tri_ij(e, i, j);
+    float v = (G(m.tree_mask[i]) >> j & 1u) ? v6_dot(F + 6 * i, cdof + 6 * j) : 0.0f;
+    if (i == j) v = v + DRF(dof_armature, i);
+    M[e] = v;
   }
-  for (int i = 0; i < m.nv; ++i)
-    for (int j = 0; j < m.nv; ++j) w.M[i][j] = 0.0f;
-  for (int i = 0; i < m.nv; ++i) {
-    float F[6];
-    sym6_vec(crb_in[m.dof_bodyid[i]], w.cdof[i], F);
-    uint32_t mask = m.tree_mask[i];
-    for (int j = 0; j <= i; ++j)
-      if (mask >> j & 1u) {
-        float v = v6_dot(F, w.cdof[j]);
-        w.M[i][j] = v;
-        w.M[j][i] = v;
-      }
-  }
-  for (int i = 0; i < m.nv; ++i) {
-    float v = w.M[i][i] + DRF(dof_armature, i);
-    w.M[i][i] = v;
-  }
+  __syncwarp();
 }
 
-__device__ void com_vel(const DuckModel& m, const float* qvel, Work& w) {
-  for (int k = 0; k < 6; ++k) w.cvel[0][k] = 0.0f;
-  for (int b = 1; b < m.nbody; ++b) {
-    int p = m.body_parentid[b];
-    float v[6];
-    for (int k = 0; k < 6; ++k) v[k] = w.cvel[p][k];
-    int jadr = m.body_jntadr[b], jnum = m.body_jntnum[b];
+// body velocities: one spatial component per lane down the tree, keeping
+// each dof's incoming velocity; then cdofdot one body per lane
+__device__ __forceinline__ void com_vel(const DuckModel& m, float* sm, int lane) {
+  const float *qvel = SA(QVEL), *cdof = SA(CDOF);
+  float *cvel = SA(CVEL), *cdofdot = SA(CDOFDOT), *vpre = SA(VPRE);
+  if (lane < 6) {
+    const int k = lane;
+    cvel[k] = 0.0f;
+    for (int b = 1; b < m.nbody; ++b) {
+      float v = cvel[6 * G(m.body_parentid[b]) + k];
+      int jadr = G(m.body_jntadr[b]), jnum = G(m.body_jntnum[b]);
+      for (int j = jadr; j < jadr + jnum; ++j) {
+        int vadr = G(m.jnt_dofadr[j]);
+        if (G(m.jnt_type[j]) == J_FREE) {
+          for (int i = vadr; i < vadr + 3; ++i) v = v + cdof[6 * i + k] * qvel[i];
+          for (int i = vadr + 3; i < vadr + 6; ++i) vpre[6 * i + k] = v;
+          for (int i = vadr + 3; i < vadr + 6; ++i) v = v + cdof[6 * i + k] * qvel[i];
+        } else {
+          vpre[6 * vadr + k] = v;
+          v = v + cdof[6 * vadr + k] * qvel[vadr];
+        }
+      }
+      cvel[6 * b + k] = v;
+    }
+  }
+  __syncwarp();
+  LANES(b, m.nbody) {
+    if (b == 0) continue;
+    int jadr = G(m.body_jntadr[b]), jnum = G(m.body_jntnum[b]);
     for (int j = jadr; j < jadr + jnum; ++j) {
-      int vadr = m.jnt_dofadr[j];
-      if (m.jnt_type[j] == J_FREE) {
-        for (int i = vadr; i < vadr + 3; ++i) {
-          for (int k = 0; k < 6; ++k) w.cdofdot[i][k] = 0.0f;
-          v6_axpy(v, w.cdof[i], qvel[i]);
-        }
-        float v_pre[6];
-        for (int k = 0; k < 6; ++k) v_pre[k] = v[k];
-        for (int i = vadr + 3; i < vadr + 6; ++i) {
-          motion_cross(v_pre, w.cdof[i], w.cdofdot[i]);
-          v6_axpy(v, w.cdof[i], qvel[i]);
-        }
+      int vadr = G(m.jnt_dofadr[j]);
+      if (G(m.jnt_type[j]) == J_FREE) {
+        for (int i = vadr; i < vadr + 3; ++i)
+          for (int k = 0; k < 6; ++k) cdofdot[6 * i + k] = 0.0f;
+        for (int i = vadr + 3; i < vadr + 6; ++i)
+          motion_cross(vpre + 6 * i, cdof + 6 * i, cdofdot + 6 * i);
       } else {
-        motion_cross(v, w.cdof[vadr], w.cdofdot[vadr]);
-        v6_axpy(v, w.cdof[vadr], qvel[vadr]);
+        motion_cross(vpre + 6 * vadr, cdof + 6 * vadr, cdofdot + 6 * vadr);
       }
     }
-    for (int k = 0; k < 6; ++k) w.cvel[b][k] = v[k];
   }
+  __syncwarp();
 }
 
-// bias forces (rne); returns qfrc_bias in out
-__device__ void rne(const DuckModel& m, const float* qvel, Work& w, float* out) {
-  float cacc[MAX_BODY][6], cfrc[MAX_BODY][6];
-  cacc[0][0] = cacc[0][1] = cacc[0][2] = 0.0f;
-  cacc[0][3] = 0.0f - m.gx; cacc[0][4] = 0.0f - m.gy; cacc[0][5] = 0.0f - m.gz;
-  for (int k = 0; k < 6; ++k) cfrc[0][k] = 0.0f;
-  for (int b = 1; b < m.nbody; ++b) {
-    int p = m.body_parentid[b];
-    float a[6];
-    for (int k = 0; k < 6; ++k) a[k] = cacc[p][k];
-    int dofadr = m.body_dofadr[b], dofnum = m.body_dofnum[b];
-    for (int i = dofadr; i < dofadr + dofnum; ++i) v6_axpy(a, w.cdofdot[i], qvel[i]);
-    for (int k = 0; k < 6; ++k) cacc[b][k] = a[k];
+// bias forces (rne) into BIAS
+__device__ __forceinline__ void rne(const DuckModel& m, float* sm, int lane) {
+  const float *qvel = SA(QVEL), *cdof = SA(CDOF), *cdofdot = SA(CDOFDOT), *cinert = SA(CINERT),
+              *cvel = SA(CVEL);
+  float *cacc = SA(CACC), *cfrc = SA(CFRC), *out = SA(BIAS);
+  if (lane < 6) {
+    const int k = lane;
+    cacc[k] = k < 3 ? 0.0f : 0.0f - (k == 3 ? m.gx : (k == 4 ? m.gy : m.gz));
+    for (int b = 1; b < m.nbody; ++b) {
+      float a = cacc[6 * G(m.body_parentid[b]) + k];
+      int dofadr = G(m.body_dofadr[b]), dofnum = G(m.body_dofnum[b]);
+      for (int i = dofadr; i < dofadr + dofnum; ++i) a = a + cdofdot[6 * i + k] * qvel[i];
+      cacc[6 * b + k] = a;
+    }
+  }
+  __syncwarp();
+  LANES(b, m.nbody) {
+    float* f = cfrc + 6 * b;
+    if (b == 0) {
+      for (int k = 0; k < 6; ++k) f[k] = 0.0f;
+      continue;
+    }
     float Iv[6], Ia[6], fc[6];
-    sym6_vec(w.cinert[b], w.cvel[b], Iv);
-    sym6_vec(w.cinert[b], a, Ia);
-    force_cross(w.cvel[b], Iv, fc);
-    for (int k = 0; k < 6; ++k) cfrc[b][k] = Ia[k] + fc[k];
+    sym6_vec(cinert + 21 * b, cvel + 6 * b, Iv);
+    sym6_vec(cinert + 21 * b, cacc + 6 * b, Ia);
+    force_cross(cvel + 6 * b, Iv, fc);
+    for (int k = 0; k < 6; ++k) f[k] = Ia[k] + fc[k];
   }
-  for (int b = m.nbody - 1; b > 0; --b) {
-    int p = m.body_parentid[b];
-    if (p > 0)
-      for (int k = 0; k < 6; ++k) cfrc[p][k] = cfrc[p][k] + cfrc[b][k];
-  }
-  for (int i = 0; i < m.nv; ++i) out[i] = v6_dot(w.cdof[i], cfrc[m.dof_bodyid[i]]);
+  __syncwarp();
+  if (lane < 6)
+    for (int b = m.nbody - 1; b > 0; --b) {
+      int p = G(m.body_parentid[b]);
+      if (p > 0) cfrc[6 * p + lane] = cfrc[6 * p + lane] + cfrc[6 * b + lane];
+    }
+  __syncwarp();
+  LANES(i, m.nv) out[i] = v6_dot(cdof + 6 * i, cfrc + 6 * G(m.dof_bodyid[i]));
+  __syncwarp();
 }
 
-// position servos; fills w.actuator_force and adds into qfrc_act
-__device__ void actuation(const DuckModel& m, const DuckDR& dr, int env,
-                          const float* qpos, const float* qvel, const float* ctrl,
-                          Work& w, float* qfrc_act) {
+// position servos: ACT_FORCE one actuator per lane, then their sum per dof
+// (in actuator order) into QFRC_ACT
+__device__ __forceinline__ void actuation(const DuckModel& m, const DuckDR& dr, int env, float* sm,
+                                          int lane) {
   const int stride_gainprm = 3 * m.nu, stride_biasprm = 3 * m.nu;
-  for (int i = 0; i < m.nv; ++i) qfrc_act[i] = 0.0f;
-  for (int u = 0; u < m.nu; ++u) {
-    int qadr = m.act_adr[2 * u], vadr = m.act_adr[2 * u + 1];
+  const float *qpos = SA(QPOS), *qvel = SA(QVEL), *ctrl = SA(CTRL);
+  float *act_force = SA(ACT_FORCE), *qfrc_act = SA(QFRC_ACT);
+  LANES(u, m.nu) {
+    int qadr = G(m.act_adr[2 * u]), vadr = G(m.act_adr[2 * u + 1]);
     const float* p = m.act_prm + ACT_NF * u;
-    float gear = p[2];
-    float ctrl_c = vclip(ctrl[u], p[0], p[1]);
+    float gear = G(p[2]);
+    float ctrl_c = vclip(ctrl[u], G(p[0]), G(p[1]));
     float length = qpos[qadr] * gear;
     float velocity = qvel[vadr] * gear;
     float gain0 = DRF(gainprm, 3 * u);
     float bias1 = DRF(biasprm, 3 * u + 1);
-    float force = gain0 * ctrl_c + p[4] + bias1 * length + p[6] * velocity;
-    force = vclip(force, p[7], p[8]);
-    w.actuator_force[u] = force;
-    qfrc_act[vadr] = qfrc_act[vadr] + force * gear;
+    float force = gain0 * ctrl_c + G(p[4]) + bias1 * length + G(p[6]) * velocity;
+    act_force[u] = vclip(force, G(p[7]), G(p[8]));
   }
+  __syncwarp();
+  LANES(i, m.nv) {
+    float acc = 0.0f;
+    for (int u = 0; u < m.nu; ++u)
+      if (G(m.act_adr[2 * u + 1]) == i) acc = acc + act_force[u] * G(m.act_prm[ACT_NF * u + 2]);
+    qfrc_act[i] = acc;
+  }
+  __syncwarp();
 }
 
-// sparse LDL^T of A (dense storage) on the pattern given by masks; factor is
-// written into L (strict lower) and dinv; A is read only
-__device__ void ldl_factor(int nv, const uint32_t* mask, float (*A)[MAX_NV],
-                           float (*L)[MAX_NV], float* d, float* dinv) {
+// sparse LDL^T of A (packed lower triangle) on the pattern given by masks,
+// column by column: lane j forms d[j] while each lane i > j forms its row's
+// sum for L[i][j], each over k in the twin's order. The factor goes into L's
+// strict lower part and 1 / d into dinv; A may be L (in place). nv <= 32.
+__device__ __forceinline__ void ldl_factor(int nv, const uint32_t* mask, const float* A, float* L,
+                                           float* dinv, int lane) {
+  const uint32_t ri = lane < nv ? G(mask[lane]) : 0u;
   for (int j = 0; j < nv; ++j) {
-    float s = A[j][j];
-    uint32_t rj = mask[j];
-    for (int k = 0; k < j; ++k)
-      if (rj >> k & 1u) s = s - L[j][k] * L[j][k] * d[k];
-    d[j] = s;
-    dinv[j] = 1.0f / s;
-    for (int i = j + 1; i < nv; ++i) {
-      if (!(mask[i] >> j & 1u)) continue;
-      float t = A[i][j];
-      uint32_t both = mask[i] & rj;
-      for (int k = 0; k < j; ++k)
-        if (both >> k & 1u) t = t - L[i][k] * L[j][k] * d[k];
-      L[i][j] = t * dinv[j];
+    const uint32_t rj = G(mask[j]);
+    const bool row = lane > j && lane < nv && (ri >> j & 1u);
+    float t = 0.0f;
+    // row `lane`'s sum over k < j, and its diagonal's when lane == j: the
+    // dense pattern (every k < j) without a mask test; otherwise
+    // branch-free, a term outside the pattern formed (from whatever the slot
+    // holds) and not taken, so the loads of later terms can be issued
+    if (lane == j || row) {
+      const uint32_t below = j ? 0xffffffffu >> (32 - j) : 0u;
+      const uint32_t both = ri & rj & below;
+      const float* Li = L + TRI(lane, 0);
+      const float* Lj = L + TRI(j, 0);
+      const float* d = dinv + nv;
+      float acc = A[TRI(lane, j)];
+      if (both == below) {
+#pragma unroll 4
+        for (int k = 0; k < j; ++k) acc = acc - Li[k] * Lj[k] * d[k];
+      } else {
+#pragma unroll 4
+        for (int k = 0; k < j; ++k) {
+          float p = Li[k] * Lj[k] * d[k];
+          acc = (both >> k & 1u) ? acc - p : acc;
+        }
+      }
+      if (lane == j) {
+        dinv[nv + j] = acc;
+        dinv[j] = 1.0f / acc;
+      } else {
+        t = acc;
+      }
     }
+    __syncwarp();
+    if (row) L[TRI(lane, j)] = t * dinv[j];
+    __syncwarp();
   }
 }
 
-__device__ void ldl_solve(int nv, const uint32_t* mask, float (*L)[MAX_NV],
-                          const float* dinv, float* z) {
-  for (int i = 0; i < nv; ++i)
-    for (int k = 0; k < i; ++k)
-      if (mask[i] >> k & 1u) z[i] = z[i] - L[i][k] * z[k];
-  for (int i = 0; i < nv; ++i) z[i] = z[i] * dinv[i];
-  for (int i = nv - 1; i >= 0; --i)
-    for (int k = 0; k < i; ++k)
-      if (mask[i] >> k & 1u) z[k] = z[k] - L[i][k] * z[i];
-}
-
-// symmetric tree-pattern matvec, in lane_physics._mat_vec_tree's order
-__device__ void mat_vec_tree(const DuckModel& m, float (*M)[MAX_NV], const float* v, float* out) {
-  for (int i = 0; i < m.nv; ++i) out[i] = 0.0f;
-  for (int i = 0; i < m.nv; ++i) {
-    uint32_t mask = m.tree_mask[i];
-    for (int j = 0; j <= i; ++j) {
-      if (!(mask >> j & 1u)) continue;
-      out[i] = out[i] + M[i][j] * v[j];
-      if (i != j) out[j] = out[j] + M[i][j] * v[i];
-    }
+// L D L^T x = b with lane i holding b[i] (returns x[i]): the forward solve
+// runs k outer with rows in parallel, the backward one i outer with columns
+// in parallel; each entry sees its updates in the twin's order
+__device__ __forceinline__ float ldl_solve(int nv, const uint32_t* mask, const float* L,
+                                           const float* dinv, float z, int lane) {
+  const uint32_t ri = lane < nv ? G(mask[lane]) : 0u;
+  for (int k = 0; k < nv; ++k) {
+    float zk = __shfl_sync(FULL, z, k);
+    if (lane > k && lane < nv && (ri >> k & 1u)) z = z - L[TRI(lane, k)] * zk;
   }
+  if (lane < nv) z = z * dinv[lane];
+  for (int i = nv - 1; i >= 0; --i) {
+    float zi = __shfl_sync(FULL, z, i);
+    if (lane < i && (G(mask[i]) >> lane & 1u)) z = z - L[TRI(i, lane)] * zi;
+  }
+  return z;
+}
+
+// entry o of the symmetric tree-pattern matvec: the serial loop of
+// lane_physics._mat_vec_tree adds M[o][j] v[j] for j <= o (row o), then
+// M[i][o] v[i] for i > o (the later rows), and so does this
+__device__ __forceinline__ float mat_vec_row(const DuckModel& m, const float* M, const float* v,
+                                             int o) {
+  float acc = 0.0f;
+  const uint32_t mo = G(m.tree_mask[o]);
+#pragma unroll 4
+  for (int j = 0; j <= o; ++j) {
+    float p = M[TRI(o, j)] * v[j];
+    acc = (mo >> j & 1u) ? acc + p : acc;
+  }
+#pragma unroll 4
+  for (int i = o + 1; i < m.nv; ++i) {
+    float p = M[TRI(i, o)] * v[i];
+    acc = (G(m.tree_mask[i]) >> o & 1u) ? acc + p : acc;
+  }
+  return acc;
 }
 
 // ---------------------------------------------------------------------------
-// collision
+// collision: one hull vertex per lane (hv <= 32), the vertex in registers and
+// the reductions over vertices by the ordered warp scans above
 // ---------------------------------------------------------------------------
 
-__device__ void geom_pose(const DuckModel& m, int g, const Work& w, V3& pos, M3& mat) {
-  int b = m.geom_bodyid[g];
-  pos = add(w.xpos[b], qrot(w.xquat[b], vld(m.geom_pos + 3 * g)));
-  mat = qmat(qmul(w.xquat[b], qld(m.geom_quat + 4 * g)));
+__device__ __forceinline__ V3 shfl3(V3 v, int src) {
+  return v3(__shfl_sync(FULL, v.x, src), __shfl_sync(FULL, v.y, src), __shfl_sync(FULL, v.z, src));
 }
 
-// first-max running argmax (ties keep the first index)
-__device__ __forceinline__ int argmax_first(const float* s, int n) {
-  int bi = 0;
-  float bs = s[0];
-  for (int v = 1; v < n; ++v)
-    if (s[v] > bs) { bs = s[v]; bi = v; }
-  return bi;
+__device__ __forceinline__ void geom_pose(const DuckModel& m, int g, const float* sm, V3& pos,
+                                          M3& mat) {
+  int b = G(m.geom_bodyid[g]);
+  Q4 xq = qld(SA(XQUAT) + 4 * b);
+  pos = add(vld(SA(XPOS) + 3 * b), qrot(xq, vldg(m.geom_pos + 3 * g)));
+  mat = qmat(qmul(xq, qldg(m.geom_quat + 4 * g)));
+}
+
+// first-best index among the lanes' scores (the serial argmax_first)
+__device__ __forceinline__ int warp_argmax_first(float s, bool in, int lane) {
+  int idx = lane;
+  bool valid = in && (lane == 0 || s == s);
+  warp_first_best(s, idx, valid, true);
+  return idx;
 }
 
 // the four candidate vertices of lane_physics._manifold (dyn=false: spread
 // about the constant normal n, candidate a the deepest vertex) and
 // _manifold_dyn (dyn=true: candidate a the first masked vertex), with their
-// validity after dedup; candidate 0 is always valid
-__device__ void manifold_pick(const V3* wv, const float* support, const uint8_t* mask, int V,
-                              V3 n, bool dyn, int* idx, bool* valid) {
-  float dm[MAX_HV], sc[MAX_HV];
-  for (int v = 0; v < V; ++v) dm[v] = mask[v] ? 0.0f : -1e6f;
-  int ia = argmax_first(dyn ? dm : support, V);
-  V3 a = wv[ia];
-  for (int v = 0; v < V; ++v) { V3 d = sub(a, wv[v]); sc[v] = dot(d, d) + dm[v]; }
-  int ib = argmax_first(sc, V);
-  V3 b = wv[ib];
+// validity after dedup; candidate 0 is always valid. Lane v < V holds
+// vertex wv, its support and its mask; every lane gets idx and valid.
+__device__ __forceinline__ void manifold_pick(V3 wv, float support, bool msk, int V, V3 n,
+                                              bool dyn, int lane, int* idx, bool* valid) {
+  const bool in = lane < V;
+  const float dm = msk ? 0.0f : -1e6f;
+  idx[0] = warp_argmax_first(dyn ? dm : support, in, lane);
+  V3 a = shfl3(wv, idx[0]);
+  V3 d = sub(a, wv);
+  idx[1] = warp_argmax_first(dot(d, d) + dm, in, lane);
+  V3 b = shfl3(wv, idx[1]);
   V3 ab = cross(n, sub(a, b));
-  for (int v = 0; v < V; ++v) sc[v] = fabsf(dot(sub(a, wv[v]), ab)) + dm[v];
-  int ic = argmax_first(sc, V);
-  V3 c = wv[ic];
+  idx[2] = warp_argmax_first(fabsf(dot(sub(a, wv), ab)) + dm, in, lane);
+  V3 c = shfl3(wv, idx[2]);
   V3 ac = cross(n, sub(a, c)), bc = cross(n, sub(b, c));
-  for (int v = 0; v < V; ++v)
-    sc[v] = fabsf(dot(sub(b, wv[v]), bc)) + fabsf(dot(sub(a, wv[v]), ac)) + dm[v];
-  int id = argmax_first(sc, V);
-  idx[0] = ia; idx[1] = ib; idx[2] = ic; idx[3] = id;
+  idx[3] = warp_argmax_first(fabsf(dot(sub(b, wv), bc)) + fabsf(dot(sub(a, wv), ac)) + dm, in,
+                             lane);
   for (int k = 0; k < 4; ++k) {
     bool seen = false;
     for (int j = 0; j < k; ++j) seen = seen || (idx[j] == idx[k]);
-    valid[k] = (k == 0) ? true : (mask[idx[k]] && !seen);
-  }
-}
-
-// _manifold (plane: dist from the support, offset along n) and _manifold_dyn
-// (hull-hull: dist from `depth`, offset along the SAT axis)
-__device__ void manifold(const V3* wv, const float* support, const uint8_t* mask, int V,
-                         V3 n, bool dyn, float depth, Cand* out) {
-  int idx[4];
-  bool valid[4];
-  manifold_pick(wv, support, mask, V, n, dyn, idx, valid);
-  for (int k = 0; k < 4; ++k) {
-    V3 pk = wv[idx[k]];
-    if (!dyn) {
-      float dist = -support[idx[k]];
-      float h = 0.5f * dist;
-      out[k].pos = v3(pk.x - h * n.x, pk.y - h * n.y, pk.z - h * n.z);
-      out[k].dist = valid[k] ? dist : BIGD;
-    } else {
-      float h = 0.5f * depth;
-      out[k].pos = v3(pk.x + h * n.x, pk.y + h * n.y, pk.z + h * n.z);
-      out[k].dist = (valid[k] && depth > 0.0f) ? -depth : BIGD;
-    }
+    bool mk = __shfl_sync(FULL, (int)msk, idx[k]) != 0;
+    valid[k] = (k == 0) ? true : (mk && !seen);
   }
 }
 
 // per-env contact frame rows [n, t1, t2] (lane_physics._dyn_frame)
-__device__ void dyn_frame(V3 n, float* fr) {
+__device__ __forceinline__ void dyn_frame(V3 n, float* fr) {
   bool refy = fabsf(n.y) < 0.9f;
   V3 ref = v3(0.0f, refy ? 1.0f : 0.0f, refy ? 0.0f : 1.0f);
   V3 t1 = cross(ref, n);
   float inv = 1.0f / vmax(sqrtf(dot(t1, t1)), 1e-12f);
   t1 = scl(t1, inv);
   V3 t2 = cross(n, t1);
-  fr[0] = n.x; fr[1] = n.y; fr[2] = n.z;
-  fr[3] = t1.x; fr[4] = t1.y; fr[5] = t1.z;
-  fr[6] = t2.x; fr[7] = t2.y; fr[8] = t2.z;
+  vst(fr, n); vst(fr + 3, t1); vst(fr + 6, t2);
+}
+
+// plane vs hull (lane_physics.collide's PLANE_HULL): support along the
+// plane's constant normal, candidates within 1 mm of the deepest vertex
+__device__ __forceinline__ void plane_hull(const DuckModel& m, const int* pi, const float* pf,
+                                           const float* sm, float* out, float* fr, int lane) {
+  const int HV = m.hv;
+  const bool in = lane < HV;
+  V3 n = v3(G(pf[IMP_N + 2]), G(pf[IMP_N + 3]), G(pf[IMP_N + 4]));
+  float ppn = G(pf[IMP_N + 5]);
+  const float* verts = m.hull_vert + (size_t)G(pi[8]) * HV * 3;
+  V3 gpos; M3 gmat;
+  geom_pose(m, G(pi[2]), sm, gpos, gmat);
+  V3 wv = v3(0.f, 0.f, 0.f);
+  float sup = 0.f;
+  if (in) {
+    wv = add(gpos, mvec(gmat, vldg(verts + 3 * lane)));
+    sup = ppn - dot(wv, n);
+  }
+  float smax = warp_fold_vmax(sup, in);
+  float band = vmax(smax - 1e-3f, 0.0f);
+  bool msk = in && sup > band;
+  int idx[4];
+  bool valid[4];
+  manifold_pick(wv, sup, msk, HV, n, false, lane, idx, valid);
+  for (int k = 0; k < 4; ++k) {
+    V3 pk = shfl3(wv, idx[k]);
+    float dist = -__shfl_sync(FULL, sup, idx[k]);
+    if (lane == k) {
+      float h = 0.5f * dist;
+      vst(out + 4 * k + 1, v3(pk.x - h * n.x, pk.y - h * n.y, pk.z - h * n.z));
+      out[4 * k] = valid[k] ? dist : BIGD;
+    }
+  }
+  if (lane < 9) fr[lane] = G(pf[IMP_N + 6 + lane]);
 }
 
 // heightfield vs hull (lane_physics._hfield_hull): each hull vertex against
 // the triangulated surface of its cell, the candidates spread about the
 // heightfield's up axis, and one frame from the deepest vertex's normal
-__device__ void hfield_hull(const DuckModel& m, const int* pi, const float* pf, Work& w,
-                            Cand* out, float* fr) {
+__device__ __forceinline__ void hfield_hull(const DuckModel& m, const int* pi, const float* pf,
+                                            const float* sm, float* out, float* fr, int lane) {
   const int HV = m.hv, nrow = m.hfield_nrow, ncol = m.hfield_ncol;
+  const bool in = lane < HV;
   const float* hp = pf + PAIR_HF;  // the heightfield frame: world <- local
   M3 R;
-  for (int k = 0; k < 9; ++k) R.m[k] = hp[3 + k];
+  for (int k = 0; k < 9; ++k) R.m[k] = G(hp[3 + k]);
   const float* c = m.hfield_prm;
-  const float rx = c[0], ry = c[1], two_rx = c[2], two_ry = c[3], cols1 = c[4], rows1 = c[5],
-              gx_max = c[6], gy_max = c[7], ztop = c[8], dx = c[9], dy = c[10];
-  const float* verts = m.hull_vert + (size_t)pi[8] * HV * 3;
+  const float rx = G(c[0]), ry = G(c[1]), two_rx = G(c[2]), two_ry = G(c[3]), cols1 = G(c[4]),
+              rows1 = G(c[5]), gx_max = G(c[6]), gy_max = G(c[7]), ztop = G(c[8]),
+              dx = G(c[9]), dy = G(c[10]);
+  const float* verts = m.hull_vert + (size_t)G(pi[8]) * HV * 3;
   V3 gpos; M3 gmat;
-  geom_pose(m, pi[2], w, gpos, gmat);
-  V3 n_loc[MAX_HV];
-  float smax = 0.f;
-  for (int v = 0; v < HV; ++v) {
-    V3 wv = add(gpos, mvec(gmat, vld(verts + 3 * v)));
-    w.w2[v] = wv;
-    V3 loc = mtvec(R, v3(wv.x - hp[0], wv.y - hp[1], wv.z - hp[2]));  // R^T (w - hp)
+  geom_pose(m, G(pi[2]), sm, gpos, gmat);
+  V3 wv = v3(0.f, 0.f, 0.f), nl = v3(0.f, 0.f, 1.f);
+  float sup = 0.f;
+  if (in) {
+    wv = add(gpos, mvec(gmat, vldg(verts + 3 * lane)));
+    V3 loc = mtvec(R, v3(wv.x - G(hp[0]), wv.y - G(hp[1]), wv.z - G(hp[2])));  // R^T (w - hp)
     // cell and fractions (_hf_indices): divide, as the twin does
     float gx = vclip((loc.x + rx) / two_rx * cols1, 0.0f, gx_max);
     float gy = vclip((loc.y + ry) / two_ry * rows1, 0.0f, gy_max);
@@ -719,329 +908,449 @@ __device__ void hfield_hull(const DuckModel& m, const int* pi, const float* pf, 
     float gxs = lower ? (z10 - z00) / dx : (z11 - z01) / dx;
     float gys = lower ? (z01 - z00) / dy : (z11 - z10) / dy;
     float inv = 1.0f / sqrtf(gxs * gxs + gys * gys + 1.0f);
-    n_loc[v] = v3(-gxs * inv, -gys * inv, inv);
-    w.sup_v[v] = -((loc.z - z) * n_loc[v].z);
-    smax = v ? vmax(smax, w.sup_v[v]) : w.sup_v[v];
+    nl = v3(-gxs * inv, -gys * inv, inv);
+    sup = -((loc.z - z) * nl.z);
   }
   // candidate band within 1 mm of the deepest vertex, as the plane path
+  float smax = warp_fold_vmax(sup, in);
   float band = vmax(smax - 1e-3f, 0.0f);
-  for (int v = 0; v < HV; ++v) w.mask_v[v] = w.sup_v[v] > band;
+  bool msk = in && sup > band;
   int idx[4];
   bool valid[4];
-  manifold_pick(w.w2, w.sup_v, w.mask_v, HV, mcol(R, 2), false, idx, valid);
+  manifold_pick(wv, sup, msk, HV, mcol(R, 2), false, lane, idx, valid);
   // world normal of the deepest vertex: the contact normal of all four
-  V3 n0 = mvec(R, n_loc[idx[0]]);
+  V3 n0 = mvec(R, shfl3(nl, idx[0]));
   n0 = scl(n0, 1.0f / vmax(sqrtf(dot(n0, n0)), 1e-12f));
   for (int k = 0; k < 4; ++k) {
-    V3 pk = w.w2[idx[k]];
-    float dist = -w.sup_v[idx[k]];
-    float h = 0.5f * dist;
-    out[k].pos = v3(pk.x - h * n0.x, pk.y - h * n0.y, pk.z - h * n0.z);
-    out[k].dist = valid[k] ? dist : BIGD;
+    V3 pk = shfl3(wv, idx[k]);
+    float dist = -__shfl_sync(FULL, sup, idx[k]);
+    if (lane == k) {
+      float h = 0.5f * dist;
+      vst(out + 4 * k + 1, v3(pk.x - h * n0.x, pk.y - h * n0.y, pk.z - h * n0.z));
+      out[4 * k] = valid[k] ? dist : BIGD;
+    }
   }
-  dyn_frame(n0, fr);
+  if (lane == 0) dyn_frame(n0, fr);
 }
 
-__device__ void collide(const DuckModel& m, Work& w) {
+// hull vs hull (lane_physics._hull_hull): separating-axis test over both
+// hulls' face normals, each lane a contiguous run of axes, then the first
+// axis of least depth by the ordered warp scan
+__device__ __forceinline__ void hull_hull(const DuckModel& m, const int* pi, float* sm, float* out,
+                                          float* fr, int lane) {
   const int HV = m.hv, HF = m.hf;
+  const bool in = lane < HV;
+  const float* v1 = m.hull_vert + (size_t)G(pi[7]) * HV * 3;
+  const float* v2 = m.hull_vert + (size_t)G(pi[8]) * HV * 3;
+  const float* f1 = m.hull_face_n + (size_t)G(pi[7]) * HF * 3;
+  const float* f2 = m.hull_face_n + (size_t)G(pi[8]) * HF * 3;
+  float *w1 = SA(W1), *w2 = SA(W2);
+  V3 pos1, pos2; M3 mat1, mat2;
+  geom_pose(m, G(pi[1]), sm, pos1, mat1);
+  geom_pose(m, G(pi[2]), sm, pos2, mat2);
+  V3 wv = v3(0.f, 0.f, 0.f);
+  if (in) {
+    vst(w1 + 3 * lane, add(pos1, mvec(mat1, vldg(v1 + 3 * lane))));
+    wv = add(pos2, mvec(mat2, vldg(v2 + 3 * lane)));
+    vst(w2 + 3 * lane, wv);
+  }
+  __syncwarp();
+  const int nax = 2 * HF, run = (nax + 31) / 32;
+  float best_d = 0.f;
+  V3 best_ax = v3(0.f, 0.f, 0.f);
+  int best_i = 0;
+  bool have = false;
+  for (int ai = lane * run; ai < min(nax, (lane + 1) * run); ++ai) {
+    V3 a = ai < HF ? mvec(mat1, vldg(f1 + 3 * ai)) : mvec(mat2, vldg(f2 + 3 * (ai - HF)));
+    float mx1 = 0.f, mn1 = 0.f, mx2 = 0.f, mn2 = 0.f;
+    for (int v = 0; v < HV; ++v) {
+      float t1 = dot(vld(w1 + 3 * v), a), t2 = dot(vld(w2 + 3 * v), a);
+      if (v == 0) { mx1 = mn1 = t1; mx2 = mn2 = t2; }
+      else { mx1 = vmax(mx1, t1); mn1 = vmin(mn1, t1); mx2 = vmax(mx2, t2); mn2 = vmin(mn2, t2); }
+    }
+    float depth_f = mx1 - mn2, depth_b = mx2 - mn1;
+    float depth = vmin(depth_f, depth_b);
+    bool flip = depth_f > depth_b;
+    V3 ax = flip ? v3(-a.x, -a.y, -a.z) : a;
+    // the serial `ai == 0 || depth < best_d` within the run
+    bool can = ai == 0 || depth == depth;
+    if (can && (!have || depth < best_d)) { best_d = depth; best_ax = ax; best_i = ai; have = true; }
+  }
+  warp_first_best(best_d, best_i, have, false);
+  best_ax = shfl3(best_ax, best_i / run);
+  float sup = in ? -dot(wv, best_ax) : 0.f;
+  float smax = warp_fold_vmax(sup, in);
+  float thresh = smax - 1e-4f;
+  bool msk = in && (sup >= thresh) && (best_d > 0.0f);
+  int idx[4];
+  bool valid[4];
+  manifold_pick(wv, sup, msk, HV, best_ax, true, lane, idx, valid);
+  for (int k = 0; k < 4; ++k) {
+    V3 pk = shfl3(wv, idx[k]);
+    if (lane == k) {
+      float h = 0.5f * best_d;
+      vst(out + 4 * k + 1, v3(pk.x + h * best_ax.x, pk.y + h * best_ax.y, pk.z + h * best_ax.z));
+      out[4 * k] = (valid[k] && best_d > 0.0f) ? -best_d : BIGD;
+    }
+  }
+  if (lane == 0) dyn_frame(best_ax, fr);
+}
+
+__device__ __forceinline__ void collide(const DuckModel& m, float* sm, int lane) {
   for (int p = 0; p < m.npair; ++p) {
     const int* pi = m.pair_i + PAIR_NI * p;
     const float* pf = m.pair_f + PAIR_NF * p;
-    int type = pi[0], g1 = pi[1], g2 = pi[2];
+    float* cand = SA(CAND) + 16 * p;
+    float* frame = SA(FRAME) + 9 * p;
+    int type = G(pi[0]);
     if (type == P_PLANE_HULL) {
-      V3 n = v3(pf[IMP_N + 2], pf[IMP_N + 3], pf[IMP_N + 4]);
-      float ppn = pf[IMP_N + 5];
-      const float* verts = m.hull_vert + (size_t)pi[8] * HV * 3;
-      V3 gpos; M3 gmat;
-      geom_pose(m, g2, w, gpos, gmat);
-      float smax = 0.f;
-      for (int v = 0; v < HV; ++v) {
-        w.w2[v] = add(gpos, mvec(gmat, vld(verts + 3 * v)));
-        w.sup_v[v] = ppn - dot(w.w2[v], n);
-        smax = v ? vmax(smax, w.sup_v[v]) : w.sup_v[v];
-      }
-      float band = vmax(smax - 1e-3f, 0.0f);
-      for (int v = 0; v < HV; ++v) w.mask_v[v] = w.sup_v[v] > band;
-      manifold(w.w2, w.sup_v, w.mask_v, HV, n, false, 0.f, w.cand[p]);
-      for (int k = 0; k < 9; ++k) w.frame[p][k] = pf[IMP_N + 6 + k];
+      plane_hull(m, pi, pf, sm, cand, frame, lane);
     } else if (type == P_HFIELD_HULL) {
-      hfield_hull(m, pi, pf, w, w.cand[p], w.frame[p]);
+      hfield_hull(m, pi, pf, sm, cand, frame, lane);
     } else if (type == P_HULL_HULL) {
-      const float* v1 = m.hull_vert + (size_t)pi[7] * HV * 3;
-      const float* v2 = m.hull_vert + (size_t)pi[8] * HV * 3;
-      const float* f1 = m.hull_face_n + (size_t)pi[7] * HF * 3;
-      const float* f2 = m.hull_face_n + (size_t)pi[8] * HF * 3;
-      V3 pos1, pos2; M3 mat1, mat2;
-      geom_pose(m, g1, w, pos1, mat1);
-      geom_pose(m, g2, w, pos2, mat2);
-      for (int v = 0; v < HV; ++v) {
-        w.w1[v] = add(pos1, mvec(mat1, vld(v1 + 3 * v)));
-        w.w2[v] = add(pos2, mvec(mat2, vld(v2 + 3 * v)));
-      }
-      float best_d = 0.f;
-      V3 best_ax = v3(0.f, 0.f, 0.f);
-      for (int ai = 0; ai < 2 * HF; ++ai) {
-        V3 a = ai < HF ? mvec(mat1, vld(f1 + 3 * ai)) : mvec(mat2, vld(f2 + 3 * (ai - HF)));
-        float mx1 = 0.f, mn1 = 0.f, mx2 = 0.f, mn2 = 0.f;
-        for (int v = 0; v < HV; ++v) {
-          float t1 = dot(w.w1[v], a), t2 = dot(w.w2[v], a);
-          if (v == 0) { mx1 = mn1 = t1; mx2 = mn2 = t2; }
-          else { mx1 = vmax(mx1, t1); mn1 = vmin(mn1, t1); mx2 = vmax(mx2, t2); mn2 = vmin(mn2, t2); }
-        }
-        float depth_f = mx1 - mn2, depth_b = mx2 - mn1;
-        float depth = vmin(depth_f, depth_b);
-        bool flip = depth_f > depth_b;
-        V3 ax = flip ? v3(-a.x, -a.y, -a.z) : a;
-        if (ai == 0 || depth < best_d) { best_d = depth; best_ax = ax; }
-      }
-      float smax = 0.f;
-      for (int v = 0; v < HV; ++v) {
-        w.sup_v[v] = -dot(w.w2[v], best_ax);
-        smax = v ? vmax(smax, w.sup_v[v]) : w.sup_v[v];
-      }
-      float thresh = smax - 1e-4f;
-      for (int v = 0; v < HV; ++v) w.mask_v[v] = (w.sup_v[v] >= thresh) && (best_d > 0.0f);
-      manifold(w.w2, w.sup_v, w.mask_v, HV, best_ax, true, best_d, w.cand[p]);
-      dyn_frame(best_ax, w.frame[p]);
-    } else {
+      hull_hull(m, pi, sm, cand, frame, lane);
+    } else if (lane == 0) {
       // unreachable: pack_model admits no other pair type. No contact.
-      for (int k = 0; k < 4; ++k) { w.cand[p][k].dist = BIGD; w.cand[p][k].pos = v3(0.f, 0.f, 0.f); }
-      for (int k = 0; k < 9; ++k) w.frame[p][k] = (k % 4 == 0) ? 1.0f : 0.0f;
+      for (int k = 0; k < 4; ++k) {
+        cand[4 * k] = BIGD; cand[4 * k + 1] = cand[4 * k + 2] = cand[4 * k + 3] = 0.f;
+      }
+      for (int k = 0; k < 9; ++k) frame[k] = (k % 4 == 0) ? 1.0f : 0.0f;
     }
+    __syncwarp();
   }
 }
 
 // ---------------------------------------------------------------------------
-// constraint rows (lane_physics.make_efc)
+// constraint rows (lane_physics.make_efc): one row, candidate or Jacobian
+// entry per lane
 // ---------------------------------------------------------------------------
 
-__device__ void make_efc(const DuckModel& m, const DuckDR& dr, int env,
-                         const float* qpos, const float* qvel, Work& w) {
+__device__ __forceinline__ void make_efc(const DuckModel& m, const DuckDR& dr, int env, float* sm,
+                                         int lane) {
   const int stride_dof_frictionloss = m.nv, stride_geom_friction = 3 * m.ngeom;
-  int r = 0;
-  for (int f = 0; f < m.nfri; ++f, ++r) {
-    int i = m.fri_dof[f];
-    for (int d = 0; d < m.nv; ++d) w.J[r][d] = 0.0f;
-    w.J[r][i] = 1.0f;
-    w.sup[r] = 1u << i;
-    w.D[r] = m.fri_D[f];
-    w.aref[r] = -m.fri_b[f] * qvel[i];
-    w.pos[r] = 0.0f;
-    w.floss[r] = DRF(dof_frictionloss, i);
-    w.is_fri[r] = 1;
+  const int nfl = m.nfri + m.nlim;
+  const float *qpos = SA(QPOS), *qvel = SA(QVEL), *cdof = SA(CDOF), *com = SA(SUBTREE_COM);
+  float *J = SA(EFC_J), *eD = SA(EFC_D), *eaa = SA(EFC_AREF), *epos = SA(EFC_POS),
+        *efl = SA(EFC_FLOSS), *cmeta = SA(CMETA), *jnt = SA(JNT);
+  LANES(r, m.nfri) {
+    int i = G(m.fri_dof[r]);
+    J[G(m.efc_off[r])] = 1.0f;
+    eD[r] = G(m.fri_D[r]);
+    eaa[r] = -G(m.fri_b[r]) * qvel[i];
+    epos[r] = 0.0f;
+    efl[r] = DRF(dof_frictionloss, i);
   }
-  for (int l = 0; l < m.nlim; ++l, ++r) {
+  LANES(l, m.nlim) {
+    const int r = m.nfri + l;
     const float* p = m.lim_prm + LIM_N * l;
-    int j = m.lim_jnt[l];
-    int qadr = m.jnt_qposadr[j], dofadr = m.jnt_dofadr[j];
+    int j = G(m.lim_jnt[l]);
+    int qadr = G(m.jnt_qposadr[j]), dofadr = G(m.jnt_dofadr[j]);
     float q = qpos[qadr];
-    float dist_lo = q - p[IMP_N], dist_hi = p[IMP_N + 1] - q;
+    float dist_lo = q - G(p[IMP_N]), dist_hi = G(p[IMP_N + 1]) - q;
     float dist = vmin(dist_lo, dist_hi);
     float side = dist_lo < dist_hi ? 1.0f : -1.0f;
-    float pos = dist - p[IMP_N + 2];
+    float pos = dist - G(p[IMP_N + 2]);
     float imp = impedance(pos, p);
-    float R = (1.0f - imp) / imp * p[IMP_N + 3];
+    float R = (1.0f - imp) / imp * G(p[IMP_N + 3]);
     R = vmax(R, MINVAL);
-    for (int d = 0; d < m.nv; ++d) w.J[r][d] = 0.0f;
-    w.J[r][dofadr] = side;
-    w.sup[r] = 1u << dofadr;
-    w.D[r] = 1.0f / R;
-    w.aref[r] = -p[1] * (side * qvel[dofadr]) - p[0] * imp * pos;
-    w.pos[r] = pos;
-    w.floss[r] = 0.0f;
-    w.is_fri[r] = 0;
+    J[G(m.efc_off[r])] = side;
+    eD[r] = 1.0f / R;
+    eaa[r] = -G(p[1]) * (side * qvel[dofadr]) - G(p[0]) * imp * pos;
+    epos[r] = pos;
+    efl[r] = 0.0f;
   }
-  for (int pp = 0; pp < m.npair; ++pp) {
-    const int* pi = m.pair_i + PAIR_NI * pp;
-    const float* pf = m.pair_f + PAIR_NF * pp;
+  // per candidate: friction, impedance and D
+  LANES(c, 4 * m.npair) {
+    const int* pi = m.pair_i + PAIR_NI * (c >> 2);
+    const float* pf = m.pair_f + PAIR_NF * (c >> 2);
     float mu, diag;
     if (dr.geom_friction) {
       // priorities equal: max of both geoms' friction; else mu_g1 == mu_g2
-      float mu1 = DRF(geom_friction, 3 * pi[9]), mu2 = DRF(geom_friction, 3 * pi[10]);
+      float mu1 = DRF(geom_friction, 3 * G(pi[9])), mu2 = DRF(geom_friction, 3 * G(pi[10]));
       mu = vmax(mu1, mu2);
-      float iw = pf[IMP_N + 15];
-      diag = (iw + mu * mu * iw) * 2.0f * mu * mu / pf[IMP_N + 16];
+      float iw = G(pf[IMP_N + 15]);
+      diag = (iw + mu * mu * iw) * 2.0f * mu * mu / G(pf[IMP_N + 16]);
       diag = vmax(diag, MINVAL);
     } else {
-      mu = pf[IMP_N + 1];
-      diag = pf[IMP_N];
+      mu = G(pf[IMP_N + 1]);
+      diag = G(pf[IMP_N]);
     }
-    int root1 = pi[5], root2 = pi[6];
-    uint32_t dofs1 = (uint32_t)pi[11], dofs2 = (uint32_t)pi[12];
-    uint32_t dofs = dofs1 | dofs2;
-    V3 fn = v3(w.frame[pp][0], w.frame[pp][1], w.frame[pp][2]);
-    V3 ft1 = v3(w.frame[pp][3], w.frame[pp][4], w.frame[pp][5]);
-    V3 ft2 = v3(w.frame[pp][6], w.frame[pp][7], w.frame[pp][8]);
-    for (int k = 0; k < 4; ++k) {
-      float dist = w.cand[pp][k].dist;
-      V3 pos_c = w.cand[pp][k].pos;
-      float pos_neg = vmin(dist, 0.0f);
-      float imp = impedance(pos_neg, pf);
-      float R = vmax((1.0f - imp) / imp * diag, MINVAL);
-      float D = 1.0f / R;
-      float Jn[MAX_NV], Jt1[MAX_NV], Jt2[MAX_NV];
-      for (int d = 0; d < m.nv; ++d) {
-        if (!(dofs >> d & 1u)) continue;
-        const float* cd = w.cdof[d];
-        V3 ang = vld(cd), lin = vld(cd + 3);
-        V3 contrib = v3(0.f, 0.f, 0.f);
-        bool in2 = dofs2 >> d & 1u, in1 = dofs1 >> d & 1u;
-        if (in2) contrib = add(lin, cross(ang, sub(pos_c, w.subtree_com[root2])));
-        if (in1) {
-          V3 jp1 = add(lin, cross(ang, sub(pos_c, w.subtree_com[root1])));
-          contrib = in2 ? sub(contrib, jp1) : v3(-jp1.x, -jp1.y, -jp1.z);
-        }
-        Jn[d] = dot(contrib, fn);
-        Jt1[d] = dot(contrib, ft1);
-        Jt2[d] = dot(contrib, ft2);
+    float pos_neg = vmin(SA(CAND)[4 * c], 0.0f);
+    float imp = impedance(pos_neg, pf);
+    float R = vmax((1.0f - imp) / imp * diag, MINVAL);
+    float* cm = cmeta + 4 * c;
+    cm[0] = imp; cm[1] = 1.0f / R; cm[2] = pos_neg; cm[3] = mu;
+  }
+  // per candidate and support dof: the contact point's Jacobian along the
+  // frame's rows (Jn, Jt1, Jt2); pair p's block starts at 12 x the support
+  // widths of the pairs before it
+  for (int pp = 0; pp < m.npair; ++pp) {
+    const int* pi = m.pair_i + PAIR_NI * pp;
+    const int r0 = nfl + 16 * pp, off0 = G(m.efc_off[r0]), w = G(m.efc_off[r0 + 1]) - off0;
+    float* blk = jnt + 12 * ((off0 - nfl) / 16);
+    const int root1 = G(pi[5]), root2 = G(pi[6]);
+    const uint32_t dofs1 = (uint32_t)G(pi[11]), dofs2 = (uint32_t)G(pi[12]);
+    const float* frame = SA(FRAME) + 9 * pp;
+    LANES(it, 4 * w) {
+      const int k = it / w, t = it - k * w;
+      const float* cand = SA(CAND) + 16 * pp + 4 * k;
+      V3 pos_c = vld(cand + 1);
+      int d = G(m.efc_col[off0 + t]);
+      const float* cd = cdof + 6 * d;
+      V3 ang = vld(cd), lin = vld(cd + 3);
+      V3 contrib = v3(0.f, 0.f, 0.f);
+      bool in2 = dofs2 >> d & 1u, in1 = dofs1 >> d & 1u;
+      if (in2) contrib = add(lin, cross(ang, sub(pos_c, vld(com + 3 * root2))));
+      if (in1) {
+        V3 jp1 = add(lin, cross(ang, sub(pos_c, vld(com + 3 * root1))));
+        contrib = in2 ? sub(contrib, jp1) : v3(-jp1.x, -jp1.y, -jp1.z);
       }
-      for (int dir = 0; dir < 4; ++dir, ++r) {
-        const float* Jt = dir < 2 ? Jt1 : Jt2;
-        float smu = (dir & 1) ? -mu : mu;
-        float Jq = 0.f;
-        bool first = true;
-        for (int d = 0; d < m.nv; ++d) {
-          if (!(dofs >> d & 1u)) { w.J[r][d] = 0.0f; continue; }
-          float cf = Jn[d] + smu * Jt[d];
-          w.J[r][d] = cf;
-          float t = cf * qvel[d];
-          Jq = first ? t : Jq + t;
-          first = false;
-        }
-        w.sup[r] = dofs;
-        w.D[r] = D;
-        w.aref[r] = -pf[1] * Jq - pf[0] * imp * pos_neg;
-        w.pos[r] = dist;
-        w.floss[r] = 0.0f;
-        w.is_fri[r] = 0;
-      }
+      blk[it] = dot(contrib, vld(frame));
+      blk[4 * w + it] = dot(contrib, vld(frame + 3));
+      blk[8 * w + it] = dot(contrib, vld(frame + 6));
     }
   }
-  w.nefc = r;
+  __syncwarp();
+  // the pyramid rows' coefficients: Jn +- mu Jt1, Jn +- mu Jt2
+  for (int pp = 0; pp < m.npair; ++pp) {
+    const int r0 = nfl + 16 * pp, off0 = G(m.efc_off[r0]), w = G(m.efc_off[r0 + 1]) - off0;
+    const float* blk = jnt + 12 * ((off0 - nfl) / 16);
+    LANES(it, 16 * w) {
+      const int rr = it / w, t = it - rr * w, k = rr >> 2, dir = rr & 3;
+      const float mu = cmeta[4 * (4 * pp + k) + 3];
+      const float* Jt = blk + (dir < 2 ? 4 : 8) * w;
+      float smu = (dir & 1) ? -mu : mu;
+      J[off0 + it] = blk[k * w + t] + smu * Jt[k * w + t];
+    }
+  }
+  __syncwarp();
+  LANES(q, 16 * m.npair) {
+    const int r = nfl + q, pp = q >> 4, c = q >> 2;
+    const float* pf = m.pair_f + PAIR_NF * pp;
+    const int o0 = G(m.efc_off[r]), o1 = G(m.efc_off[r + 1]);
+    float Jq = J[o0] * qvel[G(m.efc_col[o0])];
+    for (int o = o0 + 1; o < o1; ++o) Jq = Jq + J[o] * qvel[G(m.efc_col[o])];
+    const float* cm = cmeta + 4 * c;
+    eD[r] = cm[1];
+    eaa[r] = -G(pf[1]) * Jq - G(pf[0]) * cm[0] * cm[2];
+    epos[r] = SA(CAND)[4 * c];
+    efl[r] = 0.0f;
+  }
+  __syncwarp();
 }
 
-// sum over a row's support, first term without a leading zero
-__device__ __forceinline__ float jv(const Work& w, int r, const float* v, int nv) {
-  float out = 0.f;
-  bool first = true;
-  uint32_t s = w.sup[r];
-  for (int d = 0; d < nv; ++d) {
-    if (!(s >> d & 1u)) continue;
-    float t = w.J[r][d] * v[d];
-    out = first ? t : out + t;
-    first = false;
-  }
+// row r of J times v, over the row's support, first term without a leading zero
+__device__ __forceinline__ float jv(const DuckModel& m, const float* J, int r, const float* v) {
+  const int o0 = G(m.efc_off[r]), o1 = G(m.efc_off[r + 1]);
+  float out = J[o0] * v[G(m.efc_col[o0])];
+#pragma unroll 4
+  for (int o = o0 + 1; o < o1; ++o) out = out + J[o] * v[G(m.efc_col[o])];
   return out;
 }
 
-__device__ float primal_cost(const DuckModel& m, Work& w, const float* q) {
-  int nv = m.nv;
-  for (int i = 0; i < nv; ++i) w.tmp[i] = q[i] - w.qacc_smooth[i];
-  mat_vec_tree(m, w.M, w.tmp, w.tmp2);
-  float cost = w.tmp[0] * 0.0f;
-  for (int i = 0; i < nv; ++i) cost = cost + 0.5f * w.tmp[i] * w.tmp2[i];
-  for (int r = 0; r < w.nefc; ++r) {
-    float x = jv(w, r, q, nv) - w.aref[r];
-    float D = w.D[r];
-    float Dx = D * x;
-    float c;
-    if (w.is_fri[r]) {
-      float fl = w.floss[r];
-      bool inside = fabsf(Dx) <= fl;
-      c = inside ? 0.5f * D * x * x : fl * fabsf(x) - 0.5f * fl * fl / D;
-    } else {
-      bool act = (w.pos[r] < 0.0f) && (x < 0.0f);
-      c = act ? 0.5f * D * x * x : 0.0f;
-    }
-    cost = cost + c;
+// the constraint cost of row r at q (lane_physics._primal_cost's term)
+__device__ __forceinline__ float cost_row(const DuckModel& m, const float* sm, int r,
+                                          const float* q) {
+  const float D = SA(EFC_D)[r];
+  float x = jv(m, SA(EFC_J), r, q) - SA(EFC_AREF)[r];
+  float Dx = D * x;
+  if (r < m.nfri) {
+    float fl = SA(EFC_FLOSS)[r];
+    bool inside = fabsf(Dx) <= fl;
+    return inside ? 0.5f * D * x * x : fl * fabsf(x) - 0.5f * fl * fl / D;
   }
-  return cost;
+  bool act = (SA(EFC_POS)[r] < 0.0f) && (x < 0.0f);
+  return act ? 0.5f * D * x * x : 0.0f;
 }
 
-__device__ void dphi(const Work& w, float alpha, float smooth_a, float smooth_b,
-                     float& d1, float& d2) {
-  d1 = smooth_b + smooth_a * alpha;
-  d2 = smooth_a;
-  for (int r = 0; r < w.nefc; ++r) {
-    float ja = w.Jaref[r], jd = w.Jd[r], D = w.D[r];
-    float x = ja + alpha * jd;
-    float Dx = D * x;
-    if (w.is_fri[r]) {
-      float fl = w.floss[r];
-      bool inside = fabsf(Dx) <= fl;
-      d1 = d1 + (inside ? Dx * jd : fl * vsign(x) * jd);
-      d2 = d2 + (inside ? D * jd * jd : 0.0f);
-    } else {
-      bool act = (w.pos[r] < 0.0f) && (x < 0.0f);
-      d1 = d1 + (act ? Dx * jd : 0.0f);
-      d2 = d2 + (act ? D * jd * jd : 0.0f);
-    }
+// row r's terms of the line search's first and second derivative at alpha
+__device__ __forceinline__ void dphi_row(const DuckModel& m, const float* sm, int r, float alpha,
+                                         float& t1, float& t2) {
+  float ja = SA(EFC_JAREF)[r], jd = SA(EFC_JD)[r], D = SA(EFC_D)[r];
+  float x = ja + alpha * jd;
+  float Dx = D * x;
+  if (r < m.nfri) {
+    float fl = SA(EFC_FLOSS)[r];
+    bool inside = fabsf(Dx) <= fl;
+    t1 = inside ? Dx * jd : fl * vsign(x) * jd;
+    t2 = inside ? D * jd * jd : 0.0f;
+  } else {
+    bool act = (SA(EFC_POS)[r] < 0.0f) && (x < 0.0f);
+    t1 = act ? Dx * jd : 0.0f;
+    t2 = act ? D * jd * jd : 0.0f;
   }
 }
 
-// Newton solve with warm start by primal cost; result in w.qacc
-__device__ void solve_constraints(const DuckModel& m, Work& w, const float* warm) {
-  const int nv = m.nv;
-  float cost_ws = primal_cost(m, w, warm);
-  float cost_sm = primal_cost(m, w, w.qacc_smooth);
-  bool use_ws = cost_ws < cost_sm;
-  for (int i = 0; i < nv; ++i) w.qacc[i] = use_ws ? warm[i] : w.qacc_smooth[i];
-  for (int r = 0; r < w.nefc; ++r) w.Jaref[r] = jv(w, r, w.qacc, nv) - w.aref[r];
+// d1, d2 of the line search at alpha: the row terms one row per lane, then
+// lane 0 sums d1 and lane 1 sums d2, each in row order
+__device__ __forceinline__ void dphi(const DuckModel& m, float* sm, float alpha, float smooth_a,
+                                     float smooth_b, float& d1, float& d2, int lane) {
+  const int nefc = m.nefc;
+  float *T = SA(TERMS), *scal = SA(SCAL);
+  LANES(r, nefc) dphi_row(m, sm, r, alpha, T[r], T[nefc + r]);
+  __syncwarp();
+  if (lane < 2) {
+    float acc = lane ? smooth_a : smooth_b + smooth_a * alpha;
+    const float* t = T + lane * nefc;
+#pragma unroll 8
+    for (int r = 0; r < nefc; ++r) acc = acc + t[r];
+    scal[4 + lane] = acc;
+  }
+  __syncwarp();
+  d1 = scal[4];
+  d2 = scal[5];
+}
+
+// Newton solve with warm start by primal cost; result in QACC
+__device__ __forceinline__ void solve_constraints(const DuckModel& m, float* sm, int lane) {
+  const int nv = m.nv, nefc = m.nefc, ntri = nv * (nv + 1) / 2, nfl = m.nfri + m.nlim;
+  const float *warm = SA(WARM), *qs = SA(QACC_SMOOTH), *M = SA(M), *J = SA(EFC_J),
+              *eD = SA(EFC_D), *eaa = SA(EFC_AREF), *epos = SA(EFC_POS), *efl = SA(EFC_FLOSS);
+  float *qacc = SA(QACC), *H = SA(H), *Jaref = SA(EFC_JAREF), *Jd = SA(EFC_JD);
+  float *grad = SA(GRAD), *Ma_err = SA(MAERR), *dir = SA(DIR), *tmp = SA(TMP), *tmp2 = SA(TMP2);
+  float *F = SA(EFC_F), *W = SA(EFC_W), *T = SA(TERMS), *scal = SA(SCAL);
+  PROF_START();
+
+  // primal costs at the warm start (lane 0) and at qacc_smooth (lane 1)
+  LANES(i, nv) {
+    grad[i] = warm[i] - qs[i];
+    Ma_err[i] = qs[i] - qs[i];
+  }
+  __syncwarp();
+  LANES(i, nv) {
+    tmp[i] = mat_vec_row(m, M, grad, i);
+    tmp2[i] = mat_vec_row(m, M, Ma_err, i);
+  }
+  LANES(r, nefc) {
+    T[r] = cost_row(m, sm, r, warm);
+    T[nefc + r] = cost_row(m, sm, r, qs);
+  }
+  __syncwarp();
+  if (lane < 2) {
+    const float *diff = lane ? Ma_err : grad, *Md = lane ? tmp2 : tmp, *t = T + lane * nefc;
+    float cost = diff[0] * 0.0f;
+#pragma unroll 8
+    for (int i = 0; i < nv; ++i) cost = cost + 0.5f * diff[i] * Md[i];
+#pragma unroll 8
+    for (int r = 0; r < nefc; ++r) cost = cost + t[r];
+    scal[lane] = cost;
+  }
+  __syncwarp();
+  const bool use_ws = scal[0] < scal[1];
+  LANES(i, nv) qacc[i] = use_ws ? warm[i] : qs[i];
+  __syncwarp();
+  LANES(r, nefc) Jaref[r] = jv(m, J, r, qacc) - eaa[r];
+  __syncwarp();
 
   const int iters = m.iterations > 1 ? m.iterations : 1;
   for (int it = 0; it < iters; ++it) {
-    float grad[MAX_NV], Ma_err[MAX_NV];
-    for (int i = 0; i < nv; ++i) w.tmp[i] = w.qacc[i] - w.qacc_smooth[i];
-    mat_vec_tree(m, w.M, w.tmp, Ma_err);
-    for (int i = 0; i < nv; ++i) grad[i] = Ma_err[i];
-    for (int i = 0; i < nv; ++i)
-      for (int j = 0; j < nv; ++j) w.H[i][j] = w.M[i][j];
-    for (int r = 0; r < w.nefc; ++r) {
-      float ja = w.Jaref[r], D = w.D[r];
+    LANES(i, nv) tmp[i] = qacc[i] - qs[i];
+    __syncwarp();
+    LANES(i, nv) Ma_err[i] = mat_vec_row(m, M, tmp, i);
+    PROF(PROF_COSTS);
+    LANES(r, nefc) {
+      float ja = Jaref[r], D = eD[r];
       float Dx = D * ja;
       float f;
       bool hm;
-      if (w.is_fri[r]) {
-        f = -vclip(Dx, -w.floss[r], w.floss[r]);
-        hm = fabsf(Dx) <= w.floss[r];
+      if (r < m.nfri) {
+        f = -vclip(Dx, -efl[r], efl[r]);
+        hm = fabsf(Dx) <= efl[r];
       } else {
-        hm = (w.pos[r] < 0.0f) && (ja < 0.0f);
+        hm = (epos[r] < 0.0f) && (ja < 0.0f);
         f = hm ? -Dx : 0.0f;
       }
-      uint32_t s = w.sup[r];
-      for (int d = 0; d < nv; ++d)
-        if (s >> d & 1u) grad[d] = grad[d] - w.J[r][d] * f;
-      float wgt = D * (hm ? 1.0f : 0.0f);
-      for (int a = 0; a < nv; ++a) {
-        if (!(s >> a & 1u)) continue;
-        float ca = w.J[r][a];
-        for (int b = 0; b <= a; ++b) {
-          if (!(s >> b & 1u)) continue;
-          w.H[a][b] = w.H[a][b] + wgt * ca * w.J[r][b];
+      F[r] = f;
+      W[r] = D * (hm ? 1.0f : 0.0f);
+    }
+    __syncwarp();
+    // grad (one dof per lane) and H = M + J^T diag(W) J (one entry per lane),
+    // each over the rows that touch it, in row order: the dof's friction
+    // and limit rows, then the 16 rows of every pair whose support holds it
+    LANES(d, nv) {
+      float g = Ma_err[d];
+      for (int kind = 0; kind < 2; ++kind) {
+        int r = G(m.efc_dof_rows[2 * d + kind]);
+        if (r >= 0) g = g - J[G(m.efc_off[r])] * F[r];
+      }
+      for (int pp = 0; pp < m.npair; ++pp) {
+        const int* pi = m.pair_i + PAIR_NI * pp;
+        uint32_t dofs = (uint32_t)G(pi[11]) | (uint32_t)G(pi[12]);
+        if (!(dofs >> d & 1u)) continue;
+        const int r0 = nfl + 16 * pp, o0 = G(m.efc_off[r0]), w = G(m.efc_off[r0 + 1]) - o0;
+        const int pd = __popc(dofs & ((1u << d) - 1u));
+        for (int q = 0; q < 16; ++q) g = g - J[o0 + q * w + pd] * F[r0 + q];
+      }
+      grad[d] = g;
+    }
+    LANES(e, ntri) {
+      int a, b;
+      tri_ij(e, a, b);
+      float h = M[e];
+      if (a == b)
+        for (int kind = 0; kind < 2; ++kind) {
+          int r = G(m.efc_dof_rows[2 * a + kind]);
+          if (r >= 0) {
+            float c = J[G(m.efc_off[r])];
+            h = h + W[r] * c * c;
+          }
+        }
+      for (int pp = 0; pp < m.npair; ++pp) {
+        const int* pi = m.pair_i + PAIR_NI * pp;
+        uint32_t dofs = (uint32_t)G(pi[11]) | (uint32_t)G(pi[12]);
+        if (!((dofs >> a & 1u) && (dofs >> b & 1u))) continue;
+        const int r0 = nfl + 16 * pp, o0 = G(m.efc_off[r0]), w = G(m.efc_off[r0 + 1]) - o0;
+        const int pa = __popc(dofs & ((1u << a) - 1u)), pb = __popc(dofs & ((1u << b) - 1u));
+        for (int q = 0; q < 16; ++q) {
+          const float* Jr = J + o0 + q * w;
+          h = h + W[r0 + q] * Jr[pa] * Jr[pb];
         }
       }
+      H[e] = h;
     }
+    PROF(PROF_GRAD_H);
     // factor the lower triangle in place: H's strict lower part becomes L
-    ldl_factor(nv, m.ldlh_mask, w.H, w.H, w.tmp2, w.dinv);
-    for (int i = 0; i < nv; ++i) w.dir[i] = -grad[i];
-    ldl_solve(nv, m.ldlh_mask, w.H, w.dinv, w.dir);
+    ldl_factor(nv, m.ldlh_mask, H, H, SA(SOL_DINV), lane);
+    float z = ldl_solve(nv, m.ldlh_mask, H, SA(SOL_DINV), lane < nv ? -grad[lane] : 0.0f, lane);
+    if (lane < nv) dir[lane] = z;
+    __syncwarp();
 
-    for (int r = 0; r < w.nefc; ++r) w.Jd[r] = jv(w, r, w.dir, nv);
-    mat_vec_tree(m, w.M, w.dir, w.tmp);
-    float smooth_b = 0.0f, smooth_a = 0.0f;
-    for (int i = 0; i < nv; ++i) smooth_b = smooth_b + w.dir[i] * Ma_err[i];
-    for (int i = 0; i < nv; ++i) smooth_a = smooth_a + w.dir[i] * w.tmp[i];
+    LANES(r, nefc) Jd[r] = jv(m, J, r, dir);
+    LANES(i, nv) tmp[i] = mat_vec_row(m, M, dir, i);
+    __syncwarp();
+    if (lane < 2) {  // smooth_b on lane 0, smooth_a on lane 1
+      const float* u = lane ? tmp : Ma_err;
+      float acc = 0.0f;
+#pragma unroll 8
+      for (int i = 0; i < nv; ++i) acc = acc + dir[i] * u[i];
+      scal[2 + lane] = acc;
+    }
+    __syncwarp();
+    const float smooth_b = scal[2], smooth_a = scal[3];
+    PROF(PROF_FACTOR_H);
 
     float d1_0, d2_0;
-    dphi(w, 0.0f, smooth_a, smooth_b, d1_0, d2_0);
+    dphi(m, sm, 0.0f, smooth_a, smooth_b, d1_0, d2_0, lane);
     bool descent = d1_0 < 0.0f;
     float hi0 = d2_0 > TINY ? -d1_0 / vmax(d2_0, TINY) : 1.0f;
     hi0 = vmax(hi0, 1e-8f);
+    // the 8 bracket points are independent: lane kk forms point kk's d1,
+    // its row terms summed in row order as they are made
+    if (lane < 8) {
+      const float alpha = hi0 * (float)(1 << lane);
+      float acc = smooth_b + smooth_a * alpha;
+#pragma unroll 2
+      for (int r = 0; r < nefc; ++r) {
+        float t1, t2;
+        dphi_row(m, sm, r, alpha, t1, t2);
+        acc = acc + t1;
+      }
+      scal[8 + lane] = acc;
+    }
+    __syncwarp();
     float still_neg = 1.0f, count = 0.0f;
     for (int kk = 0; kk < 8; ++kk) {
-      float d1_k, d2_k;
-      dphi(w, hi0 * (float)(1 << kk), smooth_a, smooth_b, d1_k, d2_k);
-      float neg = d1_k < 0.0f ? 1.0f : 0.0f;
+      float neg = scal[8 + kk] < 0.0f ? 1.0f : 0.0f;
       still_neg = kk == 0 ? neg : still_neg * neg;
       count = count + still_neg;
     }
@@ -1051,7 +1360,7 @@ __device__ void solve_constraints(const DuckModel& m, Work& w, const float* warm
     const int ls = m.ls_iterations > 1 ? m.ls_iterations : 1;
     for (int l = 0; l < ls; ++l) {
       float d1_a, d2_a;
-      dphi(w, alpha, smooth_a, smooth_b, d1_a, d2_a);
+      dphi(m, sm, alpha, smooth_a, smooth_b, d1_a, d2_a, lane);
       lo = d1_a < 0.0f ? alpha : lo;
       hi = d1_a >= 0.0f ? alpha : hi;
       float newton = alpha - d1_a / vmax(d2_a, TINY);
@@ -1059,8 +1368,9 @@ __device__ void solve_constraints(const DuckModel& m, Work& w, const float* warm
       alpha = (newton > lo && newton < hi && d2_a > TINY) ? newton : mid;
     }
     alpha = descent ? alpha : 0.0f;
-    for (int i = 0; i < nv; ++i) w.qacc[i] = w.qacc[i] + alpha * w.dir[i];
-    for (int r = 0; r < w.nefc; ++r) w.Jaref[r] = w.Jaref[r] + alpha * w.Jd[r];
+    LANES(i, nv) qacc[i] = qacc[i] + alpha * dir[i];
+    LANES(r, nefc) Jaref[r] = Jaref[r] + alpha * Jd[r];
+    PROF(PROF_LINE_SEARCH);
   }
 }
 
@@ -1068,52 +1378,58 @@ __device__ void solve_constraints(const DuckModel& m, Work& w, const float* warm
 // sensors / derived outputs of the last substep
 // ---------------------------------------------------------------------------
 
-__device__ void write_derived(const DuckModel& m, int env, int nsensordata, const float* qvel,
-                              Work& w, float* sensordata, float* actuator_force,
-                              float* contact_dist, float* site_xpos, float* site_xmat) {
-  // site kinematics
-  V3 spos[MAX_SITE];
-  M3 smat[MAX_SITE];
-  for (int s = 0; s < m.nsite; ++s) {
-    int b = m.site_bodyid[s];
-    spos[s] = add(w.xpos[b], qrot(w.xquat[b], vld(m.site_pos + 3 * s)));
-    smat[s] = qmat(qmul(w.xquat[b], qld(m.site_quat + 4 * s)));
+__device__ __forceinline__ void write_derived(const DuckModel& m, int env, int nsensordata,
+                                              float* sm, float* sensordata, float* actuator_force,
+                                              float* contact_dist, float* site_xpos,
+                                              float* site_xmat, int lane) {
+  const float *xpos = SA(XPOS), *xquat = SA(XQUAT), *qvel = SA(QVEL), *qacc = SA(QACC),
+              *cdof = SA(CDOF), *cdofdot = SA(CDOFDOT), *cvel = SA(CVEL), *com = SA(SUBTREE_COM);
+  float *spos = SA(SPOS), *smat = SA(SMAT), *cacc = SA(PCACC);
+  // site kinematics, one site per lane
+  LANES(s, m.nsite) {
+    int b = G(m.site_bodyid[s]);
+    Q4 xq = qld(xquat + 4 * b);
+    V3 p = add(vld(xpos + 3 * b), qrot(xq, vldg(m.site_pos + 3 * s)));
+    M3 R = qmat(qmul(xq, qldg(m.site_quat + 4 * s)));
+    vst(spos + 3 * s, p);
+    for (int k = 0; k < 9; ++k) smat[9 * s + k] = R.m[k];
     float* xp = site_xpos + (size_t)env * m.nsite * 3 + 3 * s;
-    xp[0] = spos[s].x; xp[1] = spos[s].y; xp[2] = spos[s].z;
+    xp[0] = p.x; xp[1] = p.y; xp[2] = p.z;
     float* xm = site_xmat + (size_t)env * m.nsite * 9 + 9 * s;
-    for (int k = 0; k < 9; ++k) xm[k] = smat[s].m[k];
+    for (int k = 0; k < 9; ++k) xm[k] = R.m[k];
   }
-  // body accelerations with the constraint solution (rne_post_cacc)
-  float cacc[MAX_BODY][6];
-  cacc[0][0] = cacc[0][1] = cacc[0][2] = 0.0f;
-  cacc[0][3] = 0.0f - m.gx; cacc[0][4] = 0.0f - m.gy; cacc[0][5] = 0.0f - m.gz;
-  for (int b = 1; b < m.nbody; ++b) {
-    int p = m.body_parentid[b];
-    float a[6];
-    for (int k = 0; k < 6; ++k) a[k] = cacc[p][k];
-    int dofadr = m.body_dofadr[b], dofnum = m.body_dofnum[b];
-    for (int i = dofadr; i < dofadr + dofnum; ++i)
-      for (int k = 0; k < 6; ++k)
-        a[k] = a[k] + (w.cdofdot[i][k] * qvel[i] + w.cdof[i][k] * w.qacc[i]);
-    for (int k = 0; k < 6; ++k) cacc[b][k] = a[k];
+  // body accelerations with the constraint solution (rne_post_cacc), one
+  // spatial component per lane down the tree
+  if (lane < 6) {
+    const int k = lane;
+    cacc[k] = k < 3 ? 0.0f : 0.0f - (k == 3 ? m.gx : (k == 4 ? m.gy : m.gz));
+    for (int b = 1; b < m.nbody; ++b) {
+      float a = cacc[6 * G(m.body_parentid[b]) + k];
+      int dofadr = G(m.body_dofadr[b]), dofnum = G(m.body_dofnum[b]);
+      for (int i = dofadr; i < dofadr + dofnum; ++i)
+        a = a + (cdofdot[6 * i + k] * qvel[i] + cdof[6 * i + k] * qacc[i]);
+      cacc[6 * b + k] = a;
+    }
   }
+  __syncwarp();
   float* out = sensordata + (size_t)env * nsensordata;
-  for (int s = 0; s < m.nsensor; ++s) {
-    int sid = m.sensor_objid[s];
-    int body = m.site_bodyid[sid];
-    V3 origin = w.subtree_com[m.body_rootid[body]];
-    V3 p = spos[sid];
-    const M3& R = smat[sid];
-    V3 w_world = vld(w.cvel[body]);
-    V3 pv = add(vld(w.cvel[body] + 3), cross(w_world, sub(p, origin)));
-    float* o = out + m.sensor_adr[s];
+  LANES(s, m.nsensor) {
+    int sid = G(m.sensor_objid[s]);
+    int body = G(m.site_bodyid[sid]);
+    V3 origin = vld(com + 3 * G(m.body_rootid[body]));
+    V3 p = vld(spos + 3 * sid);
+    M3 R;
+    for (int k = 0; k < 9; ++k) R.m[k] = smat[9 * sid + k];
+    V3 w_world = vld(cvel + 6 * body);
+    V3 pv = add(vld(cvel + 6 * body + 3), cross(w_world, sub(p, origin)));
+    float* o = out + G(m.sensor_adr[s]);
     V3 r3;
-    switch (m.sensor_type[s]) {
+    switch (G(m.sensor_type[s])) {
       case S_GYRO: r3 = mtvec(R, w_world); break;
       case S_VELOCIMETER: r3 = mtvec(R, pv); break;
       case S_ACCELEROMETER: {
-        V3 a_ang = vld(cacc[body]);
-        V3 a_lin = add(vld(cacc[body] + 3), cross(a_ang, sub(p, origin)));
+        V3 a_ang = vld(cacc + 6 * body);
+        V3 a_lin = add(vld(cacc + 6 * body + 3), cross(a_ang, sub(p, origin)));
         r3 = mtvec(R, add(a_lin, cross(w_world, pv)));
         break;
       }
@@ -1123,48 +1439,62 @@ __device__ void write_derived(const DuckModel& m, int env, int nsensordata, cons
       case S_FRAMEANGVEL: r3 = w_world; break;
       case S_FRAMEPOS: r3 = p; break;
       default: {  // S_FRAMEQUAT
-        Q4 q = qmul(w.xquat[body], qld(m.site_quat + 4 * sid));
+        Q4 q = qmul(qld(xquat + 4 * body), qldg(m.site_quat + 4 * sid));
         o[0] = q.w; o[1] = q.x; o[2] = q.y; o[3] = q.z;
         continue;
       }
     }
     o[0] = r3.x; o[1] = r3.y; o[2] = r3.z;
   }
-  for (int u = 0; u < m.nu; ++u) actuator_force[(size_t)env * m.nu + u] = w.actuator_force[u];
-  for (int pp = 0; pp < m.npair; ++pp)
-    for (int k = 0; k < 4; ++k)
-      contact_dist[(size_t)env * m.npair * 4 + 4 * pp + k] = w.cand[pp][k].dist;
+  const float *af = SA(ACT_FORCE), *cand = SA(CAND);
+  LANES(u, m.nu) actuator_force[(size_t)env * m.nu + u] = af[u];
+  LANES(c, 4 * m.npair) contact_dist[(size_t)env * m.npair * 4 + c] = cand[4 * c];
+  __syncwarp();
 }
 
 // ---------------------------------------------------------------------------
 // one substep (lane_physics.LanePhysics.substep)
 // ---------------------------------------------------------------------------
 
-__device__ void substep(const DuckModel& m, const DuckDR& dr, int env, float* qpos,
-                        float* qvel, const float* ctrl, float* warm, Work& w) {
+__device__ __forceinline__ void substep(const DuckModel& m, const DuckDR& dr, int env, float* sm,
+                                       int lane) {
   const int nv = m.nv;
-  kinematics(m, dr, env, qpos, w);
-  com_pos(m, dr, env, w);
-  crb(m, dr, env, w);
-  collide(m, w);
-  com_vel(m, qvel, w);
-  float bias[MAX_NV], qfrc_act[MAX_NV];
-  rne(m, qvel, w, bias);
-  actuation(m, dr, env, qpos, qvel, ctrl, w, qfrc_act);
-  for (int i = 0; i < nv; ++i)
-    w.qacc_smooth[i] = qfrc_act[i] - bias[i] - m.dof_damping[i] * qvel[i];
-  ldl_factor(nv, m.ldl_mask, w.M, w.H, w.tmp2, w.dinv);
-  ldl_solve(nv, m.ldl_mask, w.H, w.dinv, w.qacc_smooth);
-  make_efc(m, dr, env, qpos, qvel, w);
-  solve_constraints(m, w, warm);
+  PROF_START();
+  kinematics(m, dr, env, sm, lane);
+  PROF(PROF_KINEMATICS);
+  com_pos(m, dr, env, sm, lane);
+  PROF(PROF_COM_POS);
+  crb(m, dr, env, sm, lane);
+  PROF(PROF_CRB);
+  collide(m, sm, lane);
+  PROF(PROF_COLLIDE);
+  com_vel(m, sm, lane);
+  rne(m, sm, lane);
+  actuation(m, dr, env, sm, lane);
+  PROF(PROF_DYNAMICS);
+  const float *qvel = SA(QVEL), *bias = SA(BIAS), *qfrc_act = SA(QFRC_ACT);
+  float* qs = SA(QACC_SMOOTH);
+  float z = 0.0f;
+  if (lane < nv) z = qfrc_act[lane] - bias[lane] - G(m.dof_damping[lane]) * qvel[lane];
+  __syncwarp();  // the factor's arrays may overlay the bias forces
+  ldl_factor(nv, m.ldl_mask, SA(M), SA(LDLM), SA(DINV), lane);
+  z = ldl_solve(nv, m.ldl_mask, SA(LDLM), SA(DINV), z, lane);
+  if (lane < nv) qs[lane] = z;
+  PROF(PROF_SMOOTH_SOLVE);
+  make_efc(m, dr, env, sm, lane);
+  PROF(PROF_MAKE_EFC);
+  solve_constraints(m, sm, lane);
 }
 
-__device__ void integrate(const DuckModel& m, float* qpos, float* qvel, const Work& w) {
+__device__ __forceinline__ void integrate(const DuckModel& m, float* sm, int lane) {
   const float dt = m.dt;
-  for (int i = 0; i < m.nv; ++i) qvel[i] = qvel[i] + dt * w.qacc[i];
-  for (int j = 0; j < m.njnt; ++j) {
-    int qadr = m.jnt_qposadr[j], vadr = m.jnt_dofadr[j];
-    if (m.jnt_type[j] == J_FREE) {
+  float *qpos = SA(QPOS), *qvel = SA(QVEL), *warm = SA(WARM);
+  const float* qacc = SA(QACC);
+  LANES(i, m.nv) qvel[i] = qvel[i] + dt * qacc[i];
+  __syncwarp();
+  LANES(j, m.njnt) {
+    int qadr = G(m.jnt_qposadr[j]), vadr = G(m.jnt_dofadr[j]);
+    if (G(m.jnt_type[j]) == J_FREE) {
       for (int i = 0; i < 3; ++i) qpos[qadr + i] = qpos[qadr + i] + dt * qvel[vadr + i];
       V3 wl = v3(qvel[vadr + 3], qvel[vadr + 4], qvel[vadr + 5]);
       float angle = sqrtf(dot(wl, wl));
@@ -1174,61 +1504,108 @@ __device__ void integrate(const DuckModel& m, float* qpos, float* qvel, const Wo
       Q4 dq = {cosf(half), wl.x * s, wl.y * s, wl.z * s};
       Q4 q = {qpos[qadr + 3], qpos[qadr + 4], qpos[qadr + 5], qpos[qadr + 6]};
       Q4 qn = qnormalize(qmul(q, dq));
-      qpos[qadr + 3] = qn.w; qpos[qadr + 4] = qn.x; qpos[qadr + 5] = qn.y; qpos[qadr + 6] = qn.z;
+      qst(qpos + qadr + 3, qn);
     } else {
       qpos[qadr] = qpos[qadr] + dt * qvel[vadr];
     }
   }
+  LANES(i, m.nv) warm[i] = qacc[i];
+  __syncwarp();
 }
 
-__global__ void physics_step_kernel(DuckModel m, DuckDR dr, int B, int n_substeps, int nsensordata,
-                                    const float* __restrict__ qpos_in,
+// one warp per env: blockDim.x = 32 k, env = blockIdx.x * k + warp
+__global__ void physics_step_kernel(const __grid_constant__ DuckModel m,
+                                    const __grid_constant__ DuckDR dr, int B, int n_substeps,
+                                    int nsensordata, const float* __restrict__ qpos_in,
                                     const float* __restrict__ qvel_in,
                                     const float* __restrict__ warm_in,
                                     const float* __restrict__ ctrl_in, float* qpos_out,
                                     float* qvel_out, float* warm_out, float* sensordata,
                                     float* actuator_force, float* contact_dist, float* site_xpos,
                                     float* site_xmat) {
-  int env = blockIdx.x * blockDim.x + threadIdx.x;
-  if (env >= B) return;
-  Work w;
-  float qpos[MAX_NQ], qvel[MAX_NV], warm[MAX_NV], ctrl[MAX_NU];
-  for (int i = 0; i < m.nq; ++i) qpos[i] = qpos_in[(size_t)env * m.nq + i];
-  for (int i = 0; i < m.nv; ++i) qvel[i] = qvel_in[(size_t)env * m.nv + i];
-  for (int i = 0; i < m.nv; ++i) warm[i] = warm_in[(size_t)env * m.nv + i];
-  for (int i = 0; i < m.nu; ++i) ctrl[i] = ctrl_in[(size_t)env * m.nu + i];
+  extern __shared__ float4 dyn_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int env = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (env >= B) return;  // the whole warp: no block-wide barrier follows
+  float* sm = reinterpret_cast<float*>(dyn_smem) + (size_t)warp * m.env_floats;
+  float *qpos = SA(QPOS), *qvel = SA(QVEL), *warm = SA(WARM), *ctrl = SA(CTRL);
+  LANES(i, m.nq) qpos[i] = qpos_in[(size_t)env * m.nq + i];
+  LANES(i, m.nv) qvel[i] = qvel_in[(size_t)env * m.nv + i];
+  LANES(i, m.nv) warm[i] = warm_in[(size_t)env * m.nv + i];
+  LANES(i, m.nu) ctrl[i] = ctrl_in[(size_t)env * m.nu + i];
+  __syncwarp();
   for (int k = 0; k < n_substeps; ++k) {
-    substep(m, dr, env, qpos, qvel, ctrl, warm, w);
+    substep(m, dr, env, sm, lane);
+    PROF_START();
     if (k == n_substeps - 1)
-      write_derived(m, env, nsensordata, qvel, w, sensordata, actuator_force, contact_dist,
-                    site_xpos, site_xmat);
-    integrate(m, qpos, qvel, w);
-    for (int i = 0; i < m.nv; ++i) warm[i] = w.qacc[i];
+      write_derived(m, env, nsensordata, sm, sensordata, actuator_force, contact_dist, site_xpos,
+                    site_xmat, lane);
+    integrate(m, sm, lane);
+    PROF(PROF_OUTPUT);
   }
-  for (int i = 0; i < m.nq; ++i) qpos_out[(size_t)env * m.nq + i] = qpos[i];
-  for (int i = 0; i < m.nv; ++i) qvel_out[(size_t)env * m.nv + i] = qvel[i];
-  for (int i = 0; i < m.nv; ++i) warm_out[(size_t)env * m.nv + i] = warm[i];
+  LANES(i, m.nq) qpos_out[(size_t)env * m.nq + i] = qpos[i];
+  LANES(i, m.nv) qvel_out[(size_t)env * m.nv + i] = qvel[i];
+  LANES(i, m.nv) warm_out[(size_t)env * m.nv + i] = warm[i];
 }
 
+#ifdef __CUDACC__  // the host entry points (the device code above also builds as C++)
 extern "C" {
 
 int duck_limits(int* out) {
-  out[0] = MAX_NQ; out[1] = MAX_NV; out[2] = MAX_NU; out[3] = MAX_BODY; out[4] = MAX_JNT;
-  out[5] = MAX_SITE; out[6] = MAX_PAIR; out[7] = MAX_HV; out[8] = MAX_HF; out[9] = MAX_EFC;
-  out[10] = MAX_HFIELD_N; out[11] = MAX_HFIELD_N;
-  return 12;
+  out[0] = MAX_NV;
+  out[1] = MAX_HV;
+  return 2;
+}
+
+// Let the kernel's blocks use up to `smem` bytes of dynamic shared memory,
+// and prefer shared memory to L1 in the SM's split.
+int duck_configure(int smem) {
+  cudaError_t e = cudaFuncSetAttribute(physics_step_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaFuncSetAttribute(physics_step_kernel,
+                                   cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// How many blocks of `threads` threads and `smem` bytes fit one SM (out[0]),
+// and the card's SM count (out[1]).
+int duck_occupancy(int threads, int smem, int* out) {
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, physics_step_kernel, threads,
+                                                                (size_t)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// the stage cycles summed since the last call (PROF_COUNT values); -1
+// unless built with -DDUCK_PROFILE
+int duck_profile(unsigned long long* out) {
+#ifdef DUCK_PROFILE
+  cudaError_t e = cudaMemcpyFromSymbol(out, duck_prof, sizeof(duck_prof));
+  if (e != cudaSuccess) return (int)e;
+  static const unsigned long long zero[PROF_COUNT] = {0};
+  return (int)cudaMemcpyToSymbol(duck_prof, zero, sizeof(duck_prof));
+#else
+  (void)out;
+  return -1;
+#endif
 }
 
 int duck_physics_step(const DuckModel* m, const DuckDR* dr, int B, int n_substeps,
                       int nsensordata, const float* qpos, const float* qvel, const float* warm,
                       const float* ctrl, float* qpos_out, float* qvel_out, float* warm_out,
                       float* sensordata, float* actuator_force, float* contact_dist,
-                      float* site_xpos, float* site_xmat, int threads, void* stream) {
-  const int blocks = (B + threads - 1) / threads;
-  physics_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+                      float* site_xpos, float* site_xmat, int envs_per_block, void* stream) {
+  const int blocks = (B + envs_per_block - 1) / envs_per_block;
+  const size_t smem = (size_t)envs_per_block * m->env_floats * sizeof(float);
+  physics_step_kernel<<<blocks, 32 * envs_per_block, smem, (cudaStream_t)stream>>>(
       *m, *dr, B, n_substeps, nsensordata, qpos, qvel, warm, ctrl, qpos_out, qvel_out, warm_out,
       sensordata, actuator_force, contact_dist, site_xpos, site_xmat);
   return (int)cudaGetLastError();
 }
 
 }  // extern "C"
+#endif

@@ -11,6 +11,9 @@ the last substep, taken before its integration.
   ``nvcc`` for ``sm_90a`` from this package's sources at first use into
   ``build/kernels/`` of the checkout, and loaded with ``ctypes``. Anything the
   kernel does not take raises; nothing falls back.
+- The kernel runs one warp per env with the env's arrays in shared memory:
+  ``shared_layout`` places them from the model's sizes, ``launch_geometry``
+  picks the envs per block from the occupancy the runtime reports.
 - Tensors on the CPU run the kernel's plain PyTorch version
   (``lane_physics.LanePhysics``), the same program on ``(B,)`` tensors.
 - ``launches`` counts the kernel launches of this object, and nothing else.
@@ -67,8 +70,137 @@ _DR_SHAPES = {
     "actuator_gainprm": ("nu", 3),
     "actuator_biasprm": ("nu", 3),
 }
-_LIMIT_NAMES = ("nq", "nv", "nu", "nbody", "njnt", "nsite", "npair", "hv", "hf", "nefc",
-                "hfield_nrow", "hfield_ncol")
+# dof masks are 32-bit words; one lane per hull vertex
+_LIMIT_NAMES = ("nv", "hv")
+# shared memory one block may use on an H100 (sm_90): 227 KB
+MAX_SHARED_BYTES = 232448
+_ALIGN = 4  # floats: every array starts on a 16-byte boundary
+_ENVS_PER_BLOCK = (1, 2, 4, 8, 16)
+
+
+def _layout_groups(s: Dict[str, int]):
+    """The arrays of one env's shared-memory slice, in the kernel's enum
+    order (``L_*`` in csrc/physics_step.cu): groups of (name, floats, what
+    of the twin's substep it holds). Group "substep" lives through a whole
+    substep; "rigid_body" from kinematics to the bias forces; each other
+    group is one stage's scratch. The stage groups up to the bias forces
+    (phase "A") overlay each other after "rigid_body"; those from the
+    smooth acceleration on (phase "B") overlay each other and "rigid_body"."""
+    nq, nv, nu, nb, nj = s["nq"], s["nv"], s["nu"], s["nbody"], s["njnt"]
+    hv, hf, npair, nefc, ns = s["hv"], s["hf"], s["npair"], s["nefc"], s["nsite"]
+    tri = nv * (nv + 1) // 2
+    return (
+        ("substep", "", (
+            ("QPOS", nq, "qpos"), ("QVEL", nv, "qvel"), ("WARM", nv, "warm (qacc_warmstart)"),
+            ("CTRL", nu, "ctrl"),
+            ("XPOS", 3 * nb, "kinematics: xpos"), ("XQUAT", 4 * nb, "kinematics: xquat"),
+            ("SUBTREE_COM", 3 * nb, "com_pos: subtree_com"),
+            ("CDOF", 6 * nv, "com_pos: cdof"), ("CDOFDOT", 6 * nv, "com_vel: cdofdot"),
+            ("CVEL", 6 * nb, "com_vel: cvel"),
+            ("M", tri, "crb: M, packed lower triangle on the tree pattern"),
+            ("QACC_SMOOTH", nv, "qacc_smooth"), ("QACC", nv, "solve_constraints: qacc"),
+            ("ACT_FORCE", nu, "actuation: actuator_force"),
+            ("CAND", 16 * npair, "collide: 4 candidates per pair, [dist, pos]"),
+            ("FRAME", 9 * npair, "collide: contact frame rows per pair"),
+            ("EFC_J", s["efc_nnz"], "make_efc: each row's support coefficients"),
+            ("EFC_D", nefc, "make_efc: D"), ("EFC_AREF", nefc, "make_efc: aref"),
+            ("EFC_POS", nefc, "make_efc: pos"), ("EFC_FLOSS", nefc, "make_efc: floss"),
+            ("EFC_JAREF", nefc, "solve_constraints: Jaref"),
+            ("EFC_JD", nefc, "solve_constraints: Jd"),
+            ("SCAL", 32, "scalars one lane hands to the others"),
+        )),
+        ("rigid_body", "", (
+            ("XANCHOR", 3 * nj, "kinematics: xanchor"), ("XAXIS", 3 * nj, "kinematics: xaxis"),
+            ("CINERT", 21 * nb, "com_pos: cinert (sym6 per body)"),
+        )),
+        ("com_pos", "A", (("XIPOS", 3 * nb, "xipos"),
+                          ("SEG", 4 * nb, "subtree mass moments, mass"))),
+        ("crb", "A", (("CRB", 21 * nb, "crb_inert"), ("FVEC", 6 * nv, "F = crb_inert cdof"))),
+        ("collide", "A", (
+            ("W1", 3 * hv, "hull 1 vertices (world)"), ("W2", 3 * hv, "hull 2 vertices (world)"),
+        )),
+        ("dynamics", "A", (
+            ("VPRE", 6 * nv, "com_vel: body velocity before each dof"),
+            ("CACC", 6 * nb, "rne: cacc"), ("CFRC", 6 * nb, "rne: cfrc"),
+            ("BIAS", nv, "rne: qfrc_bias"), ("QFRC_ACT", nv, "actuation: qfrc_actuator"),
+        )),
+        ("smooth_acceleration", "B", (
+            ("LDLM", tri, "LDL factor of M, packed lower triangle"),
+            ("DINV", 2 * nv, "LDL of M: 1 / d, then d"),
+        )),
+        ("make_efc", "B", (
+            ("CMETA", 16 * npair, "per candidate: imp, D, pos_neg, mu"),
+            ("JNT", 12 * s["efc_pair_width"], "per candidate and support dof: Jn, Jt1, Jt2"),
+        )),
+        ("solve_constraints", "B", (
+            ("H", tri, "Newton Hessian, then its LDL factor, packed lower triangle"),
+            ("SOL_DINV", 2 * nv, "LDL of H: 1 / d, then d"),
+            ("GRAD", nv, "grad"), ("MAERR", nv, "Ma_err"), ("DIR", nv, "search direction"),
+            ("TMP", nv, "q - qacc_smooth, M dir"), ("TMP2", nv, "M (q - qacc_smooth)"),
+            ("EFC_F", nefc, "row forces"), ("EFC_W", nefc, "row Hessian weights"),
+            ("TERMS", 2 * nefc, "per-row terms of the costs and line-search sums"),
+        )),
+        ("write_derived", "B", (
+            ("SPOS", 3 * ns, "site_xpos"), ("SMAT", 9 * ns, "site_xmat"),
+            ("PCACC", 6 * nb, "rne_post_cacc: cacc"),
+        )),
+    )
+
+
+LAYOUT_NAMES = tuple(name for _, _, arrays in _layout_groups(
+    {k: 1 for k in ("nq", "nv", "nu", "nbody", "njnt", "hv", "hf", "npair", "nefc", "nsite",
+                    "efc_nnz", "efc_pair_width")}) for name, _, _ in arrays)
+
+
+def _up(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def shared_layout(sizes: Dict[str, int]) -> dict:
+    """One env's shared-memory slice, from the model's packed ``sizes``:
+    ``offsets`` (floats, in LAYOUT_NAMES order), ``spans`` {name: (offset,
+    floats, group, phase)}, ``env_floats`` and ``env_bytes``. Raises if one
+    env does not fit a block's shared memory."""
+    spans = {}
+
+    def place(group, phase, arrays, off):
+        for name, n, _ in arrays:
+            spans[name] = (off, n, group, phase)
+            off = _up(off + n)
+        return off
+
+    groups = _layout_groups(sizes)
+    base = place(*groups[0], 0)             # the substep's arrays
+    a_base = place(*groups[1], base)        # phase A's long-lived arrays
+    end = a_base
+    for group, phase, arrays in groups[2:]:
+        end = max(end, place(group, phase, arrays, a_base if phase == "A" else base))
+    env_bytes = 4 * end
+    if env_bytes > MAX_SHARED_BYTES:
+        raise ValueError(f"one env needs {env_bytes} bytes of shared memory; a block has "
+                         f"{MAX_SHARED_BYTES}: the model does not fit the fused kernel")
+    return dict(offsets=[spans[n][0] for n in LAYOUT_NAMES], spans=spans, env_floats=end,
+                env_bytes=env_bytes)
+
+
+def launch_geometry(B: int, env_bytes: int, sms: int, blocks_per_sm) -> dict:
+    """Envs (warps) per block and the grid for B envs: the k of
+    _ENVS_PER_BLOCK whose blocks (32 k threads, k env slices of shared
+    memory) keep the most warps resident per SM, the smallest k on a tie.
+    ``blocks_per_sm(k)`` is the runtime's occupancy for such a block."""
+    best = None
+    for k in _ENVS_PER_BLOCK:
+        if k * env_bytes > MAX_SHARED_BYTES:
+            break
+        n = blocks_per_sm(k)
+        if n > 0 and (best is None or n * k > best[0] * best[1]):
+            best = (n, k)
+    if best is None:
+        raise ValueError(f"no block of one env ({env_bytes} bytes of shared memory) fits an SM")
+    n, k = best
+    blocks = -(-B // k)
+    return dict(envs_per_block=k, blocks=blocks, blocks_per_sm=n, warps_per_sm=n * k,
+                waves=-(-blocks // (n * sms)), sms=sms)
 
 
 def dr_rows(m: Model, field: str) -> int:
@@ -99,19 +231,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the fused physics kernel is built with the CUDA toolkit")
 
 
-def build_library() -> str:
+def build_library(profile: bool = False) -> str:
     """Compile the kernel (or reuse an earlier build of the same source);
     returns the path of the shared library. Its ptxas report (registers,
-    stack, spills) is written beside it as ``.log``."""
+    stack, spills) is written beside it as ``.log``. ``profile`` builds the
+    variant that counts each stage's clock cycles (``-DDUCK_PROFILE``)."""
     with open(_SRC, "rb") as f:
         src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + (("-DDUCK_PROFILE",) if profile else ())
+    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     so = os.path.join(BUILD_DIR, f"libduck_physics_{key}.so")
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
+    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, _SRC],
                           capture_output=True, text=True)
     with open(so + ".log", "w") as f:
         f.write(proc.stdout + proc.stderr)
@@ -121,13 +255,16 @@ def build_library() -> str:
     return so
 
 
+_INT_SIZES = ("nq", "nv", "nu", "nbody", "njnt", "ngeom", "nsite", "nsensor", "npair", "nfri",
+              "nlim", "hv", "hf", "iterations", "ls_iterations", "hfield_nrow", "hfield_ncol",
+              "nefc", "max_depth", "env_floats")
+
+
 class _DuckModel(ctypes.Structure):
     _fields_ = (
-        [(n, ctypes.c_int) for n in (
-            "nq", "nv", "nu", "nbody", "njnt", "ngeom", "nsite", "nsensor", "npair",
-            "nfri", "nlim", "hv", "hf", "iterations", "ls_iterations", "hfield_nrow",
-            "hfield_ncol")]
+        [(n, ctypes.c_int) for n in _INT_SIZES]
         + [(n, ctypes.c_float) for n in ("dt", "gx", "gy", "gz")]
+        + [("lay", ctypes.c_int * len(LAYOUT_NAMES))]
         + [(n, ctypes.c_void_p) for n in (
             "body_parentid", "body_rootid", "body_jntadr", "body_jntnum", "body_dofadr",
             "body_dofnum", "body_pos", "body_quat", "body_ipos", "body_iquat", "body_mass",
@@ -137,7 +274,8 @@ class _DuckModel(ctypes.Structure):
             "geom_bodyid", "geom_pos", "geom_quat", "geom_friction", "site_bodyid",
             "site_pos", "site_quat", "sensor_type", "sensor_objid", "sensor_adr", "act_adr",
             "act_prm", "gainprm", "biasprm", "qpos0", "pair_i", "pair_f", "hull_vert",
-            "hull_face_n", "hfield_data", "hfield_prm")]
+            "hull_face_n", "hfield_data", "hfield_prm", "efc_off", "efc_col", "efc_dof_rows",
+            "body_depth")]
     )
 
 
@@ -146,11 +284,23 @@ class _DuckDR(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in DR_FIELDS]
 
 
-@functools.lru_cache(maxsize=1)
-def _library():
-    lib = ctypes.CDLL(build_library())
+# the stages duck_profile reports, in its order (PROF_* in the kernel)
+PROFILE_STAGES = ("kinematics", "com_pos", "crb", "collide", "com_vel_rne_actuation",
+                  "smooth_acceleration", "make_efc", "primal_costs", "grad_hessian",
+                  "factor_solve_hessian", "line_search", "outputs_integrate")
+
+
+@functools.lru_cache(maxsize=2)
+def _library(profile: bool = False):
+    lib = ctypes.CDLL(build_library(profile))
+    lib.duck_profile.restype = ctypes.c_int
+    lib.duck_profile.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
     lib.duck_limits.restype = ctypes.c_int
     lib.duck_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.duck_configure.restype = ctypes.c_int
+    lib.duck_configure.argtypes = [ctypes.c_int]
+    lib.duck_occupancy.restype = ctypes.c_int
+    lib.duck_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.duck_physics_step.restype = ctypes.c_int
     lib.duck_physics_step.argtypes = (
         [ctypes.POINTER(_DuckModel), ctypes.POINTER(_DuckDR), ctypes.c_int, ctypes.c_int,
@@ -160,19 +310,28 @@ def _library():
     return lib
 
 
-def block_threads(B: int, device) -> int:
-    """Threads per block: one thread per env, and enough blocks to reach
-    every SM (4096 envs are only ~31 envs per SM of an H100), up to 128."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_sm = -(-B // sms)
-    return max(32, min(128, -(-per_sm // 32) * 32))
-
-
 def kernel_limits() -> Dict[str, int]:
     lib = _library()
     buf = (ctypes.c_int * 16)()
     n = lib.duck_limits(buf)
     return dict(zip(_LIMIT_NAMES, buf[:n]))
+
+
+def card_occupancy(env_bytes: int, device, profile: bool = False):
+    """(SM count, {k: resident blocks per SM}) for blocks of k envs of this
+    kernel on `device`, from the runtime, after raising the kernel's dynamic
+    shared-memory limit once to the largest block considered."""
+    lib = _library(profile)
+    ks = [k for k in _ENVS_PER_BLOCK if k * env_bytes <= MAX_SHARED_BYTES]
+    occ, out = {}, (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        err = lib.duck_configure(ks[-1] * env_bytes) if ks else 0
+        for k in ks:
+            err = err or lib.duck_occupancy(32 * k, k * env_bytes, out)
+            occ[k] = out[0]
+    if err != 0:
+        raise RuntimeError(f"fused physics kernel: shared-memory set-up failed: cudaError {err}")
+    return out[1], occ
 
 
 # ---------------------------------------------------------------------------
@@ -291,14 +450,32 @@ def pack_model(lane: LanePhysics) -> Dict[str, dict]:
             hfield_prm=f32([rx, ry, 2.0 * rx, 2.0 * ry, ncol - 1, nrow - 1, ncol - 1.001,
                             nrow - 1.001, ztop, 2.0 * rx / (ncol - 1), 2.0 * ry / (nrow - 1)]))
 
+    # constraint rows over their supports only, in the twin's row order
+    # (friction, limits, then 16 rows per pair) and column order (ascending)
+    supports = efc_supports(lane)
+    efc_off = np.cumsum([0] + [len(r) for r in supports])
+    nfl = len(lane.fri_dofs) + len(lane.lim_jnts)
+    # each dof's friction row and limit row (-1 for none): the rows of width
+    # one that touch H's diagonal and grad
+    dof_rows = np.full((m.nv, 2), -1)
+    for r, (d,) in enumerate(supports[:nfl]):
+        kind = int(r >= len(lane.fri_dofs))
+        if dof_rows[d, kind] >= 0:
+            raise NotImplementedError(f"dof {d} has two {('friction', 'limit')[kind]} rows")
+        dof_rows[d, kind] = r
+    depth = [0] * m.nbody
+    for b in range(1, m.nbody):
+        depth[b] = depth[int(m.body_parentid[b])] + 1
     return dict(
         sizes=dict(nq=m.nq, nv=m.nv, nu=m.nu, nbody=m.nbody, njnt=m.njnt, ngeom=m.ngeom,
                    nsite=m.nsite, nsensor=len(m.sensor_type), npair=m.npair,
                    nfri=len(lane.fri_dofs), nlim=len(lane.lim_jnts),
                    hv=int(c.hull_vert.shape[1]), hf=int(c.hull_face_n.shape[1]),
                    iterations=int(m.opt.iterations), ls_iterations=int(m.opt.ls_iterations),
-                   hfield_nrow=nrow, hfield_ncol=ncol,
-                   nefc=len(lane.fri_dofs) + len(lane.lim_jnts) + 16 * m.npair),
+                   hfield_nrow=nrow, hfield_ncol=ncol, nefc=len(supports),
+                   max_depth=max(depth),
+                   efc_nnz=int(efc_off[-1]),
+                   efc_pair_width=sum(len(d) for d in lane.pair_dofs)),
         scalars=dict(dt=float(m.opt.timestep), gx=float(c.gravity[0]),
                      gy=float(c.gravity[1]), gz=float(c.gravity[2])),
         arrays=dict(
@@ -326,9 +503,23 @@ def pack_model(lane: LanePhysics) -> Dict[str, dict]:
             gainprm=f32(c.actuator_gainprm), biasprm=f32(c.actuator_biasprm),
             qpos0=f32(c.qpos0), pair_i=i32(pair_i), pair_f=f32(pair_f),
             hull_vert=f32(c.hull_vert), hull_face_n=f32(c.hull_face_n),
+            efc_off=i32(efc_off), efc_col=i32([d for r in supports for d in r]),
+            efc_dof_rows=i32(dof_rows), body_depth=i32(depth),
             **hfield,
         ),
     )
+
+
+def efc_supports(lane: LanePhysics):
+    """The dofs of each constraint row's support, as LanePhysics.make_efc
+    builds its rows: one per friction dof, one per limited joint, and for
+    each contact pair 4 candidates x 4 pyramid directions over the pair's
+    dofs."""
+    m = lane.m
+    rows = [[i] for i in lane.fri_dofs] + [[int(m.jnt_dofadr[j])] for j in lane.lim_jnts]
+    for dofs in lane.pair_dofs:
+        rows += [list(dofs)] * 16
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -352,8 +543,9 @@ class FusedPhysics:
     and on the CPU through its plain version. ``launches`` counts kernel
     launches."""
 
-    def __init__(self, model: Model):
+    def __init__(self, model: Model, profile: bool = False):
         self.model = model.to("cpu")
+        self.profile = profile  # launch the stage-counting build (stage_cycles)
         self.lane = LanePhysics(self.model)
         self.launches = 0
         self._packed = None
@@ -399,29 +591,53 @@ class FusedPhysics:
         return out
 
     # -- CUDA --------------------------------------------------------------
+    def packed(self) -> dict:
+        """pack_model's tables, with the env's shared-memory layout (raises
+        if the model does not fit the kernel)."""
+        if self._packed is None:
+            packed = pack_model(self.lane)
+            packed["layout"] = shared_layout(packed["sizes"])
+            self._packed = packed
+        return self._packed
+
     def _device_tables(self, device):
         key = str(device)
         if key not in self._device_model:
-            if self._packed is None:
-                self._packed = pack_model(self.lane)
-                lim = kernel_limits()
-                sz = self._packed["sizes"]
-                for name in _LIMIT_NAMES:
-                    if sz[name] > lim[name]:
-                        raise ValueError(
-                            f"model does not fit the fused kernel: {name}={sz[name]} > {lim[name]}")
-            tensors = {k: torch.from_numpy(v).to(device)
-                       for k, v in self._packed["arrays"].items()}
+            packed = self.packed()
+            lim = kernel_limits()
+            sz = packed["sizes"]
+            for name in _LIMIT_NAMES:
+                if sz[name] > lim[name]:
+                    raise ValueError(
+                        f"model does not fit the fused kernel: {name}={sz[name]} > {lim[name]}")
+            tensors = {k: torch.from_numpy(v).to(device) for k, v in packed["arrays"].items()}
+            lay = packed["layout"]
             cm = _DuckModel()
-            for k, v in self._packed["sizes"].items():
-                if k != "nefc":
-                    setattr(cm, k, v)
-            for k, v in self._packed["scalars"].items():
+            for k in _INT_SIZES[:-1]:
+                setattr(cm, k, sz[k])
+            cm.env_floats = lay["env_floats"]
+            cm.lay[:] = lay["offsets"]
+            for k, v in packed["scalars"].items():
                 setattr(cm, k, v)
             for k, t in tensors.items():
                 setattr(cm, k, t.data_ptr())
-            self._device_model[key] = (cm, tensors)
+            sms, occ = card_occupancy(lay["env_bytes"], device, self.profile)
+            self._device_model[key] = (cm, tensors, sms, occ)
         return self._device_model[key]
+
+    def stage_cycles(self) -> Dict[str, int]:
+        """Clock cycles per stage, summed over warps and substeps since the
+        last call (a FusedPhysics built with profile=True)."""
+        buf = (ctypes.c_ulonglong * len(PROFILE_STAGES))()
+        err = _library(self.profile).duck_profile(buf)
+        if err != 0:
+            raise RuntimeError(f"stage profile unavailable (cudaError or unprofiled build: {err})")
+        return dict(zip(PROFILE_STAGES, buf))
+
+    def geometry(self, B: int, device) -> dict:
+        """The launch geometry for B envs on `device` (see launch_geometry)."""
+        _, _, sms, occ = self._device_tables(device)
+        return launch_geometry(B, self.packed()["layout"]["env_bytes"], sms, occ.get)
 
     def _launch(self, qpos, qvel, warm, ctrl, n_substeps, dr):
         m = self.model
@@ -445,8 +661,9 @@ class FusedPhysics:
                 raise ValueError(f"{name} must have shape {(B, width)}, got {tuple(t.shape)}")
             if not t.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
-        lib = _library()
-        cm, _keep = self._device_tables(qpos.device)
+        lib = _library(self.profile)
+        cm, _keep, _, _ = self._device_tables(qpos.device)
+        geo = self.geometry(B, qpos.device)
         cdr = _DuckDR()
         if dr is not None:
             for f in DR_FIELDS:
@@ -461,7 +678,7 @@ class FusedPhysics:
             outs["qacc_warmstart"].data_ptr(), outs["sensordata"].data_ptr(),
             outs["actuator_force"].data_ptr(), outs["contact_dist"].data_ptr(),
             outs["site_xpos"].data_ptr(), outs["site_xmat"].data_ptr(),
-            block_threads(B, qpos.device), stream)
+            geo["envs_per_block"], stream)
         if err != 0:
             raise RuntimeError(f"fused physics kernel launch failed: cudaError {err}")
         self.launches += 1

@@ -17,7 +17,11 @@ from open_duck_playground_tpu_torch.envs import randomize
 from open_duck_playground_tpu_torch.envs.joystick import Joystick
 from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
 from open_duck_playground_tpu_torch.mjcf import compile_mjcf
-from open_duck_playground_tpu_torch.ops.cuda_step import FusedPhysics
+from open_duck_playground_tpu_torch.ops.cuda_step import (
+    PROFILE_STAGES,
+    FusedPhysics,
+    flatten_dr_fields,
+)
 
 
 @pytest.fixture
@@ -55,6 +59,52 @@ def test_kernel_matches_twin(card, root, case):
     report = {}
     ok = chip_smoke.phase_kernel_vs_twin([case], report)
     assert ok, {tag: {f: r for f, r in rs.items() if not r["ok"]} for tag, rs in report.items()}
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, a NaN matching a NaN."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["flat_terrain", "rough_terrain_backlash"])
+@pytest.mark.parametrize("B", [1, 33, 1000])
+def test_kernel_bit_exact_with_dr_at_ragged_env_counts(card, root, task, B):
+    """With DR on, every output of the step and init variants equals the
+    twin's bit for bit, at env counts that leave the last block of warps
+    part empty (one env per warp, two or more per block)."""
+    m = compile_mjcf(os.path.join(root, "xmls", f"scene_{task}.xml"), timestep=0.002)
+    fp = FusedPhysics(m)
+    assert fp.geometry(B, card)["envs_per_block"] > 1
+    qpos, qvel, ctrl = _settled(m, B, card, seed=B)
+    warm = torch.zeros_like(qvel)
+    dr = flatten_dr_fields(randomize.domain_randomize(
+        m.to(card), B, torch.Generator(device=card).manual_seed(3)))
+    for n in (10, 1):
+        out_k = fp(qpos, qvel, warm, ctrl, n, dr)
+        out_p = fp.plain(qpos, qvel, warm, ctrl, n, dr)
+        for f, v in out_k.items():
+            assert _same(v, out_p[f]), (f, n, float((v - out_p[f]).abs().max()))
+    assert fp.launches == 2
+
+
+@pytest.mark.cuda
+def test_stage_profile_counts_every_stage(card, root):
+    """The stage-counting build (-DDUCK_PROFILE) computes the same outputs
+    and counts clock cycles in every stage."""
+    m = compile_mjcf(os.path.join(root, "xmls", "scene_flat_terrain.xml"), timestep=0.002)
+    fp, fq = FusedPhysics(m, profile=True), FusedPhysics(m)
+    qpos, qvel, ctrl = _settled(m, 64, card)
+    warm = torch.zeros_like(qvel)
+    out_p = fp(qpos, qvel, warm, ctrl, 10)
+    out_q = fq(qpos, qvel, warm, ctrl, 10)
+    torch.cuda.synchronize()
+    cyc = fp.stage_cycles()
+    assert set(cyc) == set(PROFILE_STAGES) and all(v > 0 for v in cyc.values())
+    for f, v in out_p.items():
+        assert _same(v, out_q[f]), f
+    with pytest.raises(RuntimeError, match="profile"):
+        fq.stage_cycles()
 
 
 @pytest.mark.cuda
