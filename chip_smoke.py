@@ -27,10 +27,29 @@ Phases:
    everything is finite; prints env-steps/s and the kernel's and the twin's
    time for one control step at 4096 envs;
 3b. the rough main path: the same with Joystick("rough_terrain_backlash")
-   at 8192 envs, through the kernel's heightfield branch.
+   at 8192 envs, through the kernel's heightfield branch;
+4. the trainer: OpenDuckMiniV2Runner (--env joystick --task
+   flat_terrain_backlash, on cuda) and ppo.train with the runner's recipe and
+   callbacks (checkpoint + ONNX at every eval) and profile_breakdown=True, at
+   8192 DR envs, batch 256 x 32 minibatches, unroll 20, 4 updates per batch,
+   (512, 256, 128) networks, 1024 eval envs, 3 evals, 655,360 env steps (2
+   epochs x 2 training steps). Checks finite training/* and eval/* metrics
+   at every epoch (metrics.jsonl), the normalizer's count and env_steps, the
+   kernel launches of the train env and of the eval env against the count
+   the code gives, that the last (normalizer, params) checkpoint acts
+   bit-identically, that the exported ONNX (numpy interpreter) matches the
+   policy on the card within 1e-5, and that the last full-state checkpoint
+   loads back tensor for tensor; then holds the kernel against its twin on
+   this path's inputs (trainer_vs_twin): the train env at 8192 envs with
+   train()'s DR draw (reset, and the trained state of that checkpoint) and
+   the eval env at 1024 envs, DR off (reset, and 20 steps of the trained
+   policy), within duck_standin.TRAINER_PARITY_LIMITS. Prints training/sps
+   per epoch and the profile_breakdown line.
 
 The kernels line gives, per kernel, its launches on its main path, its
-largest |kernel - twin| there (step variant, DR on, all outputs), its time
+largest |kernel - twin| there (step variant, DR on, all outputs; for the
+flat kernel also its launches and largest |kernel - twin| on the trainer's
+path, both variants, DR on and off), its time
 and the twin's for one control step, and its bound: the larger of the
 twin's arithmetic (counted per env and substep on the CPU under a torch
 dispatch mode, both sides of every `where` included) over the H100's 67
@@ -47,7 +66,9 @@ fails. The last line of stdout is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -65,6 +86,11 @@ CASES = (("flat_terrain", 1024, False), ("flat_terrain", 1024, True),
 # main paths: (task, envs); DR on, 100 steps of random actions
 FLAT_MAIN, ROUGH_MAIN = ("flat_terrain", 4096), ("rough_terrain_backlash", 8192)
 N_STEPS = 100
+# phase 4: the recipe's widths (BASELINE.md:14), cut to 2 epochs of 2 training steps
+TRAINER_TASK = "flat_terrain_backlash"
+TRAINER_ARGS = ("--env", "joystick", "--task", TRAINER_TASK, "--num_envs", "8192",
+                "--num_eval_envs", "1024", "--num_evals", "3", "--num_timesteps", "655360",
+                "--device", "cuda")
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM, non-tensor float32; HBM3
 # the arithmetic aten ops the bound counts (each output element one operation)
 ARITH_OPS = frozenset((
@@ -180,18 +206,29 @@ def phase_kernel_vs_twin(cases, report) -> bool:
             if variant == "step":
                 ms = cuda_ms(lambda: fp(qpos, qvel, warm, ctrl, n, dr), reps=10)
                 log(f"[time] {tag}: kernel {ms:.3f} ms, twin {plain_ms:.1f} ms per control step")
-            log(f"[parity] {tag}")
-            log("| field | q50 | q95 | worst col q95 (col) | max | |twin| q95 | |")
-            log("|---|---|---|---|---|---|---|")
-            np_k, np_p = (sd.parity_outputs({k: v.cpu() for k, v in o.items()}, accel)
-                          for o in (out_k, out_p))
-            for f in sd.parity_limits(variant, with_dr, rough):
-                r = sd.parity(np_k[f], np_p[f], variant, with_dr, f, rough)
-                ok &= r["ok"]
-                flips = f", {r['flips']} flips" if r["flips"] else ""
-                log(f"| {f} | {r['q50']:.1e} | {r['q95']:.1e} | {r['col_q95']:.1e} ({r['col']}) "
-                    f"| {r['max']:.1e}{flips} | {r['scale']:.1e} | {'OK' if r['ok'] else 'FAIL'} |")
-                report.setdefault(tag, {})[f] = r
+            ok &= parity_table(tag, out_k, out_p, accel, variant, with_dr, rough, report)
+    return ok
+
+
+def parity_table(tag, out_k, out_p, accel, variant, with_dr, rough, report,
+                 limits=None) -> bool:
+    """Print |kernel - twin| per output against its limits (`limits`, else
+    those of the variant, DR setting and scene), file the readings under
+    report[tag], and return whether all are within them."""
+    sd = standin()
+    log(f"[parity] {tag}")
+    log("| field | q50 | q95 | worst col q95 (col) | max | |twin| q95 | |")
+    log("|---|---|---|---|---|---|---|")
+    np_k, np_p = (sd.parity_outputs({k: v.cpu() for k, v in o.items()}, accel)
+                  for o in (out_k, out_p))
+    ok = True
+    for f in limits or sd.parity_limits(variant, with_dr, rough):
+        r = sd.parity(np_k[f], np_p[f], variant, with_dr, f, rough, limits)
+        ok &= r["ok"]
+        flips = f", {r['flips']} flips" if r["flips"] else ""
+        log(f"| {f} | {r['q50']:.1e} | {r['q95']:.1e} | {r['col_q95']:.1e} ({r['col']}) "
+            f"| {r['max']:.1e}{flips} | {r['scale']:.1e} | {'OK' if r['ok'] else 'FAIL'} |")
+        report.setdefault(tag, {})[f] = r
     return ok
 
 
@@ -301,6 +338,170 @@ def phase_main_path(task: str, B: int) -> dict:
     return dict(ok=ok, launches=launches, rate=rate, **timed["step"])
 
 
+def phase_trainer(report: dict) -> dict:
+    """ppo.train through the runner on the card at the recipe's widths, with
+    every kernel launch counted from 0 just before the call; then the kernel
+    against its twin at this path's shapes and on its states."""
+    from open_duck_playground_tpu_torch import interop
+    from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
+    from open_duck_playground_tpu_torch.export.onnx_infer import NumpyOnnxSession
+    from open_duck_playground_tpu_torch.train import checkpoint as ckpt
+    from open_duck_playground_tpu_torch.train import networks as nets
+    from open_duck_playground_tpu_torch.train import optim, ppo
+    from open_duck_playground_tpu_torch.train import runner as rn
+
+    out_dir = os.path.join(ROOT, "build", "trainer_run")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    runner = rn.OpenDuckMiniV2Runner(rn.build_parser().parse_args(
+        ["--output_dir", out_dir, *TRAINER_ARGS]))
+    kw = runner.train_kwargs()
+    dev = runner.device
+    nf = kw["network_factory"]
+    T, E, nmb, B = (kw["unroll_length"], kw["num_updates_per_batch"], kw["num_minibatches"],
+                    kw["num_envs"])
+    recipe_ok = ((B, kw["batch_size"], nmb, T, E, kw["episode_length"]) == (8192, 256, 32, 20, 4, 1000)
+                 and nf["policy_hidden_layer_sizes"] == nf["value_hidden_layer_sizes"] == (512, 256, 128)
+                 and kw["randomization_fn"] is not None)
+    env_steps_per_step = B * T
+    epochs = kw["num_evals"] - 1
+    steps_per_epoch = math.ceil(kw["num_timesteps"] / (epochs * env_steps_per_step))
+    ep_len = kw["episode_length"] // kw["action_repeat"]
+    # launches the code gives: the train env's reset, the breakdown's rollout
+    # and training step (each run twice: warm-up, then timed), every
+    # training step's rollout; the eval env's reset and episode_length steps
+    # per eval: one at 0, one after each epoch, two in the breakdown
+    want_train = 1 + T * (2 + 2 + epochs * steps_per_epoch)
+    want_eval = (1 + epochs + 2) * (1 + ep_len)
+
+    runner.env.physics.launches = 0
+    runner.eval_env.physics.launches = 0
+    t0 = time.perf_counter()
+    make_policy, (normalizer, params), metrics = ppo.train(
+        environment=runner.env, eval_env=runner.eval_env, **kw, profile_breakdown=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = {"train_env": runner.env.physics.launches,
+                "eval_env": runner.eval_env.physics.launches}
+    bd = ppo.LAST_PROFILE_BREAKDOWN
+    log(f"[trainer] ppo.train {t_train:.1f} s; launches {launches} (want train_env "
+        f"{want_train}, eval_env {want_eval})")
+    log(f"[trainer] profile_breakdown {json.dumps(bd)}")
+
+    with open(runner.metrics_path) as f:
+        lines = [json.loads(line) for line in f]
+    finite = len(lines) == epochs + 1
+    for line in lines:
+        vals = {k: v for k, v in line.items() if k.startswith(("training/", "eval/"))}
+        finite &= all(math.isfinite(v) for v in vals.values())
+        if line["step"] > 0:
+            finite &= "training/sps" in vals and "eval/episode_reward" in vals
+            log(f"[trainer] epoch at step {line['step']}: training/sps "
+                f"{line['training/sps']:.1f}, eval/episode_reward {line['eval/episode_reward']:.4f}, "
+                f"eval/avg_episode_length {line['eval/avg_episode_length']:.1f}")
+    count = float(normalizer.count)
+    env_steps = lines[-1]["step"]
+    want_steps = epochs * steps_per_epoch * env_steps_per_step
+    counts_ok = count == want_steps and env_steps == want_steps == kw["num_timesteps"]
+    log(f"[trainer] normalizer count {count:.0f}, env_steps {env_steps} (want {want_steps}); "
+        f"metrics finite at every epoch {finite}")
+
+    # the last (normalizer, params) checkpoint acts bit-identically
+    saved = sorted((f for f in os.listdir(out_dir) if f.endswith(".npz") and not f.startswith("full_")),
+                   key=lambda f: int(f[:-4].rsplit("_", 1)[1]))
+    g = torch.Generator(device=dev).manual_seed(3)
+    obs = {k: torch.randn((1024, n), generator=g, device=dev)
+           for k, n in params.obs_sizes.items()}
+    restored = ckpt.load(os.path.join(out_dir, saved[-1]), (normalizer, params))
+    a_live = make_policy((normalizer, params), deterministic=True)(obs)[0]
+    a_restored = make_policy(restored, deterministic=True)(obs)[0]
+    ckpt_ok = bool(torch.equal(a_live, a_restored))
+
+    # the last ONNX export against the policy on the card
+    onnx = sorted((f for f in os.listdir(out_dir) if f.endswith(".onnx")),
+                  key=lambda f: int(f[:-5].rsplit("_", 1)[1]))
+    sess = NumpyOnnxSession(os.path.join(out_dir, onnx[-1]))
+    x = obs["state"][:16].cpu().numpy()
+    a_onnx = np.concatenate([sess.run(None, {"obs": x[i:i + 1]})[0] for i in range(16)])
+    onnx_err = float(np.abs(a_onnx - a_live[:16].cpu().numpy()).max())
+    log(f"[trainer] checkpoint {saved[-1]} acts bit-identically {ckpt_ok}; ONNX {onnx[-1]} "
+        f"vs the policy on the card: max |d| {onnx_err:.3g} (limit 1e-5)")
+
+    # the last full-state checkpoint loads back tensor for tensor
+    epoch, path = ckpt.latest_full(out_dir)
+    arrays = ckpt.load_full(path)
+    flat_params = ckpt.flatten(interop.ppo_params_to_numpy(params), "training_state/params/")
+    flat_norm = ckpt.flatten(interop.normalizer_to_numpy(normalizer), "training_state/normalizer/")
+    live_ok = all(np.array_equal(arrays[k], v) for k, v in {**flat_params, **flat_norm}.items())
+    live_ok &= int(arrays["training_state/env_steps"]) == want_steps
+    te = TrainEnv(runner.env, num_envs=B, episode_length=kw["episode_length"])
+    tmpl_env = te.reset(torch.Generator(device=dev).manual_seed(0))
+    tmpl_net = nets.PPONetworks(params.obs_sizes, params.action_size, **nf, device=dev)
+    tmpl = ppo.TrainingState(params=tmpl_net, normalizer=nets.rs_init(params.obs_sizes, dev),
+                             opt_state=optim.adam_init(list(tmpl_net.parameters())),
+                             env_steps=torch.zeros((), dtype=torch.int64, device=dev))
+    gens = {k[len("generators/"):]: torch.Generator(device=dev)
+            for k in arrays if k.startswith("generators/")}
+    ts, es = ppo.restore_full_state(arrays, tmpl, tmpl_env, gens)
+    back = ppo.full_state_to_numpy(ppo.full_state(ts, es, gens))
+    same = (back.keys() == arrays.keys()
+            and all(back[k].dtype == arrays[k].dtype and np.array_equal(back[k], arrays[k])
+                    for k in arrays))
+    log(f"[trainer] full state {os.path.basename(path)} (epoch {epoch}): {len(arrays)} arrays, "
+        f"{sum(a.nbytes for a in arrays.values())} bytes; equals the final params and "
+        f"normalizer {live_ok}; loads back tensor for tensor {same}")
+
+    with torch.no_grad():
+        parity_ok = trainer_vs_twin(runner, kw, es, make_policy((normalizer, params),
+                                                                deterministic=True), report)
+    log(f"[trainer] gpu {gpu_line()}")
+    ok = (recipe_ok and finite and counts_ok and ckpt_ok and onnx_err <= 1e-5 and live_ok
+          and same and epoch == epochs - 1 and parity_ok
+          and launches == {"train_env": want_train, "eval_env": want_eval})
+    return dict(ok=ok, launches=launches, breakdown=bd)
+
+
+def trainer_vs_twin(runner, kw, trained, policy, report) -> bool:
+    """The kernel against its twin on the trainer path's inputs: the train
+    env (flat_terrain_backlash, 8192 envs, DR on with train()'s own draw,
+    rebuilt from the seed) from a reset (init variant) and from the trained
+    state of the last full-state checkpoint (step variant); the eval env
+    (1024 envs, DR off) from a reset and after 20 steps of the trained
+    deterministic policy. Limits: duck_standin.TRAINER_PARITY_LIMITS.
+    Readings go into report under "trainer ..." tags; returns whether all
+    are within their limits."""
+    from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
+    from open_duck_playground_tpu_torch.ops.cuda_step import flatten_dr_fields
+    from open_duck_playground_tpu_torch.train import ppo
+
+    dev = runner.device
+    g = torch.Generator(device=dev).manual_seed(4)
+    train_env = TrainEnv(runner.env, num_envs=kw["num_envs"], episode_length=kw["episode_length"],
+                         randomization_fn=kw["randomization_fn"],
+                         randomization_generator=ppo.seeded_generators(kw["seed"], dev)["randomization"])
+    eval_env = TrainEnv(runner.eval_env, num_envs=kw["num_eval_envs"],
+                        episode_length=kw["episode_length"])
+    eval_state = eval_env.reset(g)
+    eval_reset = eval_state.data
+    for _ in range(20):
+        eval_state = eval_env.step(eval_state, policy(eval_state.obs)[0])
+    ok = True
+    for name, te, with_dr, reset, stepped in (
+            ("train_env", train_env, True, train_env.reset(g).data, trained.data),
+            ("eval_env", eval_env, False, eval_reset, eval_state.data)):
+        fp = te.env.physics
+        dr = flatten_dr_fields(te.model) if with_dr else None
+        accel = int(fp.model.sensor_adr[fp.model.sensor("accelerometer")])
+        for variant, n, data in (("step", te.env.n_substeps, stepped), ("init", 1, reset)):
+            warm = data.qacc_warmstart if variant == "step" else torch.zeros_like(data.qvel)
+            args = (data.qpos.contiguous(), data.qvel.contiguous(), warm.contiguous(),
+                    data.ctrl.contiguous(), n, dr)
+            tag = f"trainer {name} {TRAINER_TASK} B={te.num_envs} dr={int(with_dr)} {variant}"
+            ok &= parity_table(tag, fp(*args), fp.plain(*args), accel, variant, with_dr,
+                               False, report, standin().TRAINER_PARITY_LIMITS[(variant, with_dr)])
+    return ok
+
+
 def kernel_entry(name: str, replaces: str, main: dict, report: dict, case: str) -> dict:
     """One entry of the kernels line: launches, times and bound from the
     main path's run; max_abs_err from phase 2's step variant at the main
@@ -340,12 +541,22 @@ def main() -> int:
     ok = phase_kernel_vs_twin(CASES, report)
     flat = phase_main_path(*FLAT_MAIN)
     rough = phase_main_path(*ROUGH_MAIN)
-    if not (ok and flat["ok"] and rough["ok"]):
+    trainer = phase_trainer(report)
+    if not (ok and flat["ok"] and rough["ok"] and trainer["ok"]):
         log("[chip_smoke] FAILED")
         return 1
+    step_kernel = kernel_entry("fused_physics_step", "open_duck_playground_tpu/ops/pallas_step.py:225",
+                               flat, report, f"{FLAT_MAIN[0]} B={FLAT_MAIN[1]} dr=1 step")
+    # the same kernel on the trainer's path (phase 4), step and init variants:
+    # its launches there, and its largest |kernel - twin| on that path's inputs
+    step_kernel["launches_trainer"] = trainer["launches"]
+    tags = [t for t in report if t.startswith("trainer ")]
+    worst = max(((t, f) for t in tags for f in report[t]), key=lambda tf: report[tf[0]][tf[1]]["max"])
+    step_kernel["max_abs_err_trainer"] = report[worst[0]][worst[1]]["max"]
+    step_kernel["max_abs_err_trainer_of"] = (f"{', '.join(t[len('trainer '):] for t in tags)}: "
+                                             f"all outputs; largest in {worst[0]} {worst[1]}")
     log(json.dumps({"kernels": [
-        kernel_entry("fused_physics_step", "open_duck_playground_tpu/ops/pallas_step.py:225",
-                     flat, report, f"{FLAT_MAIN[0]} B={FLAT_MAIN[1]} dr=1 step"),
+        step_kernel,
         kernel_entry("fused_physics_step_hfield",
                      "open_duck_playground_tpu/ops/pallas_step.py:225 (has_hf=True)",
                      rough, report, f"{ROUGH_MAIN[0]} B={ROUGH_MAIN[1]} dr=1 step"),

@@ -10,7 +10,10 @@ counterpart is found by name:
                  kernel for Hopper, with the plain version as its CPU path)
 - ``models``   : robot constants and asset lookup
 - ``envs``     : Joystick task, rewards, domain randomization, train wrapper
-- ``interop``  : numpy carry-across from the JAX package's models and states
+- ``train``    : PPO networks, optimizer, trainer, checkpoints, runner CLI
+- ``export``   : ONNX writer, checker and numpy interpreter
+- ``interop``  : numpy carry-across from the JAX package's models, states,
+                 parameters and optimizer states
 
 Imports ``torch``, ``numpy`` and ``scipy``; never ``jax``.
 """

@@ -57,6 +57,7 @@ class OpenDuckMiniV2Env:
                                "device='cpu' (physics then runs the kernel's plain version)")
         # the env's own stream of draws (noise, pushes, delays, commands)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._observation_size = None
 
         model_cpu = compile_mjcf(xml_path, timestep=self._config.sim_dt)
         self._model = model_cpu.to(self.device)
@@ -166,6 +167,17 @@ class OpenDuckMiniV2Env:
     @property
     def action_size(self) -> int:
         return self._model.nu
+
+    @property
+    def observation_size(self) -> Dict[str, tuple]:
+        """{obs key: per-env shape}, from one reset of one env on the env's
+        device (a throwaway generator, so the env's own stream is
+        untouched), computed once."""
+        if self._observation_size is None:
+            g = torch.Generator(device=self.device).manual_seed(0)
+            obs = self.reset(1, g).obs
+            self._observation_size = {k: tuple(v.shape[1:]) for k, v in obs.items()}
+        return self._observation_size
 
     # --- qpos/qvel accessors ------------------------------------------------
     def get_floating_base_qpos(self, qpos: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,10 @@ class TrainEnv:
     def action_size(self) -> int:
         return self._env.action_size
 
+    @property
+    def observation_size(self):
+        return self._env.observation_size
+
     def reset(self, generator: Optional[torch.Generator] = None) -> State:
         state = self._env.reset_with_model(self.model, self.num_envs, generator)
         info = dict(state.info)

@@ -180,3 +180,35 @@ def test_nan_action_terminates(card, root):
         state = te.step(state, nan)
         done = torch.maximum(done, state.done)
     assert bool((done == 1).all())
+
+
+@pytest.mark.cuda
+def test_trainer_runs_through_the_kernel(card, root):
+    """ppo.train on the card at the recipe's widths (batch 32 x 32
+    minibatches = 1024 DR envs, unroll 20, 4 updates, (512, 256, 128)
+    networks), one epoch of one training step and two evals of 128 envs
+    over 100 steps: finite metrics, the counts, and one kernel launch per
+    reset and per env step."""
+    from open_duck_playground_tpu_torch.train import ppo
+
+    env = Joystick("flat_terrain_backlash", device=card)
+    eval_env = Joystick("flat_terrain_backlash", device=card)
+    env.observation_size  # one reset at one env, before the count starts
+    env.physics.launches = eval_env.physics.launches = 0
+    reports = []
+    _, (normalizer, params), metrics = ppo.train(
+        env, eval_env, num_timesteps=1024 * 20, episode_length=100, num_envs=1024,
+        num_eval_envs=128, unroll_length=20, num_minibatches=32, batch_size=32,
+        num_updates_per_batch=4, num_evals=2, randomization_fn=randomize.domain_randomize,
+        progress_fn=lambda step, m: reports.append((step, dict(m))))
+    assert [s for s, _ in reports] == [0, 1024 * 20]
+    for _, m in reports:
+        assert all(torch.isfinite(torch.tensor(v)) for v in m.values()), m
+    assert {k for k in metrics if k.startswith("training/")} >= {
+        "training/total_loss", "training/policy_loss", "training/v_loss",
+        "training/entropy_loss", "training/sps"}
+    assert float(normalizer.count) == 1024 * 20
+    assert params.policy.sizes == [101, 512, 256, 128, 28]
+    assert params.value.sizes == [212, 512, 256, 128, 1]
+    assert env.physics.launches == 1 + 20
+    assert eval_env.physics.launches == 2 * (1 + 100)

@@ -16,8 +16,9 @@ both packages take the same numpy actions.
   kernel's plain version (its CPU path); `done` must be identical, obs and
   reward are held to quantile bounds;
 - the port's own draws (DR recipe, reset jitter) fall in the JAX ranges;
-- importing the port and running its env path (flat and rough) never
-  imports jax;
+- importing the port (its env path, flat and rough, run; the trainer,
+  checkpoint, runner and export modules imported) never imports jax, flax,
+  optax, orbax, ml_collections, tensorboard or the JAX package;
 - the env runs on the card unless given device="cpu"."""
 
 import os
@@ -249,13 +250,17 @@ def test_port_never_imports_jax(root):
         "from open_duck_playground_tpu_torch.envs import randomize\n"
         "from open_duck_playground_tpu_torch.envs.joystick import Joystick\n"
         "from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv\n"
+        "from open_duck_playground_tpu_torch.export.export import export_onnx\n"
+        "from open_duck_playground_tpu_torch.train import checkpoint, ppo, runner\n"
         "for task in ('flat_terrain', 'rough_terrain_backlash'):\n"
         "    te = TrainEnv(Joystick(task, device='cpu'), num_envs=2, episode_length=10,\n"
         "                  randomization_fn=randomize.domain_randomize)\n"
         "    st = te.step(te.reset(torch.Generator().manual_seed(0)), torch.zeros(2, 14))\n"
         "    assert st.obs['state'].shape == (2, 101)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ml_collections', 'mujoco'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'ml_collections', 'mujoco',\n"
+        "                                    'optax', 'orbax', 'tensorboardX', 'tensorboard',\n"
+        "                                    'open_duck_playground_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )

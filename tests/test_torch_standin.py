@@ -184,12 +184,16 @@ def test_tilted_states_turn_the_base(root):
     [pytest.param(v, f, False, id=f"{v}-{f}") for (v, dr) in duck_standin.PARITY_LIMITS
      if not dr for f in duck_standin.PARITY_LIMITS[(v, dr)]]
     + [pytest.param(v, f, True, id=f"rough-{v}-{f}") for (v, dr) in duck_standin.PARITY_LIMITS
-       if not dr for f in duck_standin.PARITY_LIMITS[(v, dr)]])
+       if not dr for f in duck_standin.PARITY_LIMITS[(v, dr)]]
+    + [pytest.param(v, f, "trainer", id=f"trainer-{v}-{f}")
+       for (v, dr) in duck_standin.TRAINER_PARITY_LIMITS
+       if not dr for f in duck_standin.TRAINER_PARITY_LIMITS[(v, dr)]])
 def test_parity_limits_catch_a_wrong_column_or_env(twin_outputs, field, variant, rough):
     """The kernel-vs-twin check (duck_standin.parity) passes a kernel equal
     to the twin, and fails one that is wrong in a single column (every env)
     or in every column of one env in ten, by as much as the column's own
-    values (q95 of |twin|), although q50 over the output stays 0."""
+    values (q95 of |twin|), although q50 over the output stays 0; on the
+    flat and rough limits, and (`rough` "trainer") the trainer path's."""
     p = twin_outputs[variant][field].astype(np.float64)
     valid = p < 1e9  # contact slots without a contact read 1e10
     mag = np.array([np.quantile(np.abs(p[valid[:, c], c]), 0.95) if valid[:, c].any() else 0.0
@@ -200,17 +204,19 @@ def test_parity_limits_catch_a_wrong_column_or_env(twin_outputs, field, variant,
     env_subset = p.copy()
     env_subset[::10] += np.where(valid[::10], mag, 0.0)
     for with_dr in (False, True):
-        assert duck_standin.parity(p, p, variant, with_dr, field, rough)["ok"]
+        kw = dict(rough=rough is True, limits=duck_standin.TRAINER_PARITY_LIMITS[
+            (variant, with_dr)] if rough == "trainer" else None)
+        assert duck_standin.parity(p, p, variant, with_dr, field, **kw)["ok"]
         for wrong in (one_col, env_subset):
-            r = duck_standin.parity(wrong, p, variant, with_dr, field, rough)
+            r = duck_standin.parity(wrong, p, variant, with_dr, field, **kw)
             assert r["q50"] == 0.0 and not r["ok"], (with_dr, rough, r)
 
 
 def test_parity_q50_limits_within_the_tpu_table():
     """No step-variant q50 limit is looser than 10x the TPU kernel's q50,
-    on the flat scenes or the heightfield ones."""
-    for rough in (False, True):
-        for with_dr in (False, True):
+    on the flat scenes, the heightfield ones or the trainer path."""
+    for with_dr in (False, True):
+        tables = [duck_standin.parity_limits("step", with_dr, rough) for rough in (False, True)]
+        for limits in tables + [duck_standin.TRAINER_PARITY_LIMITS[("step", with_dr)]]:
             for f, q50 in duck_standin.TPU_Q50.items():
-                lim = duck_standin.parity_limits("step", with_dr, rough)[f][0]
-                assert lim <= 10 * q50, (f, with_dr, rough)
+                assert limits[f][0] <= 10 * q50, (f, with_dr, limits)

@@ -73,3 +73,55 @@ def random_states(kf, nq, nv, nu, B, seed=0):
     ctrl = (np.asarray(kf.ctrl, np.float32)
             + rng.uniform(-0.2, 0.2, (B, nu)).astype(np.float32))
     return qpos, qvel, ctrl
+
+
+class TorchToyEnv:
+    """tests/test_resume.py's ToyEnv, batched for the port: a point mass the
+    action nudges; reward -|pos|; done when |pos| escapes 5. With `noise` > 0
+    each step adds U(-noise, noise) from the env's own generator (so resume
+    must restore that stream too); with noise 0 a step is the JAX ToyEnv's,
+    which computes its obs from info["t"] + 1 and keeps the old info.
+    Runs on the CPU unless given another device."""
+
+    action_size = 3
+    observation_size = {"state": (6,), "privileged_state": (8,)}
+    model = None
+
+    def __init__(self, device="cpu", seed=0, noise=0.0):
+        import torch
+
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.noise = noise
+
+    def reset_with_model(self, model, num_envs, generator=None):
+        import torch
+
+        from open_duck_playground_tpu_torch.envs.types import State
+
+        g = generator if generator is not None else self.generator
+        pos = torch.rand((num_envs, 3), generator=g, device=self.device) - 0.5
+        info = {"t": torch.zeros(num_envs, device=self.device)}
+        zeros = torch.zeros(num_envs, device=self.device)
+        return State(data=pos, obs=self._obs(pos, info), reward=zeros, done=zeros,
+                     metrics={"dist": torch.linalg.norm(pos, dim=1)}, info=info)
+
+    def step_with_model(self, model, state, action):
+        import torch
+
+        pos = state.data * 0.95 + 0.1 * torch.tanh(action)
+        if self.noise:
+            u = torch.rand(pos.shape, generator=self.generator, device=self.device)
+            pos = pos + self.noise * (2.0 * u - 1.0)
+        info = dict(state.info)
+        info["t"] = info["t"] + 1.0
+        dist = torch.linalg.norm(pos, dim=1)
+        return state.replace(data=pos, obs=self._obs(pos, info), reward=-dist,
+                             done=(dist > 5.0).to(torch.float32), metrics={"dist": dist})
+
+    def _obs(self, pos, info):
+        import torch
+
+        s = torch.cat([pos, pos * 0.5], dim=1)
+        p = torch.cat([s, info["t"][:, None], torch.ones_like(info["t"])[:, None]], dim=1)
+        return {"state": s, "privileged_state": p}
