@@ -45,11 +45,30 @@ Phases:
    the eval env at 1024 envs, DR off (reset, and 20 steps of the trained
    policy), within duck_standin.TRAINER_PARITY_LIMITS. Prints training/sps
    per epoch and the profile_breakdown line.
+5. the env-sharded trainer: the same runner and recipe under
+   `python -m torch.distributed.run`, 8192 DR envs split over the ranks:
+   world 2 sharing the one card over gloo and, where the machine has two
+   cards or more, world min(cards, 4) over NCCL. Each rank (this script
+   with --rank-worker) checks and reports: (a) its train env's and eval
+   env's kernel launches against the count the code gives, each on its own
+   8192/world (1024/world) rows on its own device, with the launch geometry;
+   (b) the params identical on every rank (train() checks params, Adam
+   state, normalizer and generators after every epoch); (c) one training
+   step at this world size against the same step at world size 1 from the
+   same init and global draws: the normalizer count and env_steps exactly,
+   the first rollout's transitions and the params after the step within
+   SHARDED_LIMITS; (d) on rank 0, the kernel against its twin on its rows
+   of the trained state (step variant, DR on; TRAINER_PARITY_LIMITS, 0);
+   (e) the full state rank 0 wrote holds all 8192 rows, and each rank's rows
+   of a gathered full state equal its live state; (f) training/sps per
+   epoch, profile_breakdown per rank (collectives per SGD step and their
+   time), and each rank's kernel time at its rows, ranks timed in turn.
 
 The kernels line gives, per kernel, its launches on its main path, its
 largest |kernel - twin| there (step variant, DR on, all outputs; for the
 flat kernel also its launches and largest |kernel - twin| on the trainer's
-path, both variants, DR on and off), its time
+path, both variants, DR on and off; for the sharded dispatch, phase 5's
+launches summed over the ranks and per rank, and (d)), its time
 and the twin's for one control step, and its bound: the larger of the
 twin's arithmetic (counted per env and substep on the CPU under a torch
 dispatch mode, both sides of every `where` included) over the H100's 67
@@ -91,6 +110,16 @@ TRAINER_TASK = "flat_terrain_backlash"
 TRAINER_ARGS = ("--env", "joystick", "--task", TRAINER_TASK, "--num_envs", "8192",
                 "--num_eval_envs", "1024", "--num_evals", "3", "--num_timesteps", "655360",
                 "--device", "cuda")
+# phase 5: what a world-size-W training step may differ by from world size
+# 1. The physics is per-env bit-exact, and on an NVIDIA H100 80GB HBM3 (700
+# W) cuBLAS gives the policy the same products on 4096 rows as on 8192: the
+# 20 steps of transitions read bit-identical. The gradients' all-reduce sums
+# in another order, and after the step's 128 Adam steps the params read
+# |d| q99 2.1e-5, max 7.5e-4: limits ~4x the q99, the max at the CPU test's
+# 2 lr per Adam step; the update direction (params - init) must agree.
+SHARDED_TIMEOUT_S = 600
+SHARDED_LIMITS = {"transitions": 0.0, "params_q99": 8e-5, "params_max": 2 * 3e-4 * 128,
+                  "update_cos": 0.999, "normalizer": 1e-5}
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM, non-tensor float32; HBM3
 # the arithmetic aten ops the bound counts (each output element one operation)
 ARITH_OPS = frozenset((
@@ -108,6 +137,23 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def cpu_line() -> str:
+    """The host CPU as /proc/cpuinfo gives its first processor (vendor,
+    family, model number, model name, clock) and the core count (this
+    process may use fewer)."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break
+            key, _, value = line.partition(":")
+            info[key.strip()] = value.strip()
+    return (f"{info.get('vendor_id', '?')} family {info.get('cpu family', '?')} model "
+            f"{info.get('model', '?')} ({info.get('model name', '?')}), "
+            f"{info.get('cpu MHz', '?')} MHz; {os.cpu_count()} logical cores, "
+            f"{len(os.sched_getaffinity(0))} usable by this process")
 
 
 def standin():
@@ -502,6 +548,310 @@ def trainer_vs_twin(runner, kw, trained, policy, report) -> bool:
     return ok
 
 
+def phase_sharded() -> list:
+    """Phase 5: the env-sharded trainer under torch.distributed.run, world 2
+    sharing the one card over gloo and, where there are two cards or more,
+    world min(cards, 4) over NCCL. Returns one result per run."""
+    cards = torch.cuda.device_count()
+    return [run_sharded(backend, world)
+            for backend, world in [("gloo", 2)] + ([("nccl", min(cards, 4))] if cards >= 2 else [])]
+
+
+def run_sharded(backend: str, world: int) -> dict:
+    """One sharded run: each rank runs rank_worker and leaves its report in
+    build/sharded_<backend>_<world>/rank<r>.json; the checks across ranks
+    are made here."""
+    out = os.path.join(ROOT, "build", f"sharded_{backend}_{world}")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={world}", os.path.join(ROOT, "chip_smoke.py"),
+           "--rank-worker", out, backend]
+    log(f"[sharded] {backend} world {world}: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    # a session of its own, so that a timeout stops torchrun and its ranks
+    proc = subprocess.Popen(cmd, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=SHARDED_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        rc = "timeout"
+    wall = time.perf_counter() - t0
+    reps = []
+    for r in range(world):
+        path = os.path.join(out, f"rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                reps.append(json.load(f))
+    ok = rc == 0 and len(reps) == world
+    log(f"[sharded] {backend} world {world}: exit {rc} after {wall:.1f} s; "
+        f"{len(reps)} of {world} rank reports")
+    if ok:
+        ok = check_sharded(backend, world, torch.cuda.device_count(), reps, out)
+    return dict(ok=ok, backend=backend, world=world, reps=reps, wall_s=wall)
+
+
+def check_sharded(backend: str, world: int, cards: int, reps: list, out: str) -> bool:
+    """Print each rank's report and check what spans the ranks: every rank's
+    own checks, the same params everywhere, each rank on its card (ranks
+    share cards only over gloo), finite metrics and the global counts."""
+    ok = True
+    for rep in reps:
+        for name, passed in rep["checks"].items():
+            ok &= passed
+        log(f"[sharded] rank {rep['rank']} on {rep['device']}: {rep['rows']} train rows; "
+            f"geometry {rep['geometry']}; launches {rep['launches']} (want {rep['want']}) "
+            f"as {rep['launch_rows']}; kernel {rep['kernel_ms']:.3f} ms per control step at "
+            f"{rep['rows']} rows; train {rep['t_train']:.1f} s")
+        log(f"[sharded] rank {rep['rank']} profile_breakdown {json.dumps(rep['breakdown'])}")
+        log(f"[sharded] rank {rep['rank']} world {world} vs world 1, one training step: "
+            f"{json.dumps(rep['invariance'])}")
+        log(f"[sharded] rank {rep['rank']} checks {json.dumps(rep['checks'])}")
+    devices = [rep["device"] for rep in reps]
+    own_cards = [f"cuda:{r % cards}" for r in range(world)]
+    same_params = len({rep["params_digest"] for rep in reps}) == 1
+    ok &= same_params and devices == own_cards and (backend == "gloo" or len(set(devices)) == world)
+    with open(os.path.join(out, "run", "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    finite = len(lines) == 3 and all(
+        math.isfinite(v) for line in lines for k, v in line.items()
+        if k.startswith(("training/", "eval/")))
+    for line in lines[1:]:
+        log(f"[sharded] epoch at step {line['step']}: training/sps {line['training/sps']:.1f}, "
+            f"eval/episode_reward {line['eval/episode_reward']:.4f}")
+    ok &= finite and lines[-1]["step"] == 655360
+    log(f"[sharded] {backend} world {world}: devices {devices}; params identical on every "
+        f"rank {same_params}; metrics finite {finite}; {'OK' if ok else 'FAIL'}")
+    return ok
+
+
+def rank_worker(out: str, backend: str) -> int:
+    """One rank of phase 5 (run by torch.distributed.run): joins the group
+    as the runner does, trains, checks, and writes rank<r>.json into `out`."""
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    asset_root()
+    from open_duck_playground_tpu_torch.parallel import dist as pdist
+    from open_duck_playground_tpu_torch.train import runner as rn
+
+    args = rn.build_parser().parse_args(
+        ["--output_dir", os.path.join(out, "run"), *TRAINER_ARGS, "--dist_backend", backend])
+    shard = rn.init_distributed(args)
+    try:
+        rep = sharded_rank(rn.OpenDuckMiniV2Runner(args, shard), shard, out)
+    finally:
+        pdist.destroy()
+    with open(os.path.join(out, f"rank{shard.rank}.json"), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def _spy_launches(fp, seen: dict):
+    """Record the rows and device of each launch of `fp`'s kernel (the
+    launch itself, and its count, are fp's own)."""
+    launch = fp._launch
+
+    def counted(qpos, *args):
+        key = f"{qpos.shape[0]} rows on {qpos.device}"
+        seen[key] = seen.get(key, 0) + 1
+        return launch(qpos, *args)
+
+    fp._launch = counted
+
+
+def sharded_rank(runner, shard, out: str) -> dict:
+    """Phase 5's work on one rank: the main path (ppo.train through the
+    runner's recipe) with its launches counted from 0, then checks (a)-(f)
+    of the module docstring. Every rank makes the same collectives."""
+    import dataclasses
+    import hashlib
+    import inspect
+
+    from open_duck_playground_tpu_torch import interop
+    from open_duck_playground_tpu_torch.envs.joystick import Joystick
+    from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
+    from open_duck_playground_tpu_torch.ops.cuda_step import flatten_dr_fields
+    from open_duck_playground_tpu_torch.train import checkpoint as ckpt
+    from open_duck_playground_tpu_torch.train import ppo
+
+    dev = shard.device
+    kw = runner.train_kwargs()
+    nf = kw["network_factory"]
+    T, B = kw["unroll_length"], kw["num_envs"]
+    rows, eval_rows = shard.local(B), shard.local(kw["num_eval_envs"])
+    epochs = kw["num_evals"] - 1
+    steps_per_epoch = math.ceil(kw["num_timesteps"] / (epochs * B * T))
+    ep_len = kw["episode_length"] // kw["action_repeat"]
+    want = {"train_env": 1 + T * (2 + 2 + epochs * steps_per_epoch),
+            "eval_env": (1 + epochs + 2) * (1 + ep_len)}
+    envs = {"train_env": runner.env, "eval_env": runner.eval_env}
+    seen = {name: {} for name in envs}
+
+    # (a) the main path, every launch counted from 0 just before it
+    for name, env in envs.items():
+        _spy_launches(env.physics, seen[name])
+        env.physics.launches = 0
+    t0 = time.perf_counter()
+    _, (normalizer, params), _ = ppo.train(environment=runner.env, eval_env=runner.eval_env,
+                                           **kw, profile_breakdown=True)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = {name: env.physics.launches for name, env in envs.items()}
+    for env in envs.values():
+        del env.physics._launch
+    bd = ppo.LAST_PROFILE_BREAKDOWN
+    fp = runner.env.physics
+    checks = {"launches": launches == want,
+              "launch_rows": seen == {"train_env": {f"{rows} rows on {dev}": want["train_env"]},
+                                      "eval_env": {f"{eval_rows} rows on {dev}": want["eval_env"]}},
+              "count": float(normalizer.count) == kw["num_timesteps"]}
+
+    # (b) the params every rank ends with (train() checked the replicated
+    # state after every epoch)
+    h = hashlib.sha256()
+    for a in (interop.ppo_params_to_numpy(params), interop.normalizer_to_numpy(normalizer)):
+        for _, v in sorted(ckpt.flatten(a).items()):
+            h.update(np.ascontiguousarray(v).tobytes())
+
+    # (c) one training step at this world size against world size 1, from
+    # train()'s init and the same global draws
+    defaults = inspect.signature(ppo.train).parameters
+    hp = ppo.Hyper(**{f.name: kw.get(f.name, defaults[f.name].default)
+                      for f in dataclasses.fields(ppo.Hyper)})
+
+    def one_step(env_shard):
+        gens = ppo.seeded_generators(kw["seed"], dev)
+        env = Joystick(TRAINER_TASK, device=dev)
+        env.shard = env_shard
+        env.generator.set_state(gens["env"].get_state())
+        te = TrainEnv(env, num_envs=B if env_shard is None else rows,
+                      episode_length=kw["episode_length"], randomization_fn=kw["randomization_fn"],
+                      randomization_generator=gens["randomization"])
+        obs_sizes = {k: v[0] for k, v in env.observation_size.items()}
+        ts = ppo.init_training_state(obs_sizes, env.action_size, nf, gens["net"], dev)
+        state = te.reset(gens["reset"])
+        noise, perms, ent = ppo.draw_training_step(gens["epoch"], hp, env.action_size, dev)
+        if env_shard is not None:
+            noise = env_shard.take(noise, dim=1)
+        state, data = ppo.rollout(te, state, ts.normalizer, ts.params, noise)
+        ts, _ = ppo.sgd_step(ts, data, perms, ent, hp, env_shard)
+        ts = ts.replace(env_steps=ts.env_steps + hp.env_steps_per_training_step)
+        return ts, state, data, te, {"epoch": gens["epoch"], "env": env.generator}
+
+    p0 = torch.cat([p.detach().reshape(-1) for p in ppo.init_training_state(
+        params.obs_sizes, params.action_size, nf,
+        ppo.seeded_generators(kw["seed"], dev)["net"], dev).params.parameters()]).double()
+    ts1, _, data1, _, _ = one_step(None)
+    ts2, state2, data2, te2, gens2 = one_step(shard)
+    mine = shard.rows(B)
+    flat1, flat2 = {}, {}
+    ppo._tensors(data1, "data", flat1)
+    ppo._tensors(data2, "data", flat2)
+    trans = {k: float((v[:, mine] - flat2[k]).abs().max()) for k, v in flat1.items()}
+    per_t = [max(float((v[t, mine] - flat2[k][t]).abs().max()) for k, v in flat1.items())
+             for t in range(T)]
+    envs_differ = int(sum(((v[:, mine] != flat2[k]).reshape(T, rows, -1).any(-1).any(0))
+                          for k, v in flat1.items()).count_nonzero())
+    p1 = torch.cat([p.detach().reshape(-1) for p in ts1.params.parameters()])
+    p2 = torch.cat([p.detach().reshape(-1) for p in ts2.params.parameters()])
+    d = (p1 - p2).abs().double()
+    u1, u2 = p1.double() - p0, p2.double() - p0
+    cos = float(u1 @ u2 / (u1.norm() * u2.norm()))
+    norm_d = max(float((ts1.normalizer.mean[k] - ts2.normalizer.mean[k]).abs().max())
+                 for k in ts1.normalizer.mean)
+    inv = {"transitions_max": max(trans.values()), "transitions_worst": max(trans, key=trans.get),
+           "transitions_max_per_step": per_t, "transitions": trans,
+           "envs_differing": envs_differ, "params_q99": float(torch.quantile(d, 0.99)),
+           "params_max": float(d.max()), "update_cos": cos, "normalizer_mean_max": norm_d,
+           "count": [float(ts1.normalizer.count), float(ts2.normalizer.count)],
+           "env_steps": [int(ts1.env_steps), int(ts2.env_steps)]}
+    checks["invariance"] = (inv["transitions_max"] <= SHARDED_LIMITS["transitions"]
+                            and inv["params_q99"] <= SHARDED_LIMITS["params_q99"]
+                            and inv["params_max"] <= SHARDED_LIMITS["params_max"]
+                            and cos >= SHARDED_LIMITS["update_cos"]
+                            and norm_d <= SHARDED_LIMITS["normalizer"]
+                            and inv["count"][0] == inv["count"][1]
+                            and inv["env_steps"][0] == inv["env_steps"][1])
+    del ts1, data1, flat1, data2, flat2
+
+    # (e) a gathered full state of that step, written by rank 0, holds the
+    # global rows, and each rank's rows of it are its live state; the
+    # trainer's last full state holds the global rows and the final params
+    arrays = ppo.full_state_to_numpy(ppo.full_state(ts2, state2, gens2, shard))
+    if shard.is_main:
+        ckpt.save_full(os.path.join(out, "full_step"), 0, arrays)
+    shard.barrier()
+    saved = ckpt.load_full(ckpt.full_path(os.path.join(out, "full_step"), 0))
+    obs_sizes = params.obs_sizes
+    tmpl = ppo.init_training_state(obs_sizes, params.action_size, nf,
+                                   torch.Generator(device=dev).manual_seed(0), dev)
+    gens_t = {k: torch.Generator(device=dev) for k in gens2}
+    ts_b, es_b = ppo.restore_full_state(saved, tmpl, state2, gens_t, shard)
+    live, back = {}, {}
+    ppo._tensors(state2, "env_state", live)
+    ppo._tensors(es_b, "env_state", back)
+    checks["full_state_rows"] = (
+        all(v.shape[0] == B for k, v in saved.items() if k.startswith("env_state/"))
+        and all(torch.equal(live[k], back[k]) for k in live)
+        and all(torch.equal(a, b) for a, b in zip(ts_b.params.parameters(),
+                                                  ts2.params.parameters())))
+    last_epoch, last_path = ckpt.latest_full(os.path.join(out, "run"))
+    trained = ckpt.load_full(last_path)
+    flat_params = ckpt.flatten(interop.ppo_params_to_numpy(params), "training_state/params/")
+    checks["trainer_full_state"] = (
+        last_epoch == epochs - 1
+        and all(v.shape[0] == B for k, v in trained.items() if k.startswith("env_state/"))
+        and all(np.array_equal(trained[k], v) for k, v in flat_params.items()))
+    del ts2, state2, ts_b, es_b, live, back, saved, arrays
+
+    # (d) the kernel against its twin on this rank's rows of the trained
+    # state (step variant, DR on: train()'s DR rows), on rank 0; and (f)
+    # the kernel's time at this rank's rows, the ranks timed in turn
+    tmpl = ppo.init_training_state(obs_sizes, params.action_size, nf,
+                                   torch.Generator(device=dev).manual_seed(0), dev)
+    gens_t = {k[len("generators/"):]: torch.Generator(device=dev)
+              for k in trained if k.startswith("generators/")}
+    _, es = ppo.restore_full_state(trained, tmpl, te2.reset(torch.Generator(device=dev)),
+                                   gens_t, shard)
+    dr = flatten_dr_fields(te2.model)
+    n = runner.env.n_substeps
+    args = (es.data.qpos.contiguous(), es.data.qvel.contiguous(),
+            es.data.qacc_warmstart.contiguous(), es.data.ctrl.contiguous(), n, dr)
+    kernel_ms = None
+    for r in range(shard.world):
+        if r == shard.rank:
+            kernel_ms = cuda_ms(lambda: fp(*args), reps=20)
+        shard.barrier()
+    rep = {"rank": shard.rank, "world": shard.world, "device": str(dev), "rows": rows,
+           "geometry": fp.geometry(rows, dev), "launches": launches, "want": want,
+           "launch_rows": seen, "t_train": t_train, "breakdown": bd, "params_digest": h.hexdigest(),
+           "invariance": inv, "kernel_ms": kernel_ms}
+    if shard.is_main:
+        accel = int(fp.model.sensor_adr[fp.model.sensor("accelerometer")])
+        out_k = fp(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p = fp.plain(*args)
+        torch.cuda.synchronize()
+        rep["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        readings = {}
+        tag = f"sharded rank 0 {TRAINER_TASK} B={rows} of {B} dr=1 step"
+        checks["kernel_vs_twin"] = parity_table(
+            tag, out_k, out_p, accel, "step", True, False, readings,
+            standin().TRAINER_PARITY_LIMITS[("step", True)])
+        worst = max(readings[tag], key=lambda f: readings[tag][f]["max"])
+        rep["max_abs_err"] = readings[tag][worst]["max"]
+        rep["max_abs_err_of"] = f"{tag}: all outputs; largest in {worst}"
+        bound = step_bound(fp, rows, n, dr, flops_per_env_substep(fp, dr))
+        rep.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                   flops_per_env_substep=bound["flops_per_env_substep"], bytes=bound["bytes"])
+    rep["checks"] = checks
+    rep["ok"] = all(checks.values())
+    return rep
+
+
 def kernel_entry(name: str, replaces: str, main: dict, report: dict, case: str) -> dict:
     """One entry of the kernels line: launches, times and bound from the
     main path's run; max_abs_err from phase 2's step variant at the main
@@ -525,15 +875,45 @@ def kernel_entry(name: str, replaces: str, main: dict, report: dict, case: str) 
     }
 
 
+def sharded_entry(run: dict) -> dict:
+    """The kernels line's entry of the sharded dispatch (kernel d): the same
+    kernel launched by every rank on its rows, from phase 5's gloo run on
+    the one card. launches: both envs' launches summed over the ranks;
+    ms, plain_ms and bound at rank 0's rows (row a's bound at 8192/world)."""
+    r0 = run["reps"][0]
+    return {
+        "name": "fused_physics_step_sharded",
+        "route": "cuda",
+        "source": "open_duck_playground_tpu_torch/ops/csrc/physics_step.cu",
+        "replaces": "open_duck_playground_tpu/ops/pallas_step.py:238 (call_sharded)",
+        "launches": sum(sum(rep["launches"].values()) for rep in run["reps"]),
+        "launches_per_rank": [rep["launches"] for rep in run["reps"]],
+        "rows_per_rank": r0["rows"],
+        "world": run["world"],
+        "backend": run["backend"],
+        "max_abs_err": r0["max_abs_err"],
+        "max_abs_err_of": r0["max_abs_err_of"],
+        "ms": r0["kernel_ms"],
+        "ms_per_rank": [rep["kernel_ms"] for rep in run["reps"]],
+        "plain_ms": r0["plain_ms"],
+        "bound_ms": r0["bound_ms"],
+        "bound_by": r0["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a physics step
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank-worker"]:
+        return rank_worker(*sys.argv[2:4])
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
-    log(f"[env] gpu {gpu_line()}")
+    log(f"[env] gpu {gpu_line()}; {torch.cuda.device_count()} card(s)")
+    log(f"[env] host cpu {cpu_line()}")
     log(f"[env] assets {asset_root()}")
 
     phase_build()
@@ -542,7 +922,10 @@ def main() -> int:
     flat = phase_main_path(*FLAT_MAIN)
     rough = phase_main_path(*ROUGH_MAIN)
     trainer = phase_trainer(report)
-    if not (ok and flat["ok"] and rough["ok"] and trainer["ok"]):
+    torch.cuda.empty_cache()  # phase 5's ranks share the card with this process
+    sharded = phase_sharded()
+    if not (ok and flat["ok"] and rough["ok"] and trainer["ok"]
+            and all(run["ok"] for run in sharded)):
         log("[chip_smoke] FAILED")
         return 1
     step_kernel = kernel_entry("fused_physics_step", "open_duck_playground_tpu/ops/pallas_step.py:225",
@@ -560,6 +943,7 @@ def main() -> int:
         kernel_entry("fused_physics_step_hfield",
                      "open_duck_playground_tpu/ops/pallas_step.py:225 (has_hf=True)",
                      rough, report, f"{ROUGH_MAIN[0]} B={ROUGH_MAIN[1]} dr=1 step"),
+        sharded_entry(sharded[0]),
     ]}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -23,6 +23,7 @@ from open_duck_playground_tpu_torch.mjcf import compile_mjcf
 from open_duck_playground_tpu_torch.models.open_duck_mini_v2 import constants
 from open_duck_playground_tpu_torch.ops.cuda_step import FusedPhysics, flatten_dr_fields
 from open_duck_playground_tpu_torch.ops.types import Contact, Data, JointType, Model
+from open_duck_playground_tpu_torch.parallel.dist import EnvShard
 from open_duck_playground_tpu_torch.utils.config import Config
 
 
@@ -57,6 +58,10 @@ class OpenDuckMiniV2Env:
                                "device='cpu' (physics then runs the kernel's plain version)")
         # the env's own stream of draws (noise, pushes, delays, commands)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # which rows of a sharded global batch this process's envs are: with
+        # a shard, every draw is made at the global shape and cut to them
+        # (ppo.train sets it; None: the batch is the whole batch)
+        self.shard: Optional[EnvShard] = None
         self._observation_size = None
 
         model_cpu = compile_mjcf(xml_path, timestep=self._config.sim_dt)

@@ -30,6 +30,7 @@ from open_duck_playground_tpu_torch.envs.types import State
 from open_duck_playground_tpu_torch.models.open_duck_mini_v2 import constants
 from open_duck_playground_tpu_torch.ops import math3d as m3
 from open_duck_playground_tpu_torch.ops.types import Data, Model
+from open_duck_playground_tpu_torch.parallel.dist import draw
 from open_duck_playground_tpu_torch.utils.config import Config
 
 USE_IMITATION_REWARD = True
@@ -149,12 +150,18 @@ class Joystick(duck_base.OpenDuckMiniV2Env):
         self._qpos_noise_scale = torch.as_tensor(qpos_noise_scale, device=dev)
 
     # -- draws -------------------------------------------------------------
+    # every draw has a leading env dim; with a shard it is made at the
+    # global shape and cut to this process's rows (parallel.dist.draw)
+    def _rand(self, shape, g: torch.Generator) -> torch.Tensor:
+        return draw(self.shard, torch.rand, shape, generator=g, device=self.device)
+
     def _uniform(self, shape, lo, hi, g: torch.Generator) -> torch.Tensor:
-        u = torch.rand(shape, generator=g, device=self.device)
+        u = self._rand(shape, g)
         return lo + (hi - lo) * u
 
     def _randint(self, n: int, lo: int, hi: int, g: torch.Generator) -> torch.Tensor:
-        return torch.randint(lo, hi, (n,), generator=g, device=self.device)
+        return draw(self.shard, lambda s, **kw: torch.randint(lo, hi, s, **kw), (n,),
+                    generator=g, device=self.device)
 
     # ------------------------------------------------------------------
     def reset_with_model(self, model: Model, num_envs: int,
@@ -341,7 +348,7 @@ class Joystick(duck_base.OpenDuckMiniV2Env):
 
     def _noise(self, x: torch.Tensor, scale, g: torch.Generator) -> torch.Tensor:
         level = self._config.noise_config.level
-        u = torch.rand(x.shape, generator=g, device=self.device)
+        u = self._rand(x.shape, g)
         return (2.0 * u - 1.0) * level * scale
 
     def _get_obs(self, data: Data, info: Dict[str, Any], contact: torch.Tensor,
@@ -468,7 +475,7 @@ class Joystick(duck_base.OpenDuckMiniV2Env):
             self._uniform((B,), cfg.lin_vel_y[0], cfg.lin_vel_y[1], g),
             self._uniform((B,), cfg.ang_vel_yaw[0], cfg.ang_vel_yaw[1], g),
         ]
-        zero_cmd = torch.rand((B,), generator=g, device=self.device) < 0.1
+        zero_cmd = self._rand((B,), g) < 0.1
         for r in (cfg.neck_pitch_range, cfg.head_pitch_range, cfg.head_yaw_range,
                   cfg.head_roll_range):
             cols.append(self._uniform((B,), r[0] * f, r[1] * f, g))

@@ -138,3 +138,10 @@ def domain_randomize(model: Model, num_envs: int,
     for _, sampler in _RECIPE:
         sampler(fields, ctx, U)
     return model.tree_replace(fields)
+
+
+def take_rows(model: Model, rows: slice) -> Model:
+    """The randomized model with the rows `rows` of every field of
+    ``RANDOMIZED_FIELDS``: one rank's envs of a batch randomized at its
+    global size."""
+    return model.tree_replace({f: getattr(model, f)[rows] for f in RANDOMIZED_FIELDS})

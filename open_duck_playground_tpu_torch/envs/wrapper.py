@@ -2,7 +2,9 @@
 
 Counterpart of the JAX package's ``envs/wrapper.py``, in the same order:
 - the batch of envs, optionally with a per-env randomized model
-  (``randomize.domain_randomize``), stepped as one batch (no vmap);
+  (``randomize.domain_randomize``), stepped as one batch (no vmap); for an
+  env with a shard (``env.shard``), the batch is that rank's rows of a
+  global batch, randomized at the global size and cut to them;
 - episode bookkeeping (step count, ``truncation`` flag at episode_length);
 - auto-reset to the episode's FIRST state on done (Brax semantics: envs
   restart from their cached initial state, not a fresh randomized reset).
@@ -15,6 +17,7 @@ from typing import Callable, Optional
 
 import torch
 
+from open_duck_playground_tpu_torch.envs import randomize
 from open_duck_playground_tpu_torch.envs.types import State
 
 
@@ -32,10 +35,13 @@ class TrainEnv:
         self.num_envs = num_envs
         self.episode_length = episode_length
         self.action_repeat = action_repeat
+        self._model_v = None
         if randomization_fn is not None:
-            self._model_v = randomization_fn(env.model, num_envs, randomization_generator)
-        else:
-            self._model_v = None
+            shard = getattr(env, "shard", None)
+            world = 1 if shard is None else shard.world
+            self._model_v = randomization_fn(env.model, world * num_envs, randomization_generator)
+            if world > 1:
+                self._model_v = randomize.take_rows(self._model_v, shard.rows(world * num_envs))
 
     @property
     def env(self):

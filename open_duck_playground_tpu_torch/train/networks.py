@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from open_duck_playground_tpu_torch.parallel.dist import EnvShard
+
 _MIN_STD = 0.001
 _LOG_2PI = math.log(2.0 * math.pi)
 _LOG_2 = math.log(2.0)
@@ -141,18 +143,25 @@ def rs_init(obs_sizes: Dict[str, int], device=None) -> RunningStatisticsState:
 
 @torch.no_grad()
 def rs_update(state: RunningStatisticsState, batch: Dict[str, torch.Tensor], *,
-              std_min_value: float = 1e-6, std_max_value: float = 1e6) -> RunningStatisticsState:
-    """Welford update over all leading batch dims of each obs key."""
+              std_min_value: float = 1e-6, std_max_value: float = 1e6,
+              shard: Optional[EnvShard] = None) -> RunningStatisticsState:
+    """Welford update over all leading batch dims of each obs key. With a
+    shard, `batch` is this rank's equal share of a global batch, and the
+    statistics are the global batch's: its count, and two sum all-reduces
+    per key (the sum of diff_to_old for the new mean, then the sum of
+    diff_to_old * diff_to_new)."""
+    world = 1 if shard is None else shard.world
+    total = (lambda t: t) if shard is None else shard.all_reduce_sum
     first = next(iter(batch.values()))
-    batch_size = math.prod(first.shape[:-1])
+    batch_size = math.prod(first.shape[:-1]) * world
     count = state.count + batch_size
     means, svars, stds = {}, {}, {}
     for k, data in batch.items():
         dims = tuple(range(data.dim() - 1))
         diff_to_old = data - state.mean[k]
-        mean_new = state.mean[k] + torch.sum(diff_to_old, dim=dims) / count
+        mean_new = state.mean[k] + total(torch.sum(diff_to_old, dim=dims)) / count
         diff_to_new = data - mean_new
-        svar = state.summed_variance[k] + torch.sum(diff_to_old * diff_to_new, dim=dims)
+        svar = state.summed_variance[k] + total(torch.sum(diff_to_old * diff_to_new, dim=dims))
         svar = torch.clamp_min(svar, 0.0)
         means[k], svars[k] = mean_new, svar
         stds[k] = torch.clamp(torch.sqrt(svar / count), std_min_value, std_max_value)

@@ -1,4 +1,4 @@
-"""PPO actor-learner, Brax-PPO semantics, on one device.
+"""PPO actor-learner, Brax-PPO semantics, on one device or env-sharded.
 
 Counterpart of the JAX package's ``train/ppo.py``: batched rollouts over
 ``TrainEnv.step``, GAE with truncation masking, clipped surrogate +
@@ -14,6 +14,12 @@ per-minibatch entropy noise, as tensors. ``train`` makes them from its own
 
 The learner's products, its Adam and its GAE are plain PyTorch; every env
 step goes through the env's physics (the fused CUDA kernel on the card).
+
+Env-sharded runs (``shard``, ``parallel/dist.py``) keep the JAX package's
+global view: every draw is made at the global shape on every rank, each
+rank steps its own rows, and the normalizer, the loss, the gradients, the
+eval's statistics and the full state are taken over the global batch. At
+world size 1 no collective runs and the arithmetic is the one-device one.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 
 from open_duck_playground_tpu_torch import interop
 from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
+from open_duck_playground_tpu_torch.parallel.dist import EnvShard, current_shard, draw
 from open_duck_playground_tpu_torch.train import checkpoint as ckpt
 from open_duck_playground_tpu_torch.train import networks as nets
 from open_duck_playground_tpu_torch.train import optim
@@ -126,10 +133,21 @@ def compute_gae(truncation, termination, rewards, values, bootstrap_value,
 
 
 def loss_fn(networks: nets.PPONetworks, normalizer, data: Transition,
-            entropy_noise: torch.Tensor, hp: Hyper):
+            entropy_noise: torch.Tensor, hp: Hyper, shard: Optional[EnvShard] = None):
     """The PPO loss over one minibatch (leaves [T, b, ...]); `entropy_noise`
     [T, b, action_size] is the entropy term's standard-normal draw.
-    Returns (total, {name: detached scalar})."""
+    Returns (total, {name: detached scalar}).
+
+    With a shard of world > 1, `data` and `entropy_noise` hold this rank's
+    members of a minibatch of hp.batch_size envs spread over the ranks: the
+    advantages are normalized by the whole minibatch's mean and population
+    std (two sum all-reduces, in two passes as jnp.std), every mean is over
+    all T x hp.batch_size samples, and each term returned is this rank's
+    share of it. The ranks' shares sum to the loss (sgd_step sums them with
+    the gradients)."""
+    sharded = shard is not None and shard.world > 1
+    n = data.reward.shape[0] * hp.batch_size
+    mean = (lambda x: torch.sum(x) / n) if sharded else torch.mean
     logits = networks.policy_logits(normalizer, data.observation)
     loc, scale = nets.dist_create(logits)
     baseline = networks.value_fn(normalizer, data.observation)
@@ -146,18 +164,22 @@ def loss_fn(networks: nets.PPONetworks, normalizer, data: Transition,
     vs, advantages = compute_gae(truncation, termination, rewards, baseline.detach(),
                                  bootstrap_value.detach(), lambda_=hp.gae_lambda,
                                  discount=hp.discounting)
-    if hp.normalize_advantage:
+    if hp.normalize_advantage and sharded:
+        adv_mean = shard.all_reduce_sum(torch.sum(advantages)) / n
+        adv_var = shard.all_reduce_sum(torch.sum(torch.square(advantages - adv_mean))) / n
+        advantages = (advantages - adv_mean) / (torch.sqrt(adv_var) + 1e-8)
+    elif hp.normalize_advantage:
         # population std, as jnp.std
         advantages = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
 
     surrogate1 = rho * advantages
     surrogate2 = torch.clamp(rho, 1 - hp.clipping_epsilon, 1 + hp.clipping_epsilon) * advantages
-    policy_loss = -torch.mean(torch.minimum(surrogate1, surrogate2))
+    policy_loss = -mean(torch.minimum(surrogate1, surrogate2))
 
     v_error = vs - baseline
-    v_loss = torch.mean(v_error * v_error) * 0.5 * 0.5
+    v_loss = mean(v_error * v_error) * 0.5 * 0.5
 
-    entropy = torch.mean(nets.dist_entropy(loc, scale, entropy_noise))
+    entropy = mean(nets.dist_entropy(loc, scale, entropy_noise))
     entropy_loss = -hp.entropy_cost * entropy
 
     total = policy_loss + v_loss + entropy_loss
@@ -190,29 +212,44 @@ def rollout(train_env: TrainEnv, env_state, normalizer, networks: nets.PPONetwor
 
 
 def sgd_step(training_state: TrainingState, data: Transition, perms: torch.Tensor,
-             entropy_noise: torch.Tensor, hp: Hyper):
+             entropy_noise: torch.Tensor, hp: Hyper, shard: Optional[EnvShard] = None):
     """Normalizer update from the whole rollout, then num_updates_per_batch
     epochs of num_minibatches Adam steps. `perms` [epochs, num_envs] are the
     per-epoch env permutations (minibatch j of epoch e takes envs
     perms[e, j*b:(j+1)*b] at every t, as `take(perm, axis=1)` then
     `reshape(T, nmb, b).swapaxes(0, 1)`); `entropy_noise` [epochs, nmb, T,
     b, action_size]. The params are updated in place; returns
-    (training_state, {name: [epochs, nmb] losses})."""
+    (training_state, {name: [epochs, nmb] losses}).
+
+    With a shard of world > 1, `data` holds this rank's envs and the draws
+    are the global ones: the normalizer takes the global batch's
+    statistics, each rank takes its members of every global minibatch
+    (`_members`), and the gradients and loss terms are summed over the
+    ranks in one all-reduce per minibatch, before the clip and Adam, so
+    that every rank makes the same update."""
+    sharded = shard is not None and shard.world > 1
     if hp.normalize_observations:
-        normalizer = nets.rs_update(training_state.normalizer, data.observation)
+        normalizer = nets.rs_update(training_state.normalizer, data.observation, shard=shard)
     else:
         normalizer = training_state.normalizer
     networks = training_state.params
     params = list(networks.parameters())
     opt_state = training_state.opt_state
     b = hp.batch_size
+    members = _members(perms, shard, hp) if sharded else None
     aux = []
     for e in range(hp.num_updates_per_batch):
         for j in range(hp.num_minibatches):
-            idx = perms[e, j * b:(j + 1) * b]
+            if sharded:
+                idx, pos = members[e][j]
+                ent = entropy_noise[e, j].index_select(1, pos)
+            else:
+                idx, ent = perms[e, j * b:(j + 1) * b], entropy_noise[e, j]
             mb = _map(lambda x: x.index_select(1, idx), data)
-            total, mb_aux = loss_fn(networks, normalizer, mb, entropy_noise[e, j], hp)
+            total, mb_aux = loss_fn(networks, normalizer, mb, ent, hp, shard)
             grads = torch.autograd.grad(total, params)
+            if sharded:
+                grads, mb_aux = _sum_over_ranks(grads, mb_aux, shard)
             if hp.max_grad_norm is not None:
                 grads = optim.clip_by_global_norm(grads, hp.max_grad_norm)
             opt_state = optim.adam(params, grads, opt_state, hp.learning_rate)
@@ -220,6 +257,38 @@ def sgd_step(training_state: TrainingState, data: Transition, perms: torch.Tenso
     stacked = {k: torch.stack([a[k] for a in aux]).reshape(
         hp.num_updates_per_batch, hp.num_minibatches) for k in aux[0]}
     return training_state.replace(normalizer=normalizer, opt_state=opt_state), stacked
+
+
+def _members(perms: torch.Tensor, shard: EnvShard, hp: Hyper):
+    """This rank's members of every minibatch: [e][j] = (their env indices
+    among this rank's rows, their positions in minibatch j of epoch e), in
+    minibatch order; from one copy of the permutations to the host and one
+    copy of the result back."""
+    n_local = shard.local(hp.num_envs)
+    lo = shard.rank * n_local
+    E, nmb, b = hp.num_updates_per_batch, hp.num_minibatches, hp.batch_size
+    p = perms.cpu().numpy().reshape(E, nmb, b)
+    mine = (p >= lo) & (p < lo + n_local)
+    both = torch.from_numpy(np.stack([p[mine] - lo, np.nonzero(mine)[2]]).astype(np.int64))
+    parts = both.to(perms.device).split(mine.sum(-1).ravel().tolist(), dim=1)
+    return [[(parts[e * nmb + j][0], parts[e * nmb + j][1]) for j in range(nmb)]
+            for e in range(E)]
+
+
+def _sum_over_ranks(grads, aux: Dict[str, torch.Tensor], shard: EnvShard):
+    """The gradients and the loss terms summed over the ranks, in one
+    all-reduce of one flat buffer; total_loss is the sum of the summed
+    terms."""
+    terms = ("policy_loss", "v_loss", "entropy_loss")
+    flat = shard.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]
+                                          + [torch.stack([aux[k] for k in terms])]))
+    out, at = [], 0
+    for g in grads:
+        out.append(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+    summed = dict(zip(terms, flat[at:]))
+    summed["total_loss"] = summed["policy_loss"] + summed["v_loss"] + summed["entropy_loss"]
+    return out, {k: summed[k] for k in aux}
 
 
 def draw_training_step(generator: torch.Generator, hp: Hyper, action_size: int, device):
@@ -236,13 +305,17 @@ def draw_training_step(generator: torch.Generator, hp: Hyper, action_size: int, 
 
 
 def training_step(training_state: TrainingState, train_env: TrainEnv, env_state, draws,
-                  hp: Hyper):
+                  hp: Hyper, shard: Optional[EnvShard] = None):
     """Rollout with the current (normalizer, params), then the SGD step.
-    Returns (training_state, env_state, {name: mean loss})."""
+    Returns (training_state, env_state, {name: mean loss}). With a shard,
+    `env_state` is this rank's rows and `draws` the global draws: the
+    rollout takes its rows of the policy noise."""
     noise, perms, ent = draws
+    if shard is not None:
+        noise = shard.take(noise, dim=1)
     env_state, data = rollout(train_env, env_state, training_state.normalizer,
                               training_state.params, noise)
-    training_state, aux = sgd_step(training_state, data, perms, ent, hp)
+    training_state, aux = sgd_step(training_state, data, perms, ent, hp, shard)
     training_state = training_state.replace(
         env_steps=training_state.env_steps + hp.env_steps_per_training_step)
     return training_state, env_state, {k: v.mean() for k, v in aux.items()}
@@ -251,11 +324,15 @@ def training_step(training_state: TrainingState, train_env: TrainEnv, env_state,
 @torch.no_grad()
 def run_eval(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
              generator: torch.Generator, *, episode_length: int, action_repeat: int = 1,
-             deterministic: bool = False) -> Dict[str, torch.Tensor]:
+             deterministic: bool = False, shard: Optional[EnvShard] = None
+             ) -> Dict[str, torch.Tensor]:
     """One episode of every eval env: reset from `generator`, then
     episode_length // action_repeat steps, each env's sums masked once it is
-    done. The stochastic policy draws its noise from `generator`."""
-    policy = networks.make_policy_fn(deterministic=deterministic)
+    done. The stochastic policy draws its noise from `generator`. With a
+    shard, `eval_env` holds this rank's rows: the noise is drawn at the
+    global shape, and the per-env sums are gathered from every rank before
+    the mean and std are taken over all eval envs."""
+    policy = networks.make_policy_fn(deterministic=True)
     state = eval_env.reset(generator)
     n, dev = eval_env.num_envs, state.reward.device
     active = torch.ones(n, device=dev)
@@ -263,12 +340,21 @@ def run_eval(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
     length = torch.zeros(n, device=dev)
     metric_sums = {k: torch.zeros(n, device=dev) for k in state.metrics}
     for _ in range(episode_length // action_repeat):
-        action, _ = policy((normalizer, networks), state.obs, generator)
+        if deterministic:
+            action, _ = policy((normalizer, networks), state.obs)
+        else:
+            noise = draw(shard, torch.randn, (n, networks.action_size), generator=generator,
+                         device=dev)
+            action = nets.sample_actions(networks, normalizer, state.obs, noise)[0]
         state = eval_env.step(state, action)
         sums = sums + state.reward * active
         metric_sums = {k: v + state.metrics[k] * active for k, v in metric_sums.items()}
         length = length + active
         active = active * (1.0 - state.done)
+    if shard is not None and shard.world > 1:
+        per_env = shard.all_gather_rows(torch.stack([sums, length, *metric_sums.values()], 1))
+        sums, length, *cols = per_env.T.contiguous()
+        metric_sums = dict(zip(metric_sums, cols))
     out = {
         "eval/episode_reward": torch.mean(sums),
         "eval/episode_reward_std": torch.std(sums, correction=0),
@@ -310,11 +396,16 @@ def _rebuild(template, prefix: str, arrays: Dict[str, np.ndarray]):
 
 
 def full_state(training_state: TrainingState, env_state,
-               generators: Dict[str, torch.Generator]) -> Dict[str, torch.Tensor]:
+               generators: Dict[str, torch.Generator],
+               shard: Optional[EnvShard] = None) -> Dict[str, torch.Tensor]:
     """The whole training state as {name: tensor}, in a fixed order: the
     params and Adam moments by brax path, the normalizer, env_steps, every
     tensor of the env batch (info's first_data / first_obs and the delay
-    histories included) and each generator's state."""
+    histories included) and each generator's state. With a shard, the env
+    batch is gathered from every rank to its global rows, in rank order
+    (a collective: every rank calls this); the replicated parts and the
+    generators, equal on every rank, are this rank's. The result does not
+    depend on the world size."""
     named = interop.brax_paths(training_state.params)
 
     def brax(prefix, tensors):
@@ -328,7 +419,11 @@ def full_state(training_state: TrainingState, env_state,
     out.update(brax("training_state/opt_state/mu", opt.mu))
     out.update(brax("training_state/opt_state/nu", opt.nu))
     out["training_state/env_steps"] = training_state.env_steps
-    _tensors(env_state, "env_state", out)
+    env: Dict[str, torch.Tensor] = {}
+    _tensors(env_state, "env_state", env)
+    if shard is not None:
+        env = {k: shard.all_gather_rows(v) for k, v in env.items()}
+    out.update(env)
     for name, g in generators.items():
         out[f"generators/{name}"] = g.get_state()
     return out
@@ -339,10 +434,16 @@ def full_state_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]
 
 
 def restore_full_state(arrays: Dict[str, np.ndarray], training_state: TrainingState,
-                       env_state, generators: Dict[str, torch.Generator]):
+                       env_state, generators: Dict[str, torch.Generator],
+                       shard: Optional[EnvShard] = None):
     """Inverse of `full_state` against templates of the same run: loads the
     params in place, sets each generator's state, and returns
-    (training_state, env_state)."""
+    (training_state, env_state). With a shard, this rank takes its rows of
+    the global env batch, so a state saved at any world size restores at
+    any other that divides its envs."""
+    if shard is not None:
+        arrays = {k: (v[shard.rows(v.shape[0])] if k.startswith("env_state/") else v)
+                  for k, v in arrays.items()}
 
     def tree(prefix):
         return ckpt.unflatten({k[len(prefix) + 1:]: v for k, v in arrays.items()
@@ -368,6 +469,18 @@ def seeded_generators(seed: int, device) -> Dict[str, torch.Generator]:
     seqs = np.random.SeedSequence(seed).spawn(len(GENERATORS))
     return {name: torch.Generator(device=device).manual_seed(int(s.generate_state(1, np.uint64)[0]))
             for name, s in zip(GENERATORS, seqs)}
+
+
+def init_training_state(obs_sizes: Dict[str, int], action_size: int,
+                        network_factory: Optional[Dict[str, Any]], generator: torch.Generator,
+                        device) -> TrainingState:
+    """train()'s initial state: the networks drawn from `generator` (its
+    "net" generator), a fresh normalizer and Adam state, env_steps 0."""
+    network = nets.PPONetworks(obs_sizes, action_size, **(network_factory or {}),
+                               generator=generator, device=device)
+    return TrainingState(params=network, normalizer=nets.rs_init(obs_sizes, device),
+                         opt_state=optim.adam_init(list(network.parameters())),
+                         env_steps=torch.zeros((), dtype=torch.int64, device=device))
 
 
 def _canonical(device) -> torch.device:
@@ -425,6 +538,7 @@ def train(
     stop_after_epochs: Optional[int] = None,
     profile_breakdown: bool = False,
     device=None,
+    shard: Optional[EnvShard] = None,
 ):
     """Train PPO; returns (make_policy, (normalizer, params), metrics).
 
@@ -432,12 +546,27 @@ def train(
     `params[0]` is the obs normalizer, `params[1]` the PPONetworks.
     `device` (default: the env's) is where the learner runs; it must be the
     env's, and a CUDA device must exist: nothing moves to the CPU by itself.
+
+    `shard` (default: the default process group's, rank 0 of 1 without one)
+    splits the env batch over the ranks of an env-sharded run: this process
+    steps rows `shard.rows(num_envs)` of the train envs and of the eval
+    envs, and the learner computes what the one-process trainer computes on
+    the global batch (`parallel/dist.py`). Every rank calls train() with the
+    same arguments; only rank 0 prints, calls `progress_fn` and
+    `policy_params_fn` and writes the full-state checkpoints, while the
+    other ranks wait at a barrier.
     """
     if num_envs != batch_size * num_minibatches:
         raise ValueError("brax-PPO layout requires num_envs == batch_size * num_minibatches")
     dev = _canonical(device if device is not None else environment.device)
     if _canonical(environment.device) != dev:
         raise ValueError(f"the env runs on {environment.device}, the learner on {dev}")
+    shard = shard if shard is not None else current_shard(dev)
+    log = functools.partial(print, flush=True) if shard.is_main else (lambda *a, **k: None)
+    # the envs draw at the global shape and keep this rank's rows
+    environment.shard = shard
+    if eval_env is not None:
+        eval_env.shard = shard
 
     g_net, g_rand, g_reset, g_epoch, g_eval, g_env, g_eval_env = seeded_generators(
         seed, dev).values()
@@ -455,21 +584,20 @@ def train(
                reward_scaling=reward_scaling, normalize_observations=normalize_observations,
                max_grad_norm=max_grad_norm)
 
-    train_env = TrainEnv(environment, num_envs=num_envs, episode_length=episode_length,
-                         action_repeat=action_repeat, randomization_fn=randomization_fn,
-                         randomization_generator=g_rand)
+    train_env = TrainEnv(environment, num_envs=shard.local(num_envs),
+                         episode_length=episode_length, action_repeat=action_repeat,
+                         randomization_fn=randomization_fn, randomization_generator=g_rand)
 
     obs_sizes = {k: v[0] for k, v in environment.observation_size.items()}
     action_size = environment.action_size
-    network = nets.PPONetworks(obs_sizes, action_size, **(network_factory or {}),
-                               generator=g_net, device=dev)
-    normalizer = nets.rs_init(obs_sizes, dev)
+    training_state = init_training_state(obs_sizes, action_size, network_factory, g_net, dev)
+    network = training_state.params
     if restore_checkpoint_path is not None:
-        normalizer, network = ckpt.load(restore_checkpoint_path, (normalizer, network))
-    training_state = TrainingState(
-        params=network, normalizer=normalizer,
-        opt_state=optim.adam_init(list(network.parameters())),
-        env_steps=torch.zeros((), dtype=torch.int64, device=dev))
+        normalizer, network = ckpt.load(restore_checkpoint_path,
+                                        (training_state.normalizer, network))
+        training_state = training_state.replace(
+            params=network, normalizer=normalizer,
+            opt_state=optim.adam_init(list(network.parameters())))
 
     def make_policy(full_params, deterministic: bool = False):
         return functools.partial(network.make_policy_fn(deterministic=deterministic),
@@ -485,21 +613,22 @@ def train(
         for _ in range(num_training_steps_per_epoch):
             draws = draw_training_step(g_epoch, hp, action_size, dev)
             training_state, env_state, m = training_step(
-                training_state, train_env, env_state, draws, hp)
+                training_state, train_env, env_state, draws, hp, shard)
             step_metrics.append(m)
         metrics = {k: torch.stack([m[k] for m in step_metrics]).mean() for k in step_metrics[0]}
         return training_state, env_state, metrics
 
     eval_wrapped = None
     if eval_env is not None:
-        eval_wrapped = TrainEnv(eval_env, num_envs=num_eval_envs, episode_length=episode_length,
-                                action_repeat=action_repeat, randomization_fn=None)
+        eval_wrapped = TrainEnv(eval_env, num_envs=shard.local(num_eval_envs),
+                                episode_length=episode_length, action_repeat=action_repeat,
+                                randomization_fn=None)
 
     def evaluate(full_params, generator):
         normalizer, params = full_params
         return run_eval(eval_wrapped, normalizer, params, generator,
                         episode_length=episode_length, action_repeat=action_repeat,
-                        deterministic=deterministic_eval)
+                        deterministic=deterministic_eval, shard=shard)
 
     # ------------------------------------------------------------------
     # main loop
@@ -507,37 +636,53 @@ def train(
     t0 = time.monotonic()
     env_state = train_env.reset(g_reset)
     _sync(dev)
-    print(f"[ppo] env reset ({num_envs} envs) ran in {time.monotonic() - t0:.1f}s", flush=True)
+    log(f"[ppo] env reset ({num_envs} envs, {train_env.num_envs} on each of {shard.world} "
+        f"ranks) ran in {time.monotonic() - t0:.1f}s")
 
     generators = {"epoch": g_epoch, "env": environment.generator}
     if eval_env is not None:
         generators.update(eval=g_eval, eval_env=eval_env.generator)
 
+    def replicated():
+        """What every rank holds alike, by group, for the per-epoch check."""
+        opt, norm = training_state.opt_state, {}
+        _tensors(training_state.normalizer, "normalizer", norm)
+        return {"params": list(training_state.params.parameters()),
+                "adam": [opt.count, *opt.mu, *opt.nu],
+                "normalizer": list(norm.values()),
+                "env_steps": [training_state.env_steps],
+                "generators": [g.get_state() for g in generators.values()]}
+
     start_epoch = 0
     if auto_resume and save_full_state_dir is not None:
-        found = ckpt.latest_full(save_full_state_dir)
-        if found is not None:
-            resume_epoch, resume_path = found
+        # rank 0 decides; every rank reads the same file and takes its rows
+        found = ckpt.latest_full(save_full_state_dir) if shard.is_main else None
+        resume_epoch = int(shard.broadcast(torch.tensor(-1 if found is None else found[0],
+                                                        device=shard.device)))
+        if resume_epoch >= 0:
+            resume_path = ckpt.full_path(save_full_state_dir, resume_epoch)
             training_state, env_state = restore_full_state(
-                ckpt.load_full(resume_path), training_state, env_state, generators)
+                ckpt.load_full(resume_path), training_state, env_state, generators, shard)
             start_epoch = resume_epoch + 1
-            print(f"[ppo] resumed full train state from {resume_path} (epoch "
-                  f"{resume_epoch}, env_steps {int(training_state.env_steps)})", flush=True)
+            log(f"[ppo] resumed full train state from {resume_path} (epoch "
+                f"{resume_epoch}, env_steps {int(training_state.env_steps)})")
 
     def _save_full_state(epoch_i: int, directory: Optional[str] = save_full_state_dir):
         if directory is None:
             return
         t_g = time.monotonic()
-        arrays = full_state_to_numpy(full_state(training_state, env_state, generators))
+        arrays = full_state_to_numpy(full_state(training_state, env_state, generators, shard))
         t_g = time.monotonic() - t_g
-        try:
-            t_w = time.monotonic()
-            ckpt.save_full(directory, epoch_i, arrays, keep=keep_full_states)
-            t_w = time.monotonic() - t_w
-            print(f"[ppo] full-state save epoch {epoch_i}: host copy {t_g:.2f}s "
-                  f"write {t_w:.2f}s", flush=True)
-        except OSError as e:  # keep training alive if the save breaks
-            print(f"[ppo] full-state checkpoint failed: {e}", flush=True)
+        if shard.is_main:
+            try:
+                t_w = time.monotonic()
+                ckpt.save_full(directory, epoch_i, arrays, keep=keep_full_states)
+                t_w = time.monotonic() - t_w
+                log(f"[ppo] full-state save epoch {epoch_i}: host copy {t_g:.2f}s "
+                    f"write {t_w:.2f}s")
+            except OSError as e:  # keep training alive if the save breaks
+                log(f"[ppo] full-state checkpoint failed: {e}")
+        shard.barrier()
 
     metrics: Dict[str, float] = {}
 
@@ -548,12 +693,14 @@ def train(
             # merge, don't replace: the caller just wrote training/* metrics
             # (sps, losses) into `metrics` and progress_fn must see both
             metrics.update({k: float(v) for k, v in eval_metrics.items()})
-            print(f"[ppo] eval rollout done in {time.monotonic() - t0:.1f}s", flush=True)
-        if progress_fn is not None:
-            progress_fn(step_count, metrics)
-        if policy_params_fn is not None:
-            policy_params_fn(step_count, make_policy,
-                             (training_state.normalizer, training_state.params))
+            log(f"[ppo] eval rollout done in {time.monotonic() - t0:.1f}s")
+        if shard.is_main:
+            if progress_fn is not None:
+                progress_fn(step_count, metrics)
+            if policy_params_fn is not None:
+                policy_params_fn(step_count, make_policy,
+                                 (training_state.normalizer, training_state.params))
+        shard.barrier()
 
     if profile_breakdown:
         # Time the real rollout, SGD step, training step, eval and full-state
@@ -561,6 +708,7 @@ def train(
         # as it is: the rollouts and evals draw from throwaway generators and
         # the envs' own generators are restored afterwards; SGD runs on
         # copies of the params and the optimizer state; outputs are dropped.
+        # Every rank runs the same passes, so the collectives stay in step.
         def _timed(fn):
             fn()
             _sync(dev)
@@ -580,15 +728,30 @@ def train(
         draws0 = draw_training_step(throwaway(), hp, action_size, dev)
         bd: Dict[str, Any] = {"num_envs": num_envs, "unroll_length": unroll_length,
                               "env_steps_per_training_step": env_step_per_training_step}
+        if shard.world > 1:
+            bd.update(world=shard.world, rank=shard.rank, device=str(dev),
+                      num_envs_per_rank=train_env.num_envs)
         t_roll, (_, data0) = _timed(lambda: rollout(
-            train_env, env_state, training_state.normalizer, training_state.params, draws0[0]))
+            train_env, env_state, training_state.normalizer, training_state.params,
+            shard.take(draws0[0], dim=1)))
         bd["rollout_s"] = round(t_roll, 4)
         bd["rollout_env_sps"] = round(num_envs * unroll_length / t_roll, 1)
         ts0 = copied(training_state)
-        t_sgd, _ = _timed(lambda: sgd_step(ts0, data0, draws0[1], draws0[2], hp))
+        t_sgd, _ = _timed(lambda: sgd_step(ts0, data0, draws0[1], draws0[2], hp, shard))
         bd["sgd_s"] = round(t_sgd, 4)
+        if shard.world > 1:
+            # once more with every collective between two device
+            # synchronizations: their count and time within an SGD step
+            ts0 = copied(training_state)
+            n0, shard.collective_s, shard.timed = shard.collectives, 0.0, True
+            try:
+                sgd_step(ts0, data0, draws0[1], draws0[2], hp, shard)
+            finally:
+                shard.timed = False
+            bd["sgd_collectives"] = shard.collectives - n0
+            bd["sgd_collective_s"] = round(shard.collective_s, 4)
         ts0 = copied(training_state)
-        t_step, _ = _timed(lambda: training_step(ts0, train_env, env_state, draws0, hp))
+        t_step, _ = _timed(lambda: training_step(ts0, train_env, env_state, draws0, hp, shard))
         bd["training_step_s"] = round(t_step, 4)
         bd["e2e_env_sps"] = round(env_step_per_training_step / t_step, 1)
         del data0, ts0, draws0
@@ -605,23 +768,25 @@ def train(
             t0p = time.monotonic()
             _save_full_state(start_epoch, scratch)
             bd["full_state_save_s"] = round(time.monotonic() - t0p, 4)
-            shutil.rmtree(scratch, ignore_errors=True)
+            if shard.is_main:
+                shutil.rmtree(scratch, ignore_errors=True)
         bd["num_training_steps_per_epoch"] = num_training_steps_per_epoch
         global LAST_PROFILE_BREAKDOWN
         LAST_PROFILE_BREAKDOWN = bd
-        print(f"[ppo] profile_breakdown {json.dumps(bd)}", flush=True)
+        log(f"[ppo] profile_breakdown {json.dumps(bd)}")
 
     if start_epoch == 0:
         _eval_and_report(0)
 
     walltimes = []
-    print(f"[ppo] entering training loop: {num_evals_after_init} epochs x "
-          f"{num_training_steps_per_epoch} training steps", flush=True)
+    log(f"[ppo] entering training loop: {num_evals_after_init} epochs x "
+        f"{num_training_steps_per_epoch} training steps")
     for epoch_i in range(start_epoch, num_evals_after_init):
         t0 = time.monotonic()
         training_state, env_state, train_metrics = training_epoch(training_state, env_state)
         _sync(dev)
         walltimes.append(time.monotonic() - t0)
+        shard.assert_replicated(replicated())
         sps = num_training_steps_per_epoch * env_step_per_training_step / walltimes[-1]
         metrics = {f"training/{k}": float(v) for k, v in train_metrics.items()}
         metrics["training/sps"] = sps
@@ -639,8 +804,8 @@ def train(
         if stopping:
             # crash-simulation hook for resume tests: exit mid-recipe with
             # the full state of `epoch_i` on disk, like a kill would
-            print(f"[ppo] stop_after_epochs={stop_after_epochs}: stopping "
-                  f"after epoch {epoch_i}", flush=True)
+            log(f"[ppo] stop_after_epochs={stop_after_epochs}: stopping "
+                f"after epoch {epoch_i}")
             break
 
     full_params = (training_state.normalizer, training_state.params)

@@ -12,6 +12,16 @@ Usage (on the card; ``--device cpu`` runs the kernel's plain version):
         --env joystick --task flat_terrain_backlash --num_timesteps 150000000 \
         --output_dir checkpoints [--restore_checkpoint_path P] \
         [--num_envs 8192] [--no_domain_randomization]
+
+Env-sharded over N processes (``parallel/dist.py``): the same command under
+``torch.distributed.run``; each rank steps ``num_envs / N`` envs on its own
+card (NCCL), or ranks share cards with ``--dist_backend gloo``:
+    python -m torch.distributed.run --nproc_per_node N \
+        -m open_duck_playground_tpu_torch.train.runner --task flat_terrain_backlash ...
+or one process per host, as the JAX runner's flags name it:
+    ... runner --coordinator_address HOST:PORT --num_processes N --process_id R
+Only rank 0 writes the metrics, checkpoints, ONNX files and full states. A
+full state resumes at any world size that divides its envs.
 """
 
 from __future__ import annotations
@@ -26,17 +36,23 @@ import torch
 
 from open_duck_playground_tpu_torch.envs import joystick, randomize
 from open_duck_playground_tpu_torch.export.onnx_checker import OnnxCheckError
+from open_duck_playground_tpu_torch.parallel import dist as pdist
 from open_duck_playground_tpu_torch.train import checkpoint as ckpt
 from open_duck_playground_tpu_torch.train import ppo
 from open_duck_playground_tpu_torch.train.config import brax_ppo_config
 
 
 class BaseRunner:
-    """Train orchestration: metrics file, PPO recipe, progress/ckpt callbacks."""
+    """Train orchestration: metrics file, PPO recipe, progress/ckpt callbacks.
+    With a `shard` (``pdist.init_distributed``), the envs and the learner run
+    on the shard's device and only rank 0 prints."""
 
-    def __init__(self, args: argparse.Namespace) -> None:
+    def __init__(self, args: argparse.Namespace,
+                 shard: Optional[pdist.EnvShard] = None) -> None:
         self.args = args
-        self.device = torch.device(args.device)
+        self.shard = shard
+        self.device = torch.device(args.device) if shard is None else shard.device
+        self.log = print if shard is None or shard.is_main else (lambda *a, **k: None)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: the runner trains on the card unless given "
                                "--device cpu")
@@ -95,7 +111,7 @@ class BaseRunner:
         network_cfg = dict(training_params.pop("network_factory"))
         for k in ("policy_hidden_layer_sizes", "value_hidden_layer_sizes"):
             network_cfg[k] = tuple(network_cfg[k])
-        print(f"PPO params: {training_params}")
+        self.log(f"PPO params: {training_params}")
         return dict(
             **training_params,
             network_factory=network_cfg,
@@ -110,6 +126,7 @@ class BaseRunner:
             keep_full_states=self.args.keep_full_states,
             save_full_state_every=self.args.save_full_state_every,
             device=self.device,
+            shard=self.shard,
         )
 
     def train(self, **extra):
@@ -121,8 +138,8 @@ class BaseRunner:
 
 
 class OpenDuckMiniV2Runner(BaseRunner):
-    def __init__(self, args):
-        super().__init__(args)
+    def __init__(self, args, shard: Optional[pdist.EnvShard] = None):
+        super().__init__(args, shard)
         if args.env == "standing":
             raise NotImplementedError(
                 "the standing env is not ported yet (ROADMAP.md, queue 1 item 9)")
@@ -152,7 +169,7 @@ class OpenDuckMiniV2Runner(BaseRunner):
         self.action_size = self.env.action_size
         self.obs_size = int(self.env.observation_size["state"][0])
         self.restore_checkpoint_path = args.restore_checkpoint_path
-        print(f"Observation size: {self.obs_size}")
+        self.log(f"Observation size: {self.obs_size}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -186,12 +203,35 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_full_state_checkpoints", action="store_true")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (the fused kernel) or 'cpu' (its plain version)")
+    # env-sharded runs: torch.distributed.run's environment, or these flags
+    # (one process per host, as the JAX runner's); see parallel/dist.py
+    parser.add_argument("--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
+                        help="default: nccl when every rank has a card of its own; gloo "
+                             "lets ranks share cards")
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="HOST:PORT of rank 0 (tcp:// rendezvous)")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     return parser
+
+
+def init_distributed(args: argparse.Namespace) -> pdist.EnvShard:
+    """The process group of this run, from torch.distributed.run's
+    environment or the --coordinator_address/--num_processes/--process_id
+    flags (world size 1 without either)."""
+    addr = args.coordinator_address
+    return pdist.init_distributed(args.dist_backend, device=args.device,
+                                  init_method=None if addr is None else f"tcp://{addr}",
+                                  rank=args.process_id, world_size=args.num_processes)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    OpenDuckMiniV2Runner(args).train()
+    shard = init_distributed(args)
+    try:
+        OpenDuckMiniV2Runner(args, shard).train()
+    finally:
+        pdist.destroy()
 
 
 if __name__ == "__main__":

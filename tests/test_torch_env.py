@@ -17,7 +17,7 @@ both packages take the same numpy actions.
   reward are held to quantile bounds;
 - the port's own draws (DR recipe, reset jitter) fall in the JAX ranges;
 - importing the port (its env path, flat and rough, run; the trainer,
-  checkpoint, runner and export modules imported) never imports jax, flax,
+  checkpoint, runner, parallel and export modules imported) never imports jax, flax,
   optax, orbax, ml_collections, tensorboard or the JAX package;
 - the env runs on the card unless given device="cpu"."""
 
@@ -252,6 +252,8 @@ def test_port_never_imports_jax(root):
         "from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv\n"
         "from open_duck_playground_tpu_torch.export.export import export_onnx\n"
         "from open_duck_playground_tpu_torch.train import checkpoint, ppo, runner\n"
+        "import open_duck_playground_tpu_torch.parallel\n"
+        "from open_duck_playground_tpu_torch.parallel import dist\n"
         "for task in ('flat_terrain', 'rough_terrain_backlash'):\n"
         "    te = TrainEnv(Joystick(task, device='cpu'), num_envs=2, episode_length=10,\n"
         "                  randomization_fn=randomize.domain_randomize)\n"

@@ -81,11 +81,14 @@ class TorchToyEnv:
     each step adds U(-noise, noise) from the env's own generator (so resume
     must restore that stream too); with noise 0 a step is the JAX ToyEnv's,
     which computes its obs from info["t"] + 1 and keeps the old info.
-    Runs on the CPU unless given another device."""
+    Runs on the CPU unless given another device. With a `shard` (set by
+    ppo.train, as on the duck), its draws are made at the global shape and
+    cut to the shard's rows."""
 
     action_size = 3
     observation_size = {"state": (6,), "privileged_state": (8,)}
     model = None
+    shard = None
 
     def __init__(self, device="cpu", seed=0, noise=0.0):
         import torch
@@ -98,9 +101,10 @@ class TorchToyEnv:
         import torch
 
         from open_duck_playground_tpu_torch.envs.types import State
+        from open_duck_playground_tpu_torch.parallel.dist import draw
 
         g = generator if generator is not None else self.generator
-        pos = torch.rand((num_envs, 3), generator=g, device=self.device) - 0.5
+        pos = draw(self.shard, torch.rand, (num_envs, 3), generator=g, device=self.device) - 0.5
         info = {"t": torch.zeros(num_envs, device=self.device)}
         zeros = torch.zeros(num_envs, device=self.device)
         return State(data=pos, obs=self._obs(pos, info), reward=zeros, done=zeros,
@@ -109,9 +113,12 @@ class TorchToyEnv:
     def step_with_model(self, model, state, action):
         import torch
 
+        from open_duck_playground_tpu_torch.parallel.dist import draw
+
         pos = state.data * 0.95 + 0.1 * torch.tanh(action)
         if self.noise:
-            u = torch.rand(pos.shape, generator=self.generator, device=self.device)
+            u = draw(self.shard, torch.rand, pos.shape, generator=self.generator,
+                     device=self.device)
             pos = pos + self.noise * (2.0 * u - 1.0)
         info = dict(state.info)
         info["t"] = info["t"] + 1.0
