@@ -110,6 +110,10 @@ TRAINER_TASK = "flat_terrain_backlash"
 TRAINER_ARGS = ("--env", "joystick", "--task", TRAINER_TASK, "--num_envs", "8192",
                 "--num_eval_envs", "1024", "--num_evals", "3", "--num_timesteps", "655360",
                 "--device", "cuda")
+# phase 6: the standing task at phase 4's cut
+STANDING_ARGS = ("--env", "standing", *TRAINER_ARGS[2:])
+OBS_SIZES = {"joystick": {"state": 101, "privileged_state": 212},
+             "standing": {"state": 85, "privileged_state": 153}}
 # phase 5: what a world-size-W training step may differ by from world size
 # 1. The physics is per-env bit-exact, and on an NVIDIA H100 80GB HBM3 (700
 # W) cuBLAS gives the policy the same products on 4096 rows as on 8192: the
@@ -384,22 +388,26 @@ def phase_main_path(task: str, B: int) -> dict:
     return dict(ok=ok, launches=launches, rate=rate, **timed["step"])
 
 
-def phase_trainer(report: dict) -> dict:
+def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> dict:
     """ppo.train through the runner on the card at the recipe's widths, with
     every kernel launch counted from 0 just before the call; then the kernel
-    against its twin at this path's shapes and on its states."""
+    against its twin at this path's shapes and on its states. `args`: the
+    runner's command line (phase 4's joystick, or phase 6's standing);
+    `label` tags the output, the build directory and the parity readings.
+    Phase 6 (standing) holds the kernel on its DR-on states only."""
     from open_duck_playground_tpu_torch import interop
     from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
     from open_duck_playground_tpu_torch.export.onnx_infer import NumpyOnnxSession
+    from open_duck_playground_tpu_torch.export.onnx_model import load_model
     from open_duck_playground_tpu_torch.train import checkpoint as ckpt
     from open_duck_playground_tpu_torch.train import networks as nets
     from open_duck_playground_tpu_torch.train import optim, ppo
     from open_duck_playground_tpu_torch.train import runner as rn
 
-    out_dir = os.path.join(ROOT, "build", "trainer_run")
+    out_dir = os.path.join(ROOT, "build", f"{label}_run")
     shutil.rmtree(out_dir, ignore_errors=True)
-    runner = rn.OpenDuckMiniV2Runner(rn.build_parser().parse_args(
-        ["--output_dir", out_dir, *TRAINER_ARGS]))
+    cli = rn.build_parser().parse_args(["--output_dir", out_dir, *args])
+    runner = rn.OpenDuckMiniV2Runner(cli)
     kw = runner.train_kwargs()
     dev = runner.device
     nf = kw["network_factory"]
@@ -408,6 +416,10 @@ def phase_trainer(report: dict) -> dict:
     recipe_ok = ((B, kw["batch_size"], nmb, T, E, kw["episode_length"]) == (8192, 256, 32, 20, 4, 1000)
                  and nf["policy_hidden_layer_sizes"] == nf["value_hidden_layer_sizes"] == (512, 256, 128)
                  and kw["randomization_fn"] is not None)
+    obs_sizes = {k: v[0] for k, v in runner.env.observation_size.items()}
+    sizes_ok = obs_sizes == OBS_SIZES[cli.env] and runner.obs_size == OBS_SIZES[cli.env]["state"]
+    log(f"[{label}] env {cli.env} task {cli.task}: {type(runner.env).__name__}, obs sizes "
+        f"{obs_sizes} (want {OBS_SIZES[cli.env]}); recipe widths {recipe_ok}")
     env_steps_per_step = B * T
     epochs = kw["num_evals"] - 1
     steps_per_epoch = math.ceil(kw["num_timesteps"] / (epochs * env_steps_per_step))
@@ -430,9 +442,9 @@ def phase_trainer(report: dict) -> dict:
     launches = {"train_env": runner.env.physics.launches,
                 "eval_env": runner.eval_env.physics.launches}
     bd = ppo.LAST_PROFILE_BREAKDOWN
-    log(f"[trainer] ppo.train {t_train:.1f} s; launches {launches} (want train_env "
+    log(f"[{label}] ppo.train {t_train:.1f} s; launches {launches} (want train_env "
         f"{want_train}, eval_env {want_eval})")
-    log(f"[trainer] profile_breakdown {json.dumps(bd)}")
+    log(f"[{label}] profile_breakdown {json.dumps(bd)}")
 
     with open(runner.metrics_path) as f:
         lines = [json.loads(line) for line in f]
@@ -442,14 +454,14 @@ def phase_trainer(report: dict) -> dict:
         finite &= all(math.isfinite(v) for v in vals.values())
         if line["step"] > 0:
             finite &= "training/sps" in vals and "eval/episode_reward" in vals
-            log(f"[trainer] epoch at step {line['step']}: training/sps "
+            log(f"[{label}] epoch at step {line['step']}: training/sps "
                 f"{line['training/sps']:.1f}, eval/episode_reward {line['eval/episode_reward']:.4f}, "
                 f"eval/avg_episode_length {line['eval/avg_episode_length']:.1f}")
     count = float(normalizer.count)
     env_steps = lines[-1]["step"]
     want_steps = epochs * steps_per_epoch * env_steps_per_step
     counts_ok = count == want_steps and env_steps == want_steps == kw["num_timesteps"]
-    log(f"[trainer] normalizer count {count:.0f}, env_steps {env_steps} (want {want_steps}); "
+    log(f"[{label}] normalizer count {count:.0f}, env_steps {env_steps} (want {want_steps}); "
         f"metrics finite at every epoch {finite}")
 
     # the last (normalizer, params) checkpoint acts bit-identically
@@ -466,12 +478,16 @@ def phase_trainer(report: dict) -> dict:
     # the last ONNX export against the policy on the card
     onnx = sorted((f for f in os.listdir(out_dir) if f.endswith(".onnx")),
                   key=lambda f: int(f[:-5].rsplit("_", 1)[1]))
-    sess = NumpyOnnxSession(os.path.join(out_dir, onnx[-1]))
+    onnx_path = os.path.join(out_dir, onnx[-1])
+    parsed = load_model(onnx_path)
+    onnx_inputs = int(parsed.initializers["obs_mean"].shape[-1])
+    sizes_ok &= onnx_inputs == OBS_SIZES[cli.env]["state"]
+    sess = NumpyOnnxSession(onnx_path, model=parsed)
     x = obs["state"][:16].cpu().numpy()
     a_onnx = np.concatenate([sess.run(None, {"obs": x[i:i + 1]})[0] for i in range(16)])
     onnx_err = float(np.abs(a_onnx - a_live[:16].cpu().numpy()).max())
-    log(f"[trainer] checkpoint {saved[-1]} acts bit-identically {ckpt_ok}; ONNX {onnx[-1]} "
-        f"vs the policy on the card: max |d| {onnx_err:.3g} (limit 1e-5)")
+    log(f"[{label}] checkpoint {saved[-1]} acts bit-identically {ckpt_ok}; ONNX {onnx[-1]} "
+        f"({onnx_inputs} inputs) vs the policy on the card: max |d| {onnx_err:.3g} (limit 1e-5)")
 
     # the last full-state checkpoint loads back tensor for tensor
     epoch, path = ckpt.latest_full(out_dir)
@@ -493,28 +509,32 @@ def phase_trainer(report: dict) -> dict:
     same = (back.keys() == arrays.keys()
             and all(back[k].dtype == arrays[k].dtype and np.array_equal(back[k], arrays[k])
                     for k in arrays))
-    log(f"[trainer] full state {os.path.basename(path)} (epoch {epoch}): {len(arrays)} arrays, "
+    log(f"[{label}] full state {os.path.basename(path)} (epoch {epoch}): {len(arrays)} arrays, "
         f"{sum(a.nbytes for a in arrays.values())} bytes; equals the final params and "
         f"normalizer {live_ok}; loads back tensor for tensor {same}")
 
     with torch.no_grad():
         parity_ok = trainer_vs_twin(runner, kw, es, make_policy((normalizer, params),
-                                                                deterministic=True), report)
-    log(f"[trainer] gpu {gpu_line()}")
-    ok = (recipe_ok and finite and counts_ok and ckpt_ok and onnx_err <= 1e-5 and live_ok
-          and same and epoch == epochs - 1 and parity_ok
+                                                                deterministic=True), report,
+                                    label, dr_off=cli.env == "joystick")
+    log(f"[{label}] gpu {gpu_line()}")
+    ok = (recipe_ok and sizes_ok and finite and counts_ok and ckpt_ok and onnx_err <= 1e-5
+          and live_ok and same and epoch == epochs - 1 and parity_ok
           and launches == {"train_env": want_train, "eval_env": want_eval})
-    return dict(ok=ok, launches=launches, breakdown=bd)
+    log(f"[{label}] {'OK' if ok else 'FAIL'}")
+    return dict(ok=ok, launches=launches, breakdown=bd, onnx=onnx_path,
+                sps=[line["training/sps"] for line in lines if "training/sps" in line])
 
 
-def trainer_vs_twin(runner, kw, trained, policy, report) -> bool:
+def trainer_vs_twin(runner, kw, trained, policy, report, label: str = "trainer",
+                    dr_off: bool = True) -> bool:
     """The kernel against its twin on the trainer path's inputs: the train
     env (flat_terrain_backlash, 8192 envs, DR on with train()'s own draw,
     rebuilt from the seed) from a reset (init variant) and from the trained
-    state of the last full-state checkpoint (step variant); the eval env
-    (1024 envs, DR off) from a reset and after 20 steps of the trained
-    deterministic policy. Limits: duck_standin.TRAINER_PARITY_LIMITS.
-    Readings go into report under "trainer ..." tags; returns whether all
+    state of the last full-state checkpoint (step variant); with `dr_off`,
+    the eval env (1024 envs, DR off) from a reset and after 20 steps of the
+    trained deterministic policy. Limits: duck_standin.TRAINER_PARITY_LIMITS.
+    Readings go into report under "<label> ..." tags; returns whether all
     are within their limits."""
     from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
     from open_duck_playground_tpu_torch.ops.cuda_step import flatten_dr_fields
@@ -527,14 +547,15 @@ def trainer_vs_twin(runner, kw, trained, policy, report) -> bool:
                          randomization_generator=ppo.seeded_generators(kw["seed"], dev)["randomization"])
     eval_env = TrainEnv(runner.eval_env, num_envs=kw["num_eval_envs"],
                         episode_length=kw["episode_length"])
-    eval_state = eval_env.reset(g)
-    eval_reset = eval_state.data
-    for _ in range(20):
-        eval_state = eval_env.step(eval_state, policy(eval_state.obs)[0])
+    cases = [("train_env", train_env, True, train_env.reset(g).data, trained.data)]
+    if dr_off:
+        eval_state = eval_env.reset(g)
+        eval_reset = eval_state.data
+        for _ in range(20):
+            eval_state = eval_env.step(eval_state, policy(eval_state.obs)[0])
+        cases.append(("eval_env", eval_env, False, eval_reset, eval_state.data))
     ok = True
-    for name, te, with_dr, reset, stepped in (
-            ("train_env", train_env, True, train_env.reset(g).data, trained.data),
-            ("eval_env", eval_env, False, eval_reset, eval_state.data)):
+    for name, te, with_dr, reset, stepped in cases:
         fp = te.env.physics
         dr = flatten_dr_fields(te.model) if with_dr else None
         accel = int(fp.model.sensor_adr[fp.model.sensor("accelerometer")])
@@ -542,7 +563,7 @@ def trainer_vs_twin(runner, kw, trained, policy, report) -> bool:
             warm = data.qacc_warmstart if variant == "step" else torch.zeros_like(data.qvel)
             args = (data.qpos.contiguous(), data.qvel.contiguous(), warm.contiguous(),
                     data.ctrl.contiguous(), n, dr)
-            tag = f"trainer {name} {TRAINER_TASK} B={te.num_envs} dr={int(with_dr)} {variant}"
+            tag = f"{label} {name} {TRAINER_TASK} B={te.num_envs} dr={int(with_dr)} {variant}"
             ok &= parity_table(tag, fp(*args), fp.plain(*args), accel, variant, with_dr,
                                False, report, standin().TRAINER_PARITY_LIMITS[(variant, with_dr)])
     return ok
@@ -852,6 +873,168 @@ def sharded_rank(runner, shard, out: str) -> dict:
     return rep
 
 
+def phase_deploy(joystick_onnx: str, standing_onnx: str, report: dict) -> dict:
+    """Phase 7: sim-to-sim on the port's engine, on the card. The gate
+    (deploy.sim2sim_check, engine "own": SimInfer on the fused kernel at one
+    env, DR off) rolls phase 4's joystick ONNX (10 s at vx 0.12) and phase
+    6's standing ONNX (10 s plain, then the 8-direction push battery); where
+    `mujoco` imports, the same rollouts run on MuJoCo C beside them.
+
+    Checks: (a) every own-engine rollout launched the kernel 1 + ticks
+    times (its init, then one per tick; each engine's count starts at 0 when
+    it is made), each at one row, on the card, with DR off; (b) the kernel
+    against its twin at B=1, DR off, step and init variants, from three
+    states of the standing rollout (home, mid-run, last), one tick from the
+    same state, within duck_standin.DEPLOY_PARITY_LIMITS; (c) the obs have
+    101 / 85 entries and are finite, the motor targets finite.
+
+    The gate's bars (no fall, track_frac >= 0.7; standing up_z >= 0.9,
+    drift <= 0.15 m, >= 75% of the pushes survived) are for a trained
+    policy: a 2-epoch policy is expected to fail them. Their PASS/FAIL is
+    printed as a reading and does not decide this phase. Prints ms per tick,
+    split into the kernel (CUDA events around each launch) and the host
+    (obs, the host copy, ONNX inference, the clamp)."""
+    import importlib.util
+
+    from open_duck_playground_tpu_torch.deploy import sim2sim_check as gate
+    from open_duck_playground_tpu_torch.ops.cuda_step import FusedPhysics
+
+    sd = standin()
+    have_mujoco = importlib.util.find_spec("mujoco") is not None
+    if not have_mujoco:
+        log("[deploy] MuJoCo C not run: the mujoco package is not installed on this host")
+
+    # every launch of every FusedPhysics while the gate runs: its rows,
+    # device, DR and CUDA events (the launch and its count are the object's)
+    launches = {}
+    launch = FusedPhysics._launch
+
+    def counted(fp, qpos, *args):
+        rec = launches.setdefault(id(fp), {"rows": {}, "events": []})
+        key = f"{qpos.shape[0]} rows on {qpos.device}" + (" with DR" if args[-1] is not None else "")
+        rec["rows"][key] = rec["rows"].get(key, 0) + 1
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = launch(fp, qpos, *args)
+        b.record()
+        rec["events"].append((a, b))
+        return out
+
+    rollouts = []  # {task, engine, ticks: [(t, qpos, qvel, warm, targets)]}
+    make = gate.make_engine
+
+    def spied(kind, *a, **k):
+        inf = make(kind, *a, **k)
+        if kind == "own":
+            ro = {"task": "standing" if inf.standing else "joystick", "engine": inf, "ticks": []}
+            step = inf.step_control
+
+            def recorded(targets, inf=inf, ro=ro, step=step):
+                d = inf.data
+                ro["ticks"].append((time.perf_counter(), d.qpos.clone(), d.qvel.clone(),
+                                    d.qacc_warmstart.clone(), np.array(targets, np.float64)))
+                return step(targets)
+
+            inf.step_control = recorded
+            rollouts.append(ro)
+        return inf
+
+    readings = {}
+    FusedPhysics._launch = counted
+    gate.make_engine = spied
+    try:
+        for task, onnx, extra in (("joystick", joystick_onnx, ["--vx", "0.12"]),
+                                  ("standing", standing_onnx, ["--standing"])):
+            argv = ["-o", onnx, "--task", TRAINER_TASK, "--seconds", "10", "--device", "cuda",
+                    *extra, *([] if have_mujoco else ["--own_only"])]
+            t0 = time.perf_counter()
+            rc = gate.main(argv)
+            readings[task] = "PASS" if rc == 0 else "FAIL"
+            log(f"[deploy] {task}: gate {readings[task]} (a reading: the bars are for a trained "
+                f"policy) in {time.perf_counter() - t0:.1f} s")
+    finally:
+        FusedPhysics._launch = launch
+        gate.make_engine = make
+    torch.cuda.synchronize()
+
+    # (a) launches and (c) sizes, per rollout; ms per tick
+    ok = True
+    total = 0
+    per_task = {}
+    obs_len = {"joystick": OBS_SIZES["joystick"]["state"], "standing": OBS_SIZES["standing"]["state"]}
+    for ro in rollouts:
+        inf, ticks = ro["engine"], ro["ticks"]
+        rec = launches.get(id(inf.physics), {"rows": {}, "events": []})
+        n = len(ticks)
+        want = {"1 rows on cuda:0": 1 + n}
+        a_ok = inf.physics.launches == 1 + n and rec["rows"] == want and len(inf.saved_obs) == n
+        c_ok = (all(o.shape == (obs_len[ro["task"]],) and np.isfinite(o).all() for o in inf.saved_obs)
+                and all(np.isfinite(t[4]).all() for t in ticks))
+        ok &= a_ok and c_ok
+        total += inf.physics.launches
+        kern = [a.elapsed_time(b) for a, b in rec["events"][1:]]  # the ticks' launches
+        wall = np.diff([t[0] for t in ticks]) * 1e3
+        s = per_task.setdefault(ro["task"], {"rollouts": 0, "launches": 0, "ticks": 0,
+                                             "kernel_ms": [], "tick_ms": []})
+        s["rollouts"] += 1
+        s["launches"] += inf.physics.launches
+        s["ticks"] += n
+        s["kernel_ms"] += kern
+        s["tick_ms"] += list(wall)
+        log(f"[deploy] {ro['task']} rollout: {n} ticks, launches {inf.physics.launches} (want "
+            f"{1 + n}) as {rec['rows']}; obs {len(inf.saved_obs[0]) if n else None} finite, "
+            f"targets finite {c_ok}; {'OK' if a_ok and c_ok else 'FAIL'}")
+    for task, s in per_task.items():
+        k, w = float(np.mean(s["kernel_ms"])), float(np.mean(s["tick_ms"]))
+        s.update(kernel_ms=k, tick_ms=w, host_ms=w - k)
+        log(f"[deploy] {task}: {s['rollouts']} rollouts, {s['ticks']} ticks, {s['launches']} "
+            f"launches; ms per tick {w:.3f}: kernel {k:.3f} (CUDA events), host {w - k:.3f} (obs, "
+            f"host copy, ONNX, clamp, the gate's reads)")
+    ok &= set(per_task) == {"joystick", "standing"} and per_task["standing"]["rollouts"] == 9
+
+    # (b) kernel vs twin at B=1, DR off, from the standing plain rollout's
+    # home, mid-run and last states; the kernel's and the twin's time from
+    # the home state, and the bound
+    ro = next(r for r in rollouts if r["task"] == "standing")
+    fp = FusedPhysics(ro["engine"].physics.model)
+    accel = int(fp.model.sensor_adr[fp.model.sensor("accelerometer")])
+    ticks = ro["ticks"]
+    per_env_substep = flops_per_env_substep(fp, None)
+    timed = {}
+    for where, i in (("home", 0), ("mid", len(ticks) // 2), ("last", len(ticks) - 1)):
+        _, qpos, qvel, warm, targets = ticks[i]
+        ctrl = torch.tensor(targets, dtype=torch.float32, device=qpos.device)[None]
+        for variant, n, w in (("step", 10, warm), ("init", 1, torch.zeros_like(warm))):
+            args = (qpos, qvel, w, ctrl, n, None)
+            out_k = fp(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_p = fp.plain(*args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            tag = f"deploy {TRAINER_TASK} B=1 dr=0 {where} (tick {i}) {variant}"
+            ok &= parity_table(tag, out_k, out_p, accel, variant, False, False, report,
+                               sd.DEPLOY_PARITY_LIMITS[variant])
+            if where == "home":
+                ms = cuda_ms(lambda: fp(*args), reps=50)
+                bound = step_bound(fp, 1, n, None, per_env_substep)
+                timed[variant] = dict(ms=ms, plain_ms=plain_ms, **bound)
+                log(f"[deploy] {variant} variant ({n} substeps) at 1 env (DR off): kernel "
+                    f"{ms:.4f} ms, twin {plain_ms:.1f} ms; bound {bound['bound_ms']:.6f} ms by "
+                    f"{bound['bound_by']} ({per_env_substep:.0f} flops per env and substep, "
+                    f"{bound['bytes']} bytes)")
+    tags = [t for t in report if t.startswith("deploy ")]
+    worst = max(((t, f) for t in tags for f in report[t]), key=lambda tf: report[tf[0]][tf[1]]["max"])
+    log(f"[deploy] gpu {gpu_line()}")
+    log(f"[deploy] {'OK' if ok else 'FAIL'}")
+    return dict(ok=ok, launches=total, per_task={k: {kk: v[kk] for kk in (
+                    "rollouts", "launches", "ticks", "kernel_ms", "host_ms", "tick_ms")}
+                    for k, v in per_task.items()},
+                gate=readings, timed=timed, max_abs_err=report[worst[0]][worst[1]]["max"],
+                max_abs_err_of=f"{', '.join(t[len('deploy '):] for t in tags)}: all outputs; "
+                               f"largest in {worst[0]} {worst[1]}")
+
+
 def kernel_entry(name: str, replaces: str, main: dict, report: dict, case: str) -> dict:
     """One entry of the kernels line: launches, times and bound from the
     main path's run; max_abs_err from phase 2's step variant at the main
@@ -916,16 +1099,28 @@ def main() -> int:
     log(f"[env] host cpu {cpu_line()}")
     log(f"[env] assets {asset_root()}")
 
-    phase_build()
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        log(f"[chip_smoke] phase {name}: {seconds[name]} s")
+        return out
+
+    timed("1 build", phase_build)
     report = {}  # {case: {field: parity reading}}
-    ok = phase_kernel_vs_twin(CASES, report)
-    flat = phase_main_path(*FLAT_MAIN)
-    rough = phase_main_path(*ROUGH_MAIN)
-    trainer = phase_trainer(report)
+    ok = timed("2 kernel vs twin", phase_kernel_vs_twin, CASES, report)
+    flat = timed("3 flat main path", phase_main_path, *FLAT_MAIN)
+    rough = timed("3b rough main path", phase_main_path, *ROUGH_MAIN)
+    trainer = timed("4 trainer", phase_trainer, report)
     torch.cuda.empty_cache()  # phase 5's ranks share the card with this process
-    sharded = phase_sharded()
+    sharded = timed("5 sharded trainer", phase_sharded)
+    standing = timed("6 standing trainer", phase_trainer, report, STANDING_ARGS, "standing")
+    deploy = timed("7 deploy", phase_deploy, trainer["onnx"], standing["onnx"], report)
+    log(f"[chip_smoke] seconds per phase {json.dumps(seconds)}")
     if not (ok and flat["ok"] and rough["ok"] and trainer["ok"]
-            and all(run["ok"] for run in sharded)):
+            and all(run["ok"] for run in sharded) and standing["ok"] and deploy["ok"]):
         log("[chip_smoke] FAILED")
         return 1
     step_kernel = kernel_entry("fused_physics_step", "open_duck_playground_tpu/ops/pallas_step.py:225",
@@ -938,6 +1133,16 @@ def main() -> int:
     step_kernel["max_abs_err_trainer"] = report[worst[0]][worst[1]]["max"]
     step_kernel["max_abs_err_trainer_of"] = (f"{', '.join(t[len('trainer '):] for t in tags)}: "
                                              f"all outputs; largest in {worst[0]} {worst[1]}")
+    # on the standing trainer's path (phase 6) and the deploy loop (phase 7):
+    # launches, and the deploy loop's one-env times, bound and parity
+    step_kernel["launches_standing"] = standing["launches"]
+    step_kernel["launches_deploy"] = deploy["launches"]
+    step_kernel["launches_deploy_per_task"] = {k: v["launches"] for k, v in deploy["per_task"].items()}
+    step_kernel["max_abs_err_deploy_b1"] = deploy["max_abs_err"]
+    step_kernel["max_abs_err_deploy_b1_of"] = deploy["max_abs_err_of"]
+    for variant, t in deploy["timed"].items():
+        for k in ("ms", "plain_ms", "bound_ms", "bound_by"):
+            step_kernel[f"{k}_deploy_b1_{variant}"] = t[k]
     log(json.dumps({"kernels": [
         step_kernel,
         kernel_entry("fused_physics_step_hfield",

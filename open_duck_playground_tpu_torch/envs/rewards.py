@@ -1,4 +1,5 @@
-"""Reward/cost terms of the Joystick task, batched over envs (dim 0).
+"""Reward/cost terms of the Joystick and Standing tasks, batched over envs
+(dim 0).
 
 Each term is NaN-guarded with nan_to_num like the reference (the NaN
 termination guard relies on rewards staying finite).
@@ -21,6 +22,10 @@ def reward_tracking_lin_vel(commands, local_vel, tracking_sigma):
 def reward_tracking_ang_vel(commands, ang_vel, tracking_sigma):
     err = torch.square(commands[:, 2] - ang_vel[:, 2])
     return torch.nan_to_num(torch.exp(-err / tracking_sigma))
+
+
+def cost_orientation(torso_zaxis):
+    return torch.nan_to_num(torch.sum(torch.square(torso_zaxis[:, :2]), dim=-1))
 
 
 def cost_torques(torques):
@@ -49,3 +54,11 @@ def cost_stand_still(commands, qpos, qvel, default_pose, ignore_head: bool = Fal
 
 def reward_alive(batch: int, device) -> torch.Tensor:
     return torch.ones(batch, device=device)
+
+
+def cost_head_pos(joints_qpos, joints_qvel, cmd):
+    """Head-joint position tracking of the command, gated on a locomotion
+    command (|cmd[:3]| > 0.01), as the reference gates it."""
+    move_cmd_norm = torch.linalg.norm(cmd[:, :3], dim=-1)
+    head_pos_error = torch.sum(torch.square(joints_qpos[:, 5:9] - cmd[:, 3:]), dim=-1)
+    return torch.nan_to_num(head_pos_error) * (move_cmd_norm > 0.01)

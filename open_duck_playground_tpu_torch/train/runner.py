@@ -9,7 +9,7 @@ overrides, gait-clock flags and ONNX metadata. Scalars go to
 
 Usage (on the card; ``--device cpu`` runs the kernel's plain version):
     python -m open_duck_playground_tpu_torch.train.runner \
-        --env joystick --task flat_terrain_backlash --num_timesteps 150000000 \
+        --env joystick|standing --task flat_terrain_backlash --num_timesteps 150000000 \
         --output_dir checkpoints [--restore_checkpoint_path P] \
         [--num_envs 8192] [--no_domain_randomization]
 
@@ -34,7 +34,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from open_duck_playground_tpu_torch.envs import joystick, randomize
+from open_duck_playground_tpu_torch.envs import joystick, randomize, standing
 from open_duck_playground_tpu_torch.export.onnx_checker import OnnxCheckError
 from open_duck_playground_tpu_torch.parallel import dist as pdist
 from open_duck_playground_tpu_torch.train import checkpoint as ckpt
@@ -140,29 +140,31 @@ class BaseRunner:
 class OpenDuckMiniV2Runner(BaseRunner):
     def __init__(self, args, shard: Optional[pdist.EnvShard] = None):
         super().__init__(args, shard)
-        if args.env == "standing":
-            raise NotImplementedError(
-                "the standing env is not ported yet (ROADMAP.md, queue 1 item 9)")
-        if args.env != "joystick":
+        available_envs = {
+            "joystick": joystick.Joystick,
+            "standing": standing.Standing,
+        }
+        if args.env not in available_envs:
             raise ValueError(f"Unknown env {args.env}")
-        # gait-clock conditioning overrides (see envs/joystick.py
-        # default_config for the law)
+        cls = available_envs[args.env]
+        # gait-clock conditioning overrides (joystick only; see
+        # envs/joystick.py default_config for the law)
         overrides = {}
-        if args.phase_freq_range is not None:
-            overrides["phase_frequency_range"] = list(args.phase_freq_range)
-        if args.phase_freq_vx_ref > 0.0:
-            overrides["phase_frequency_vx_ref"] = args.phase_freq_vx_ref
-            overrides["phase_frequency_max"] = args.phase_freq_max
-            # carried in the exported ONNX so deploy applies the same law
-            # with no CLI knob
-            self.deploy_metadata = {
-                "phase_frequency_vx_ref": repr(args.phase_freq_vx_ref),
-                "phase_frequency_max": repr(args.phase_freq_max),
-            }
-        self.env = joystick.Joystick(task=args.task, config_overrides=overrides or None,
-                                     device=self.device)
-        self.eval_env = joystick.Joystick(task=args.task, config_overrides=overrides or None,
-                                          device=self.device)
+        if args.env == "joystick":
+            if args.phase_freq_range is not None:
+                overrides["phase_frequency_range"] = list(args.phase_freq_range)
+            if args.phase_freq_vx_ref > 0.0:
+                overrides["phase_frequency_vx_ref"] = args.phase_freq_vx_ref
+                overrides["phase_frequency_max"] = args.phase_freq_max
+                # carried in the exported ONNX so deploy applies the same
+                # law with no CLI knob
+                self.deploy_metadata = {
+                    "phase_frequency_vx_ref": repr(args.phase_freq_vx_ref),
+                    "phase_frequency_max": repr(args.phase_freq_max),
+                }
+        self.env = cls(task=args.task, config_overrides=overrides or None, device=self.device)
+        self.eval_env = cls(task=args.task, config_overrides=overrides or None,
+                            device=self.device)
         self.randomizer = (
             None if args.no_domain_randomization else randomize.domain_randomize
         )

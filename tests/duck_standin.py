@@ -539,6 +539,36 @@ TRAINER_PARITY_LIMITS = {
     ("init", False): PARITY_LIMITS[("tilted", False)],
     ("init", True): dict(_EXACT),
 }
+# The deploy loop (chip_smoke.py phase 7): one env (B=1), DR off, on the
+# states of a standing policy's rollout on the backlash duck (home, mid-run,
+# last), one control tick from the same state. DR off is not bit-exact (the
+# twin's float64-folded constants): the home state, feet landing from the
+# keyframe, reads the widest (step qvel q95 2.8e-4, accelerometer 7.9e-3;
+# init qacc_warmstart 0.18), the settled mid-run and last states 1e-6 or
+# less. Limits at 4x the largest reading over the three states (at least
+# 1e-6), read on an NVIDIA H100 80GB HBM3, 700 W; the init variant's
+# kinematic outputs read 0.
+DEPLOY_PARITY_LIMITS = {
+    "step": {
+        "qpos": (8e-6, 3e-5, 3e-5),
+        "qvel": (4e-4, 1.2e-3, 1.5e-3),
+        "qacc_warmstart": (3e-2, 8e-2, 9e-2),
+        "accelerometer": (1.2e-2, 3.2e-2, 3.4e-2),
+        "sensordata": (8e-6, 4e-4, 1.3e-3),
+        "actuator_force": (2.3e-4, 4e-4, 4e-4),
+        "contact_dist": (3e-6, 4e-6, 4e-6),
+        "site_xpos": (2e-6, 4e-6, 4e-6),
+        "site_xmat": (6e-6, 2.4e-5, 2.4e-5),
+    },
+    "init": {
+        **{f: (1e-6, 1e-6, 1e-6) for f in (
+            "sensordata", "actuator_force", "contact_dist", "site_xpos", "site_xmat")},
+        "qpos": (1e-6, 3e-6, 4e-6),
+        "qvel": (4e-4, 1.5e-3, 1.5e-3),
+        "qacc_warmstart": (2e-1, 8e-1, 8e-1),
+        "accelerometer": (1.1e-2, 1.5e-2, 1.6e-2),
+    },
+}
 # init and tilted variants: site and contact outputs are kinematics of
 # identical inputs, held to a max as well
 INIT_MAX = {"site_xpos": 1e-4, "contact_dist": 1e-4, "site_xmat": 1e-4}

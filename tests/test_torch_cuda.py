@@ -212,3 +212,40 @@ def test_trainer_runs_through_the_kernel(card, root):
     assert params.value.sizes == [212, 512, 256, 128, 1]
     assert env.physics.launches == 1 + 20
     assert eval_env.physics.launches == 2 * (1 + 100)
+
+
+@pytest.mark.cuda
+def test_deploy_engine_runs_through_the_kernel(card, root, tmp_path):
+    """SimInfer on the card: a standing policy (seeded params) rolls 20 ticks
+    at one env, one kernel launch for the init and one per tick, each at one
+    row without DR; then the kernel against its twin from the last state,
+    one tick, within duck_standin.DEPLOY_PARITY_LIMITS."""
+    import chip_smoke  # the repo root is on sys.path under `python -m pytest`
+    from open_duck_playground_tpu_torch.deploy.sim_infer import SimInfer
+    from open_duck_playground_tpu_torch.export.export import export_onnx
+    from open_duck_playground_tpu_torch.models.open_duck_mini_v2 import constants
+    from open_duck_playground_tpu_torch.train import networks as nets
+
+    obs_sizes = {"state": 85, "privileged_state": 153}
+    network = nets.PPONetworks(obs_sizes, 14, generator=torch.Generator().manual_seed(0))
+    onnx = export_onnx((nets.rs_init(obs_sizes), network), 14, None, 85,
+                       output_path=str(tmp_path / "standing.onnx"))
+    inf = SimInfer(constants.task_to_xml("flat_terrain_backlash"),
+                   constants.reference_motion_path(), onnx, standing=True, device=card)
+    inf.commands = [0.0, 0.0, 0.0, 0.2, 0.2, 0.5, 0.0]
+    rows = []
+    launch = inf.physics._launch
+    inf.physics._launch = lambda qpos, *a: (rows.append((qpos.shape[0], a[-1] is None)),
+                                            launch(qpos, *a))[1]
+    for _ in range(20):
+        inf.step_control(inf.control_step())
+    assert inf.physics.launches == 1 + 20 and rows == [(1, True)] * 20
+    assert all(o.shape == (85,) and bool((torch.from_numpy(o).isfinite()).all())
+               for o in inf.saved_obs)
+    d = inf.data
+    ctrl = torch.tensor(inf.motor_targets, dtype=torch.float32, device=card)[None]
+    fp = FusedPhysics(inf.model)
+    accel = int(inf.model.sensor_adr[inf.model.sensor("accelerometer")])
+    args = (d.qpos, d.qvel, d.qacc_warmstart, ctrl, 10, None)
+    assert chip_smoke.parity_table("deploy B=1 step", fp(*args), fp.plain(*args), accel, "step",
+                                   False, False, {}, duck_standin.DEPLOY_PARITY_LIMITS["step"])

@@ -17,8 +17,9 @@ both packages take the same numpy actions.
   reward are held to quantile bounds;
 - the port's own draws (DR recipe, reset jitter) fall in the JAX ranges;
 - importing the port (its env path, flat and rough, run; the trainer,
-  checkpoint, runner, parallel and export modules imported) never imports jax, flax,
-  optax, orbax, ml_collections, tensorboard or the JAX package;
+  checkpoint, runner, parallel, export, standing, env utils and deploy
+  modules imported) never imports jax, flax, optax, orbax, ml_collections,
+  tensorboard, mujoco or the JAX package;
 - the env runs on the card unless given device="cpu"."""
 
 import os
@@ -33,12 +34,17 @@ import torch
 from open_duck_playground_tpu.envs import randomize as jax_randomize
 from open_duck_playground_tpu.envs.joystick import Joystick as JaxJoystick
 from open_duck_playground_tpu.envs.wrapper import TrainEnv as JaxTrainEnv
-from open_duck_playground_tpu.ops import forward as jax_fwd
 from open_duck_playground_tpu_torch import interop
 from open_duck_playground_tpu_torch.envs import randomize
 from open_duck_playground_tpu_torch.envs.joystick import Joystick
 from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
-from tests.torch_helpers import jax_model_fields, numpy_tree, standin_assets
+from tests.torch_helpers import (
+    env_logic_matches_jax,
+    jax_model_fields,
+    numpy_tree,
+    standin_assets,
+    standin_physics,
+)
 
 pytest_plugins = ["tests.torch_lock"]  # never beside tests/test_resume.py (see there)
 
@@ -58,42 +64,11 @@ def root(tmp_path_factory):
         yield r
 
 
-def _standin_physics(env):
-    """A cheap, deterministic stand-in for the JAX env's physics (init and
-    step, one env): joints drift, sensors, sites, forces and contact
-    distances move with time and ctrl, the upvector stays near +z."""
-    import jax.numpy as jnp
-
-    m = env.model
-    up = int(m.sensor_adr[m.sensor("upvector")])
-
-    def fill(d, ctrl, t):
-        ph = 7.0 * t + jnp.sum(ctrl)
-        sd = 0.3 * jnp.sin(ph + jnp.arange(m.nsensordata))
-        sd = sd.at[up:up + 3].set(jnp.stack([0.1 * jnp.sin(ph), 0.1 * jnp.cos(ph), 0.99]))
-        return d.replace(
-            ctrl=ctrl, time=t, actuator_force=0.5 * jnp.tanh(ctrl), sensordata=sd,
-            site_xpos=0.05 * jnp.sin(ph + jnp.arange(3 * m.nsite)).reshape(m.nsite, 3),
-            site_xmat=jnp.tile(jnp.eye(3), (m.nsite, 1, 1)),
-            contact=d.contact.replace(dist=0.01 * jnp.sin(3.0 * ph + jnp.arange(m.ncon))))
-
-    def init(model, qpos, qvel, ctrl):
-        return fill(jax_fwd.make_data(m).replace(qpos=qpos, qvel=qvel), ctrl, jnp.float32(0.0))
-
-    def step(model, d, ctrl):
-        t = d.time + env.dt
-        qpos = d.qpos.at[7:].add(0.01 * jnp.sin(7.0 * t + jnp.arange(m.nq - 7)))
-        qvel = 0.1 * jnp.cos(7.0 * t + jnp.arange(m.nv))
-        return fill(d.replace(qpos=qpos, qvel=qvel, qacc_warmstart=qvel), ctrl, t)
-
-    return init, step
-
-
 def _jax_run(task):
     """JAX TrainEnv (DR on): reset + N_STEPS steps, every state as numpy."""
     env = JaxJoystick(task, config_overrides=OVERRIDES)
     if task != "flat_terrain":
-        env._physics_init_fn, env._physics_step_fn = _standin_physics(env)
+        env._physics_init_fn, env._physics_step_fn = standin_physics(env)
     te = JaxTrainEnv(env, num_envs=N_ENVS, episode_length=1000,
                      randomization_fn=jax_randomize.domain_randomize,
                      randomization_rng=jax.random.PRNGKey(0))
@@ -126,31 +101,10 @@ def _port(jax_run):
     return env, te
 
 
-def _info_keys(info):
-    return [k for k in info if k not in ("rng", "first_data", "first_obs")]
-
-
 def _env_logic_matches_jax(jax_run, monkeypatch):
     env, te = _port(jax_run)
-    states, actions = jax_run["states"], jax_run["actions"]
-    for k in range(N_STEPS):
-        nxt = states[k + 1]
-        injected = interop.data_from_numpy(nxt["data"])
-        monkeypatch.setattr(env, "physics_step", lambda model, data, ctrl: injected)
-        out = te.step(interop.state_from_numpy(states[k]), torch.from_numpy(actions[k]))
-        for key in ("state", "privileged_state"):
-            np.testing.assert_allclose(out.obs[key].numpy(), nxt["obs"][key], atol=1e-5,
-                                       err_msg=f"step {k} obs {key}")
-        np.testing.assert_allclose(out.reward.numpy(), nxt["reward"], atol=1e-5)
-        np.testing.assert_array_equal(out.done.numpy(), nxt["done"])
-        for key in _info_keys(nxt["info"]):
-            np.testing.assert_allclose(
-                out.info[key].numpy().astype(np.float64),
-                nxt["info"][key].astype(np.float64), atol=1e-5, err_msg=f"step {k} info {key}")
-        for key, v in nxt["metrics"].items():
-            np.testing.assert_allclose(out.metrics[key].numpy(), v, atol=1e-5, err_msg=key)
-    assert out.obs["state"].shape == (N_ENVS, 101)
-    assert out.obs["privileged_state"].shape == (N_ENVS, 212)
+    env_logic_matches_jax(env, te, jax_run["states"], jax_run["actions"], monkeypatch,
+                          {"state": 101, "privileged_state": 212})
 
 
 def test_env_logic_matches_jax_with_injected_physics(jax_run, monkeypatch):
@@ -249,6 +203,11 @@ def test_port_never_imports_jax(root):
         "from open_duck_playground_tpu_torch import interop\n"
         "from open_duck_playground_tpu_torch.envs import randomize\n"
         "from open_duck_playground_tpu_torch.envs.joystick import Joystick\n"
+        "from open_duck_playground_tpu_torch.envs import standing, utils\n"
+        "from open_duck_playground_tpu_torch.deploy import (\n"
+        "    custom_rewards_numpy, mujoco_infer, mujoco_infer_base, policy_loop, policy_runtime,\n"
+        "    poly_reference_motion_numpy, rewards_numpy, sim2sim_check, sim_infer,\n"
+        "    sim_infer_base)\n"
         "from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv\n"
         "from open_duck_playground_tpu_torch.export.export import export_onnx\n"
         "from open_duck_playground_tpu_torch.train import checkpoint, ppo, runner\n"

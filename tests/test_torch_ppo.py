@@ -490,6 +490,21 @@ def test_trainer_needs_the_card_unless_given_the_cpu(tmp_path):
         rn.OpenDuckMiniV2Runner(rn.build_parser().parse_args(["--output_dir", str(tmp_path)]))
     _, (normalizer, _), _ = ppo.train(TorchToyEnv(), **kw, device="cpu")
     assert float(normalizer.count) == 64
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+
+
+def test_runner_builds_the_standing_env(root, tmp_path):
+    """--env standing --device cpu: the runner's table picks Standing for
+    the train and eval envs (obs 85, actions 14); the gait-clock flags and
+    their ONNX metadata are Joystick's alone."""
+    from open_duck_playground_tpu_torch.envs.standing import Standing
+
+    runner = rn.OpenDuckMiniV2Runner(rn.build_parser().parse_args(
+        ["--output_dir", str(tmp_path), "--env", "standing", "--task", "flat_terrain_backlash",
+         "--device", "cpu", "--phase_freq_vx_ref", "0.094"]))
+    assert isinstance(runner.env, Standing) and isinstance(runner.eval_env, Standing)
+    assert runner.obs_size == 85 and runner.action_size == 14
+    assert runner.env.observation_size == {"state": (85,), "privileged_state": (153,)}
+    assert runner.deploy_metadata is None
+    with pytest.raises(ValueError, match="Unknown env"):
         rn.OpenDuckMiniV2Runner(rn.build_parser().parse_args(
-            ["--output_dir", str(tmp_path), "--env", "standing", "--device", "cpu"]))
+            ["--output_dir", str(tmp_path), "--env", "walking", "--device", "cpu"]))

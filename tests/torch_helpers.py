@@ -1,6 +1,8 @@
 """Shared helpers of the tests that hold the PyTorch port against the JAX
 package (tests/test_torch_*.py): the stand-in asset tree for both packages,
-and numpy carry-across of the JAX package's models and states."""
+numpy carry-across of the JAX package's models and states, a cheap
+deterministic stand-in for either package's physics, and the env-logic
+comparison with JAX's physics outputs injected into the port's step."""
 
 from __future__ import annotations
 
@@ -73,6 +75,113 @@ def random_states(kf, nq, nv, nu, B, seed=0):
     ctrl = (np.asarray(kf.ctrl, np.float32)
             + rng.uniform(-0.2, 0.2, (B, nu)).astype(np.float32))
     return qpos, qvel, ctrl
+
+
+def standin_physics(env):
+    """A cheap, deterministic stand-in for the JAX env's physics (init and
+    step, one env): joints drift, sensors, sites, forces and contact
+    distances move with time and ctrl, the upvector stays near +z."""
+    import jax.numpy as jnp
+
+    from open_duck_playground_tpu.ops import forward as jax_fwd
+
+    m = env.model
+    up = int(m.sensor_adr[m.sensor("upvector")])
+
+    def fill(d, ctrl, t):
+        ph = 7.0 * t + jnp.sum(ctrl)
+        sd = 0.3 * jnp.sin(ph + jnp.arange(m.nsensordata))
+        sd = sd.at[up:up + 3].set(jnp.stack([0.1 * jnp.sin(ph), 0.1 * jnp.cos(ph), 0.99]))
+        return d.replace(
+            ctrl=ctrl, time=t, actuator_force=0.5 * jnp.tanh(ctrl), sensordata=sd,
+            site_xpos=0.05 * jnp.sin(ph + jnp.arange(3 * m.nsite)).reshape(m.nsite, 3),
+            site_xmat=jnp.tile(jnp.eye(3), (m.nsite, 1, 1)),
+            contact=d.contact.replace(dist=0.01 * jnp.sin(3.0 * ph + jnp.arange(m.ncon))))
+
+    def init(model, qpos, qvel, ctrl):
+        return fill(jax_fwd.make_data(m).replace(qpos=qpos, qvel=qvel), ctrl, jnp.float32(0.0))
+
+    def step(model, d, ctrl):
+        t = d.time + env.dt
+        qpos = d.qpos.at[7:].add(0.01 * jnp.sin(7.0 * t + jnp.arange(m.nq - 7)))
+        qvel = 0.1 * jnp.cos(7.0 * t + jnp.arange(m.nv))
+        return fill(d.replace(qpos=qpos, qvel=qvel, qacc_warmstart=qvel), ctrl, t)
+
+    return init, step
+
+
+def torch_standin_physics(env):
+    """standin_physics for the port's batched env: the same formulas, row
+    by row (each row's outputs depend on that row's inputs alone), as
+    (physics_init, physics_step) of the env's signatures."""
+    import torch
+
+    from open_duck_playground_tpu_torch.ops.types import Contact, Data
+
+    m = env.model
+    up = int(m.sensor_adr[m.sensor("upvector")])
+
+    def fill(qpos, qvel, warm, ctrl, t):
+        B = qpos.shape[0]
+        ph = (7.0 * t + ctrl.sum(1))[:, None]
+        sd = 0.3 * torch.sin(ph + torch.arange(m.nsensordata))
+        sd[:, up:up + 3] = torch.cat([0.1 * torch.sin(ph), 0.1 * torch.cos(ph),
+                                      torch.full_like(ph, 0.99)], 1)
+        return Data(
+            qpos=qpos, qvel=qvel, ctrl=ctrl, qacc_warmstart=warm, time=t,
+            site_xpos=(0.05 * torch.sin(ph + torch.arange(3 * m.nsite))).reshape(B, m.nsite, 3),
+            site_xmat=torch.eye(3).expand(B, m.nsite, 3, 3).clone(),
+            actuator_force=0.5 * torch.tanh(ctrl), sensordata=sd,
+            contact=Contact(dist=0.01 * torch.sin(3.0 * ph + torch.arange(m.ncon))))
+
+    def init(model, qpos, qvel, ctrl):
+        return fill(qpos, qvel, torch.zeros_like(qvel), ctrl, torch.zeros(qpos.shape[0]))
+
+    def step(model, d, ctrl):
+        t = d.time + env.dt
+        qpos = d.qpos.clone()
+        qpos[:, 7:] += 0.01 * torch.sin(7.0 * t[:, None] + torch.arange(m.nq - 7))
+        qvel = 0.1 * torch.cos(7.0 * t[:, None] + torch.arange(m.nv))
+        return fill(qpos, qvel, qvel, ctrl, t)
+
+    return init, step
+
+
+def _info_keys(info):
+    return [k for k in info if k not in ("rng", "first_data", "first_obs")]
+
+
+def env_logic_matches_jax(env, te, states, actions, monkeypatch, sizes, skip=()):
+    """Step the port's TrainEnv `te` (env `env`) from each JAX state of
+    `states` with JAX's action and JAX's next physics outputs injected:
+    obs, reward, info (but the keys in `skip`) and metrics must match JAX's
+    next state to 1e-5, done exactly, and the obs have the per-env `sizes`
+    ({"state": n, "privileged_state": n}). Returns the port's last state."""
+    import torch
+
+    from open_duck_playground_tpu_torch import interop
+
+    for k in range(len(states) - 1):
+        nxt = states[k + 1]
+        injected = interop.data_from_numpy(nxt["data"])
+        monkeypatch.setattr(env, "physics_step", lambda model, data, ctrl: injected)
+        out = te.step(interop.state_from_numpy(states[k]), torch.from_numpy(actions[k]))
+        for key in ("state", "privileged_state"):
+            np.testing.assert_allclose(out.obs[key].numpy(), nxt["obs"][key], atol=1e-5,
+                                       err_msg=f"step {k} obs {key}")
+            assert out.obs[key].shape == (actions.shape[1], sizes[key])
+        np.testing.assert_allclose(out.reward.numpy(), nxt["reward"], atol=1e-5)
+        np.testing.assert_array_equal(out.done.numpy(), nxt["done"])
+        for key in _info_keys(nxt["info"]):
+            if key in skip:
+                continue
+            np.testing.assert_allclose(
+                out.info[key].numpy().astype(np.float64),
+                nxt["info"][key].astype(np.float64), atol=1e-5, err_msg=f"step {k} info {key}")
+        assert set(out.metrics) == set(nxt["metrics"])
+        for key, v in nxt["metrics"].items():
+            np.testing.assert_allclose(out.metrics[key].numpy(), v, atol=1e-5, err_msg=key)
+    return out
 
 
 class TorchToyEnv:
