@@ -64,6 +64,17 @@ Phases:
    epoch, profile_breakdown per rank (collectives per SGD step and their
    time), and each rank's kernel time at its rows, ranks timed in turn.
 
+8. the general pipeline (ops/forward.py): TrainEnv(Joystick(task,
+   physics="pipeline")) at the main paths' shapes (flat 4096, rough 8192,
+   DR on): a reset, then PIPELINE_STEPS timed steps of random actions,
+   printing ms per control step, the kernel's launches on that env (must be
+   0) and the peak of torch.cuda.max_memory_allocated, beside the same run
+   of the kernel's env (physics="kernel"); then the pipeline against the
+   kernel from settled states with one DR draw: forward.init against the
+   init variant on the kinematic outputs, forward.step_n(..., 10) against
+   the step variant on every output, within
+   duck_standin.PIPELINE_PARITY_LIMITS.
+
 The kernels line gives, per kernel, its launches on its main path, its
 largest |kernel - twin| there (step variant, DR on, all outputs; for the
 flat kernel also its launches and largest |kernel - twin| on the trainer's
@@ -105,6 +116,8 @@ CASES = (("flat_terrain", 1024, False), ("flat_terrain", 1024, True),
 # main paths: (task, envs); DR on, 100 steps of random actions
 FLAT_MAIN, ROUGH_MAIN = ("flat_terrain", 4096), ("rough_terrain_backlash", 8192)
 N_STEPS = 100
+# phase 8: timed steps of each env (the pipeline takes ~1 s per step)
+PIPELINE_STEPS = 20
 # phase 4: the recipe's widths (BASELINE.md:14), cut to 2 epochs of 2 training steps
 TRAINER_TASK = "flat_terrain_backlash"
 TRAINER_ARGS = ("--env", "joystick", "--task", TRAINER_TASK, "--num_envs", "8192",
@@ -261,13 +274,13 @@ def phase_kernel_vs_twin(cases, report) -> bool:
 
 
 def parity_table(tag, out_k, out_p, accel, variant, with_dr, rough, report,
-                 limits=None) -> bool:
-    """Print |kernel - twin| per output against its limits (`limits`, else
+                 limits=None, ref="twin") -> bool:
+    """Print |kernel - `ref`| per output against its limits (`limits`, else
     those of the variant, DR setting and scene), file the readings under
     report[tag], and return whether all are within them."""
     sd = standin()
     log(f"[parity] {tag}")
-    log("| field | q50 | q95 | worst col q95 (col) | max | |twin| q95 | |")
+    log(f"| field | q50 | q95 | worst col q95 (col) | max | |{ref}| q95 | |")
     log("|---|---|---|---|---|---|---|")
     np_k, np_p = (sd.parity_outputs({k: v.cpu() for k, v in o.items()}, accel)
                   for o in (out_k, out_p))
@@ -386,6 +399,112 @@ def phase_main_path(task: str, B: int) -> dict:
             f"{bound['flops']:.4g} flops, {bound['bytes']} bytes)")
         timed[variant] = dict(ms=ms, plain_ms=plain_ms, **bound)
     return dict(ok=ok, launches=launches, rate=rate, **timed["step"])
+
+
+def run_env(task: str, B: int, physics: str) -> dict:
+    """TrainEnv(Joystick(task, physics=physics), B envs, DR on): a reset,
+    then PIPELINE_STEPS steps of random actions, each timed window between
+    torch.cuda.synchronize() calls, the kernel's launches set to 0 just
+    before and read just after, and the peak of max_memory_allocated."""
+    from open_duck_playground_tpu_torch.envs import randomize
+    from open_duck_playground_tpu_torch.envs.joystick import Joystick
+    from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    env = Joystick(task, device=dev, seed=0, physics=physics)
+    te = TrainEnv(env, num_envs=B, episode_length=1000,
+                  randomization_fn=randomize.domain_randomize,
+                  randomization_generator=torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(2)
+    actions = torch.rand((PIPELINE_STEPS, B, env.action_size), generator=g, device=dev) * 2 - 1
+
+    env.physics.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = te.reset(torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    reset_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for i in range(PIPELINE_STEPS):
+        state = te.step(state, actions[i])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / PIPELINE_STEPS
+    launches = env.physics.launches
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(v).all()) for v in (
+        *state.obs.values(), state.reward, state.data.qpos))
+    shapes = {k: tuple(v.shape) for k, v in state.obs.items()}
+    log(f"[pipeline] {task} B={B} physics={physics}: reset {reset_ms:.1f} ms; "
+        f"{step_ms:.2f} ms per control step over {PIPELINE_STEPS} steps "
+        f"({B / step_ms * 1e3:.1f} env-steps/s); kernel launches {launches}; peak memory "
+        f"{peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} MiB above the "
+        f"{base / 2**20:.1f} MiB held before); done {float(state.done.mean()):.3f}; "
+        f"finite {finite}")
+    want = 0 if physics == "pipeline" else 1 + PIPELINE_STEPS
+    ok = (launches == want and finite
+          and shapes == {"state": (B, 101), "privileged_state": (B, 212)})
+    return dict(ok=ok, step_ms=step_ms)
+
+
+def pipeline_vs_kernel(task: str, B: int, report: dict) -> bool:
+    """The pipeline against the kernel on the card from settled states with
+    one DR draw: forward.init against the init variant (kinematic outputs),
+    forward.step_n(..., 10) against the step variant (every output)."""
+    from open_duck_playground_tpu_torch.envs import randomize
+    from open_duck_playground_tpu_torch.mjcf import compile_mjcf
+    from open_duck_playground_tpu_torch.models.open_duck_mini_v2 import constants
+    from open_duck_playground_tpu_torch.ops import forward as fwd
+    from open_duck_playground_tpu_torch.ops.cuda_step import FusedPhysics, flatten_dr_fields
+
+    sd = standin()
+    dev = torch.device("cuda")
+    rough = "rough" in task
+    m = compile_mjcf(constants.task_to_xml(task), timestep=0.002)
+    fp = FusedPhysics(m)
+    accel = int(m.sensor_adr[m.sensor("accelerometer")])
+    model_v = randomize.domain_randomize(
+        m.to(dev), B, torch.Generator(device=dev).manual_seed(7))
+    dr = flatten_dr_fields(model_v)
+    qpos, qvel, ctrl = (torch.from_numpy(x).to(dev) for x in sd.settled_states(
+        m.keyframe("home"), m.nq, m.nv, m.nu, B, seed=B + 1))
+    warm = torch.zeros_like(qvel)
+    ok = True
+    for variant, n in (("init", 1), ("step", 10)):
+        out_k = fp(qpos, qvel, warm, ctrl, n, dr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if variant == "init":
+            d = fwd.init(model_v, qpos, qvel, ctrl)
+        else:
+            d = fwd.step_n(model_v, fwd.make_data(model_v, B).replace(
+                qpos=qpos, qvel=qvel, qacc_warmstart=warm), ctrl, n)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"[pipeline] {task} B={B} {variant} ({n} substeps, DR on): pipeline {ms:.1f} ms")
+        # "pipeline init": quantiles only, no INIT_MAX (see PIPELINE_PARITY_LIMITS)
+        ok &= parity_table(f"pipeline {task} B={B} dr=1 {variant}", out_k,
+                           sd.pipeline_outputs(d), accel, f"pipeline {variant}", True, rough, report,
+                           limits=sd.PIPELINE_PARITY_LIMITS[(variant, rough)], ref="pipeline")
+    return ok
+
+
+def phase_pipeline(report: dict) -> dict:
+    """Phase 8: each main path's env on the pipeline and on the kernel, then
+    the pipeline against the kernel at that shape."""
+    runs, ok = {}, True
+    for task, B in (FLAT_MAIN, ROUGH_MAIN):
+        runs[task] = {physics: run_env(task, B, physics) for physics in ("pipeline", "kernel")}
+        ratio = runs[task]["pipeline"]["step_ms"] / runs[task]["kernel"]["step_ms"]
+        log(f"[pipeline] {task} B={B}: pipeline / kernel ms per control step {ratio:.1f}x")
+        ok &= all(r["ok"] for r in runs[task].values())
+        ok &= pipeline_vs_kernel(task, B, report)
+    log(f"[pipeline] gpu {gpu_line()}")
+    log(f"[pipeline] {'OK' if ok else 'FAILED'}")
+    return dict(ok=ok, runs=runs)
 
 
 def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> dict:
@@ -1118,9 +1237,11 @@ def main() -> int:
     sharded = timed("5 sharded trainer", phase_sharded)
     standing = timed("6 standing trainer", phase_trainer, report, STANDING_ARGS, "standing")
     deploy = timed("7 deploy", phase_deploy, trainer["onnx"], standing["onnx"], report)
+    pipeline = timed("8 pipeline", phase_pipeline, report)
     log(f"[chip_smoke] seconds per phase {json.dumps(seconds)}")
     if not (ok and flat["ok"] and rough["ok"] and trainer["ok"]
-            and all(run["ok"] for run in sharded) and standing["ok"] and deploy["ok"]):
+            and all(run["ok"] for run in sharded) and standing["ok"] and deploy["ok"]
+            and pipeline["ok"]):
         log("[chip_smoke] FAILED")
         return 1
     step_kernel = kernel_entry("fused_physics_step", "open_duck_playground_tpu/ops/pallas_step.py:225",

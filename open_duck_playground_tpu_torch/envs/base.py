@@ -10,10 +10,16 @@ The tasks (``joystick.py``, ``standing.py``) share the pieces below the
 and the push, the IMU and joint readings with their noise and delay, the
 feet bookkeeping, the termination rule and the end of a step.
 
-Physics dispatch (``physics_step`` / ``physics_init``): an env on a CUDA
-device runs the fused CUDA kernel, an env on the CPU its plain PyTorch
-version (``ops/cuda_step.FusedPhysics`` decides by the tensors' device).
-There is no other path.
+Physics dispatch (``physics_step`` / ``physics_init``), chosen by the
+constructor's ``physics``:
+
+- ``"kernel"`` (the default): an env on a CUDA device runs the fused CUDA
+  kernel, an env on the CPU its plain PyTorch version
+  (``ops/cuda_step.FusedPhysics`` decides by the tensors' device);
+- ``"pipeline"``: the general physics pipeline (``ops/forward.py``:
+  ``init`` / ``step_n``) on the env's device, with the DR fields as
+  per-env model fields; it never launches the kernel. Nothing picks it on
+  its own and nothing falls back to it.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from open_duck_playground_tpu_torch.envs.types import State
 from open_duck_playground_tpu_torch.mjcf import compile_mjcf
 from open_duck_playground_tpu_torch.models.open_duck_mini_v2 import constants
+from open_duck_playground_tpu_torch.ops import forward as fwd
 from open_duck_playground_tpu_torch.ops import math3d as m3
 from open_duck_playground_tpu_torch.ops.cuda_step import FusedPhysics, flatten_dr_fields
 from open_duck_playground_tpu_torch.ops.types import Contact, Data, JointType, Model
@@ -38,6 +45,10 @@ def geoms_colliding(model: Model, data: Data, geom1: int, geom2: int) -> torch.T
     """(B,) True where the static pair (geom1, geom2) has a penetrating contact."""
     p = model.find_pair(geom1, geom2)
     return (data.contact.dist[:, p * 4 : (p + 1) * 4] < 0).any(dim=1)
+
+
+# the engines an env can step with (the constructor's `physics`)
+PHYSICS = ("kernel", "pipeline")
 
 
 def is_randomized(model: Model) -> bool:
@@ -55,7 +66,11 @@ class OpenDuckMiniV2Env:
         config_overrides: Optional[Dict[str, Union[str, int, list]]] = None,
         device: Union[str, torch.device] = "cuda",
         seed: int = 0,
+        physics: str = "kernel",
     ) -> None:
+        if physics not in PHYSICS:
+            raise ValueError(f"physics={physics!r}: one of {PHYSICS}")
+        self.physics_mode = physics
         self._config = config
         if config_overrides:
             self._config.update_from_flattened_dict(config_overrides)
@@ -151,6 +166,8 @@ class OpenDuckMiniV2Env:
 
     def physics_step(self, model: Model, data: Data, ctrl: torch.Tensor) -> Data:
         """n_substeps of physics with ctrl held fixed (mjx_env.step)."""
+        if self.physics_mode == "pipeline":
+            return fwd.step_n(model, data, ctrl, self.n_substeps)
         ctrl = ctrl.contiguous()
         out = self.physics(data.qpos.contiguous(), data.qvel.contiguous(),
                            data.qacc_warmstart.contiguous(), ctrl, self.n_substeps,
@@ -161,6 +178,8 @@ class OpenDuckMiniV2Env:
     def physics_init(self, model: Model, qpos, qvel, ctrl) -> Data:
         """mjx_env.init: derived fields of the given state, no integration
         (the kernel at one substep, its integration thrown away)."""
+        if self.physics_mode == "pipeline":
+            return fwd.init(model, qpos, qvel, ctrl)
         qpos, qvel, ctrl = qpos.contiguous(), qvel.contiguous(), ctrl.contiguous()
         warm = torch.zeros_like(qvel)
         out = self.physics(qpos, qvel, warm, ctrl, 1, self._dr(model))

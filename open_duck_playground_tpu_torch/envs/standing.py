@@ -93,6 +93,7 @@ class Standing(duck_base.OpenDuckMiniV2Env):
         config_overrides: Optional[Dict[str, Union[str, int, list]]] = None,
         device: Union[str, torch.device] = "cuda",
         seed: int = 0,
+        physics: str = "kernel",
     ):
         super().__init__(
             xml_path=constants.task_to_xml(task),
@@ -100,6 +101,7 @@ class Standing(duck_base.OpenDuckMiniV2Env):
             config_overrides=config_overrides,
             device=device,
             seed=seed,
+            physics=physics,
         )
         self._task_tables()
 

@@ -107,7 +107,10 @@ class TrainEnv:
 
 def _where_done(done: torch.Tensor, first, cur):
     """Per env: `first` where done > 0, else `cur`; over tensors, dicts and
-    dataclasses of tensors."""
+    dataclasses of tensors. A field one of the two does not hold (None: the
+    fused kernel fills fewer of Data's fields than the pipeline) stays None."""
+    if cur is None or first is None:
+        return None
     if isinstance(cur, torch.Tensor):
         mask = (done > 0).reshape((done.shape[0],) + (1,) * (cur.dim() - 1))
         return torch.where(mask, first, cur)

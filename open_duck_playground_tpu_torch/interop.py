@@ -8,7 +8,9 @@ package's, converted to numpy arrays by the caller) into the port's types.
   ``model_to_numpy`` is its inverse.
 - ``data_from_numpy(tree)`` / ``state_from_numpy(tree)``: a batched ``Data``
   or ``TrainEnv`` state from a nested dict of numpy arrays (env dim first).
-  Fields the port's ``Data`` does not hold are ignored; so is the JAX
+  Every field of the port's ``Data`` and ``Contact`` the tree holds is
+  carried (the optional ones, which only the general pipeline fills, stay
+  None where the tree lacks them); others are ignored, and so is the JAX
   state's ``info["rng"]`` (the port draws from ``torch.Generator``s).
 
 - ``ppo_params_to_numpy(networks)`` / ``ppo_params_from_numpy(tree)``: a
@@ -89,10 +91,16 @@ def model_to_numpy(m: T.Model) -> Dict[str, Any]:
     return out
 
 
+def _fields_from_numpy(cls, tree: Dict[str, Any], device) -> Dict[str, Any]:
+    """The fields of dataclass `cls` that `tree` holds, as tensors (an
+    optional field the tree lacks or holds as None stays None)."""
+    return {f.name: _tensor(tree[f.name], device) for f in dataclasses.fields(cls)
+            if f.name != "contact" and tree.get(f.name) is not None}
+
+
 def data_from_numpy(tree: Dict[str, Any], device="cpu") -> T.Data:
-    kw = {f.name: _tensor(tree[f.name], device)
-          for f in dataclasses.fields(T.Data) if f.name != "contact"}
-    return T.Data(contact=T.Contact(dist=_tensor(tree["contact"]["dist"], device)), **kw)
+    contact = T.Contact(**_fields_from_numpy(T.Contact, tree["contact"], device))
+    return T.Data(contact=contact, **_fields_from_numpy(T.Data, tree, device))
 
 
 def state_from_numpy(tree: Dict[str, Any], device="cpu") -> State:

@@ -9,9 +9,11 @@ parameters are float32 tensors.
 A ``Model`` is unbatched, except that domain randomization gives the fields
 of ``envs.randomize.RANDOMIZED_FIELDS`` a leading env dimension ``(B, ...)``.
 ``Data`` and ``Contact`` always carry a leading env dimension: the port
-steps a batch of envs, never one env under ``vmap``. ``Data`` holds the
-fields the env path reads after a step (the fused kernel computes exactly
-these; see ``ops/cuda_step.py``).
+steps a batch of envs, never one env under ``vmap``. Their required fields
+are the ones the env path reads after a step, which the fused kernel
+computes (``ops/cuda_step.py``); the optional ones (None by default) are
+the rest of the JAX package's fields, which only the general pipeline
+(``ops/forward.py``) fills.
 """
 
 from __future__ import annotations
@@ -303,6 +305,14 @@ class Contact(_Replace):
     """Static-shape contact set: ncon = npair * 4 candidate points."""
 
     dist: torch.Tensor  # (B, ncon) penetration depth (negative = penetrating)
+    pos: Optional[torch.Tensor] = None  # (B, ncon, 3) world midpoint
+    frame: Optional[torch.Tensor] = None  # (B, ncon, 3, 3) rows: normal, tangent1, tangent2
+    friction: Optional[torch.Tensor] = None  # (B, ncon, 3) combined friction
+    solref: Optional[torch.Tensor] = None  # (B, ncon, 2)
+    solimp: Optional[torch.Tensor] = None  # (B, ncon, 5)
+    geom1: Optional[torch.Tensor] = None  # (B, ncon) int32 (static mapping)
+    geom2: Optional[torch.Tensor] = None  # (B, ncon)
+    efc_valid: Optional[torch.Tensor] = None  # (B, ncon) bool: candidate exists
 
 
 @dataclasses.dataclass(frozen=True)
@@ -319,3 +329,14 @@ class Data(_Replace):
     actuator_force: torch.Tensor  # (B, nu)
     sensordata: torch.Tensor  # (B, nsensordata)
     contact: Contact
+    # filled by the general pipeline only
+    qacc: Optional[torch.Tensor] = None  # (B, nv)
+    xpos: Optional[torch.Tensor] = None  # (B, nbody, 3)
+    xquat: Optional[torch.Tensor] = None  # (B, nbody, 4)
+    xmat: Optional[torch.Tensor] = None  # (B, nbody, 3, 3)
+    xipos: Optional[torch.Tensor] = None  # (B, nbody, 3)
+    subtree_com: Optional[torch.Tensor] = None  # (B, nbody, 3)
+    qfrc_actuator: Optional[torch.Tensor] = None  # (B, nv)
+    qfrc_smooth: Optional[torch.Tensor] = None  # (B, nv)
+    qfrc_constraint: Optional[torch.Tensor] = None  # (B, nv)
+    cvel: Optional[torch.Tensor] = None  # (B, nbody, 6) body spatial velocity @ root-com origin

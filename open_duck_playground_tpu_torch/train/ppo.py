@@ -51,7 +51,9 @@ LAST_PROFILE_BREAKDOWN: Optional[Dict[str, Any]] = None
 
 
 def _map(fn, x):
-    """`fn` over every tensor of nested dicts and dataclasses."""
+    """`fn` over every tensor of nested dicts and dataclasses (None stays)."""
+    if x is None:
+        return None
     if isinstance(x, torch.Tensor):
         return fn(x)
     if isinstance(x, dict):
@@ -371,6 +373,8 @@ def run_eval(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
 
 
 def _tensors(x, prefix: str, out: Dict[str, torch.Tensor]) -> None:
+    if x is None:  # a Data field the engine does not fill
+        return
     if isinstance(x, torch.Tensor):
         out[prefix] = x
     elif isinstance(x, dict):
@@ -382,6 +386,8 @@ def _tensors(x, prefix: str, out: Dict[str, torch.Tensor]) -> None:
 
 
 def _rebuild(template, prefix: str, arrays: Dict[str, np.ndarray]):
+    if template is None:
+        return None
     if isinstance(template, torch.Tensor):
         a = arrays[prefix]
         if tuple(a.shape) != tuple(template.shape):

@@ -569,6 +569,59 @@ DEPLOY_PARITY_LIMITS = {
         "accelerometer": (1.1e-2, 1.5e-2, 1.6e-2),
     },
 }
+# The general pipeline (ops/forward.py, the env's physics="pipeline") against
+# the kernel, both from the same settled_states with the same DR draw
+# (chip_smoke.py phase 8: flat 4096 and rough 8192 envs), per (variant,
+# heightfield scene): "init" is forward.init against the init variant on the
+# kinematic outputs, "step" forward.step_n(..., 10) against the step variant
+# on every output. The two are different programs with the same semantics
+# (the pipeline sums in batched products, the kernel in the twin's scalar
+# order), so the kinematic outputs differ by float32 rounding, and the
+# settled step's iterations=1 Newton solve turns that into active-set flips
+# in some envs (test_lane's chaos). The manifold's spread picks (the
+# stand-in's soles tie) flip a few contact slots between valid and not, so
+# "init" holds contact_dist by its quantiles, not INIT_MAX. Limits: 4x the
+# first card reading (NVIDIA H100 80GB HBM3, 700 W), rounded up to two
+# digits, and at least 1e-6.
+_INIT_PIPELINE = {f: (1e-6, 1e-6, 1e-6) for f in (
+    "sensordata", "actuator_force", "contact_dist", "site_xpos", "site_xmat")}
+PIPELINE_PARITY_LIMITS = {
+    ("init", False): dict(_INIT_PIPELINE),
+    ("init", True): dict(_INIT_PIPELINE),
+    ("step", False): {
+        "qpos": (2.7e-5, 8.4e-4, 1.4e-3),
+        "qvel": (2.6e-3, 6.8e-2, 1.2e-1),
+        "qacc_warmstart": (1.9e-1, 5.2e0, 1.1e1),
+        "accelerometer": (4.8e-2, 9.2e-1, 1.5e0),
+        "sensordata": (5.6e-5, 1.4e-2, 1.2e-1),
+        "actuator_force": (5.6e-4, 1.3e-2, 1.6e-2),
+        "contact_dist": (1e-6, 6.4e-5, 8.8e-5),
+        "site_xpos": (5.6e-6, 1e-4, 1.9e-4),
+        "site_xmat": (1.7e-5, 9.2e-4, 1.6e-3),
+    },
+    ("step", True): {
+        "qpos": (6.4e-5, 8.8e-4, 1.4e-3),
+        "qvel": (7.2e-3, 8e-2, 1.4e-1),
+        "qacc_warmstart": (8.8e-1, 1.1e1, 2.3e1),
+        "accelerometer": (1.8e-1, 1.8e0, 2.6e0),
+        "sensordata": (1.2e-4, 2.2e-2, 1.3e-1),
+        "actuator_force": (1.1e-3, 1.5e-2, 1.7e-2),
+        "contact_dist": (1e-6, 6.4e-5, 9.6e-5),
+        "site_xpos": (1.1e-5, 1e-4, 1.6e-4),
+        "site_xmat": (4e-5, 1e-3, 2e-3),
+    },
+}
+
+
+def pipeline_outputs(d) -> dict:
+    """The kernel's flat (B, width) outputs read off a pipeline ``Data``."""
+    B = d.qpos.shape[0]
+    return dict(qpos=d.qpos, qvel=d.qvel, qacc_warmstart=d.qacc_warmstart,
+                sensordata=d.sensordata, actuator_force=d.actuator_force,
+                contact_dist=d.contact.dist, site_xpos=d.site_xpos.reshape(B, -1),
+                site_xmat=d.site_xmat.reshape(B, -1))
+
+
 # init and tilted variants: site and contact outputs are kinematics of
 # identical inputs, held to a max as well
 INIT_MAX = {"site_xpos": 1e-4, "contact_dist": 1e-4, "site_xmat": 1e-4}
@@ -623,7 +676,7 @@ def parity(kernel: np.ndarray, twin: np.ndarray, variant: str, with_dr: bool,
              scale=float(np.quantile(np.abs(p[valid]), 0.95)) if valid.any() else 0.0)
     q50, q95, c95 = (limits or parity_limits(variant, with_dr, rough))[field]
     ok = finite and r["q50"] <= q50 and r["q95"] <= q95 and r["col_q95"] <= c95
-    if variant != "step" and field in INIT_MAX:
+    if variant in ("init", "tilted") and field in INIT_MAX:
         ok = ok and flips == 0 and r["max"] <= INIT_MAX[field]
     r["ok"] = ok
     return r

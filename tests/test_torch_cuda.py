@@ -142,6 +142,26 @@ def test_env_path_runs_through_the_kernel(card, root):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("task", ["flat_terrain", "rough_terrain_backlash"])
+def test_pipeline_env_path_never_launches_the_kernel(card, root, task):
+    """physics="pipeline" on the card: the general pipeline steps the env
+    (ops/forward.py, on the env's device), the kernel is never launched,
+    and under zero action the duck stands."""
+    env = Joystick(task, device=card, physics="pipeline")
+    te = TrainEnv(env, num_envs=64, episode_length=1000,
+                  randomization_fn=randomize.domain_randomize,
+                  randomization_generator=torch.Generator(device=card).manual_seed(0))
+    state = te.reset(torch.Generator(device=card).manual_seed(1))
+    for _ in range(3):
+        state = te.step(state, torch.zeros(64, env.action_size, device=card))
+    assert env.physics.launches == 0
+    assert state.data.qacc is not None and state.data.qacc.device.type == "cuda"
+    for v in (*state.obs.values(), state.data.qpos):
+        assert torch.isfinite(v).all()
+    assert float(state.done.max()) == 0.0
+
+
+@pytest.mark.cuda
 def test_rough_env_path_runs_through_the_kernel(card, root):
     """The rough path on the card: one launch per reset and per step, and
     under zero action the duck stands on the terrain for 1 s (50 control

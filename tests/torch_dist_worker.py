@@ -82,13 +82,14 @@ def _rank_main(fn: str, rank: int, world: int, out: str, args) -> None:
 
 
 def _np(x):
-    """Nested dicts / dataclasses of tensors as numpy."""
+    """Nested dicts / dataclasses of tensors as numpy; a dataclass field
+    the engine leaves None (Data's pipeline-only fields) is left out."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     if isinstance(x, dict):
         return {k: _np(v) for k, v in x.items()}
     if hasattr(x, "__dataclass_fields__"):
-        return {k: _np(v) for k, v in vars(x).items()}
+        return {k: _np(v) for k, v in vars(x).items() if v is not None}
     return x
 
 
