@@ -75,10 +75,26 @@ Phases:
    the step variant on every output, within
    duck_standin.PIPELINE_PARITY_LIMITS.
 
+9. profile and deploy tools (utils/profiling.py on torch.profiler, traces
+   under build/profile/): (a) the flat main path's env, PROFILE_WARMUP
+   steps, then PROFILE_STEPS steps traced, each annotated env_step: per
+   step host and device ms, kernel launches, the fused kernel's share of
+   the device time, the device's idle share of the window and its top 10
+   operations; exactly one fused launch in each annotated step; (b) one
+   training step at phase 4's configuration, its functions annotated from
+   outside (rollout, env_step, sgd_step, normalizer, loss_fn, backward,
+   clip, adam, and each minibatch step): the same numbers per region;
+   (c) SimInfer on the card with a scripted teleop and a recording video
+   on phase 4's ONNX: launches 1 + ticks, frames bit-identical to the
+   ticks' qpos, the obs carry the teleop's command from its tick; (d) the
+   gait playback (deploy/ref_motion_viewer.py) on the card within
+   PLAYBACK_ATOL_M of the CPU.
+
 The kernels line gives, per kernel, its launches on its main path, its
 largest |kernel - twin| there (step variant, DR on, all outputs; for the
 flat kernel also its launches and largest |kernel - twin| on the trainer's
-path, both variants, DR on and off; for the sharded dispatch, phase 5's
+path, both variants, DR on and off, and its launches in phase 9's traced
+windows, launches_profiled; for the sharded dispatch, phase 5's
 launches summed over the ranks and per rank, and (d)), its time
 and the twin's for one control step, and its bound: the larger of the
 twin's arithmetic (counted per env and substep on the CPU under a torch
@@ -137,6 +153,13 @@ OBS_SIZES = {"joystick": {"state": 101, "privileged_state": 212},
 SHARDED_TIMEOUT_S = 600
 SHARDED_LIMITS = {"transitions": 0.0, "params_q99": 8e-5, "params_max": 2 * 3e-4 * 128,
                   "update_cos": 0.999, "normalizer": 1e-5}
+# phase 9: steps before the traced window and in it; the deploy hooks'
+# rollout; the gait playback's cuda-vs-cpu limit on the feet (float32 both)
+PROFILE_WARMUP, PROFILE_STEPS = 10, 20
+DEPLOY_HOOK_S = 2.0
+PLAYBACK_ATOL_M = 1e-5
+FUSED_KERNEL = "physics_step_kernel"  # the __global__ of ops/csrc/physics_step.cu
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # device work in a Chrome trace
 PEAK_F32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM, non-tensor float32; HBM3
 # the arithmetic aten ops the bound counts (each output element one operation)
 ARITH_OPS = frozenset((
@@ -1154,6 +1177,371 @@ def phase_deploy(joystick_onnx: str, standing_onnx: str, report: dict) -> dict:
                                f"largest in {worst[0]} {worst[1]}")
 
 
+def read_trace(path: str):
+    """A torch.profiler Chrome trace as (annotations, device work, host
+    waits): the record_function spans {name: [(start, end)]}; per kernel,
+    copy or set on the card, (category, name, start, end, ts of the runtime
+    call that launched it, or nan); the ts of each runtime call that waits
+    for the card (cuda*Synchronize); all in microseconds on one clock."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    runtime = [e for e in events if e.get("cat", "").startswith("cuda_")]  # runtime, driver API
+    launched = {e["args"]["correlation"]: e["ts"] for e in runtime
+                if "correlation" in e.get("args", {})}
+    waits = np.array(sorted(e["ts"] for e in runtime if "Synchronize" in e["name"]))
+    spans, work = {}, []
+    for e in events:
+        cat = e.get("cat")
+        if cat == "user_annotation":
+            spans.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
+        elif cat in DEVICE_CATS:
+            t = launched.get(e.get("args", {}).get("correlation"), float("nan"))
+            work.append((cat, e["name"], e["ts"], e["ts"] + e["dur"], t))
+    return spans, work, waits
+
+
+def _busy(merged: np.ndarray, a: float, b: float) -> float:
+    """Length of [a, b] covered by the sorted disjoint intervals `merged`."""
+    return float(np.clip(np.minimum(merged[:, 1], b) - np.maximum(merged[:, 0], a), 0, None).sum())
+
+
+def region_stats(spans, work, merged: np.ndarray, waits: np.ndarray) -> dict:
+    """One annotated region (its instances `spans`): per instance, the host
+    ms (span length) and the device ms, kernel launches, and copies and sets
+    by kind, of the work launched inside it, and the host's waits for the
+    card; the fused kernel's launches per instance and its share of that
+    device time; the device's idle share while the region runs (1 - the
+    union of all device intervals inside its spans / their length); its top
+    10 device operations by total time, with counts."""
+    spans = sorted(spans)
+    starts = np.array([s for s, _ in spans])
+    ends = np.array([e for _, e in spans])
+    t = np.array([w[4] for w in work])
+    k = np.searchsorted(starts, t, side="right") - 1
+    own = [(w, int(i)) for w, i in zip(work, k) if i >= 0 and w[4] <= ends[i]]
+    n = len(spans)
+    kernels = [w for w, _ in own if w[0] == "kernel"]
+    fused_per = [0] * n
+    for w, i in own:
+        fused_per[i] += w[0] == "kernel" and FUSED_KERNEL in w[1]
+    dev_us = sum(w[3] - w[2] for w, _ in own)
+    fused_us = sum(w[3] - w[2] for w in kernels if FUSED_KERNEL in w[1])
+    host_us = float((ends - starts).sum())
+    busy_us = sum(_busy(merged, a, b) for a, b in spans)
+    top, kinds = {}, {}
+    for w, _ in own:
+        c = top.setdefault(w[1], [0.0, 0])
+        c[0] += (w[3] - w[2]) / 1e3
+        c[1] += 1
+        if w[0] != "kernel":
+            kinds[w[1]] = kinds.get(w[1], 0) + 1 / n
+    k = np.searchsorted(starts, waits, side="right") - 1
+    n_waits = int(sum(1 for t, i in zip(waits, k) if i >= 0 and t <= ends[i]))
+    return dict(instances=n, host_ms=host_us / n / 1e3, device_ms=dev_us / n / 1e3,
+                launches=len(kernels) / n, copies=kinds, waits=n_waits / n,
+                fused_per_instance=fused_per, fused_share=fused_us / dev_us if dev_us else 0.0,
+                idle_share=1 - busy_us / host_us if host_us else float("nan"),
+                top=sorted(([name, ms, c] for name, (ms, c) in top.items()),
+                           key=lambda x: -x[1])[:10])
+
+
+def trace_split(trace, names) -> dict:
+    """region_stats of each annotated region in `names` (a name absent from
+    the trace is an error), from a read_trace result; a region may also be
+    given as (name, spans)."""
+    spans, work, waits = trace
+    iv = np.array(sorted((w[2], w[3]) for w in work), dtype=np.float64).reshape(-1, 2)
+    merged = []
+    for a, b in iv:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    merged = np.array(merged, dtype=np.float64).reshape(-1, 2)
+    out = {}
+    for item in names:
+        name, sp = item if isinstance(item, tuple) else (item, spans[item])
+        out[name] = region_stats(sp, work, merged, waits)
+    out["_unattributed"] = sum(1 for w in work if math.isnan(w[4]))
+    out["_device_events"] = len(work)
+    return out
+
+
+def log_split(tag: str, split: dict, top_of=()) -> None:
+    """Print each region's numbers, and its top 10 device ops for the
+    regions in `top_of`."""
+    for name, s in split.items():
+        if name.startswith("_"):
+            continue
+        log(f"[profile] {tag} {name}: x{s['instances']}; per instance host {s['host_ms']:.3f} ms, "
+            f"device {s['device_ms']:.3f} ms, {s['launches']:.1f} kernel launches, copies and "
+            f"sets {json.dumps(s['copies'])}, {s['waits']:.1f} host waits for the card; fused kernel "
+            f"{sum(s['fused_per_instance'])} launches, {100 * s['fused_share']:.1f}% of the device "
+            f"time; device idle {100 * s['idle_share']:.1f}% of the region's wall time")
+        if name in top_of:
+            for op, ms, c in s["top"]:
+                log(f"[profile] {tag} {name} top: {ms:9.3f} ms x{c:<5d} {op[:100]}")
+
+
+def _annotated(stack, obj, attr: str, label: str) -> None:
+    """Wrap obj.attr (of a module, a class or an instance) in
+    profiling.annotate(label) until `stack` closes."""
+    from open_duck_playground_tpu_torch.utils import profiling
+
+    fn = getattr(obj, attr)
+
+    def wrapped(*a, **k):
+        with profiling.annotate(label):
+            return fn(*a, **k)
+
+    if attr in vars(obj):
+        stack.callback(setattr, obj, attr, fn)
+    else:  # a method looked up through the class: drop the instance's wrapper
+        stack.callback(delattr, obj, attr)
+    setattr(obj, attr, wrapped)
+
+
+def profile_env_step(out_dir: str) -> dict:
+    """Phase 9 (a): the flat main path's env (FLAT_MAIN, DR on), PROFILE_WARMUP
+    steps, then PROFILE_STEPS steps traced, each in annotate("env_step"),
+    the window in annotate("env_window") ending in a synchronize; inside a
+    step, the env's step_with_model is annotated env_logic and its
+    physics_step physics (so env_step - env_logic is the wrapper and its
+    autoreset, env_logic - physics the task's own logic). The same number
+    of steps timed untraced just before, for the profiler's cost."""
+    import contextlib
+
+    from open_duck_playground_tpu_torch.envs import randomize
+    from open_duck_playground_tpu_torch.envs.joystick import Joystick
+    from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
+    from open_duck_playground_tpu_torch.utils import profiling
+
+    task, B = FLAT_MAIN
+    dev = torch.device("cuda")
+    env = Joystick(task, device=dev, seed=0)
+    te = TrainEnv(env, num_envs=B, episode_length=1000,
+                  randomization_fn=randomize.domain_randomize,
+                  randomization_generator=torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(2)
+    n = PROFILE_WARMUP + 2 * PROFILE_STEPS
+    actions = torch.rand((n, B, env.action_size), generator=g, device=dev) * 2 - 1
+    state = te.reset(torch.Generator(device=dev).manual_seed(1))
+    for i in range(PROFILE_WARMUP):
+        state = te.step(state, actions[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(PROFILE_WARMUP, PROFILE_WARMUP + PROFILE_STEPS):
+        state = te.step(state, actions[i])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+
+    env.physics.launches = 0
+    with contextlib.ExitStack() as stack:
+        _annotated(stack, env, "step_with_model", "env_logic")
+        _annotated(stack, env, "physics_step", "physics")
+        stack.enter_context(profiling.trace(out_dir, device=dev))
+        with profiling.annotate("env_window"):
+            for i in range(PROFILE_WARMUP + PROFILE_STEPS, n):
+                with profiling.annotate("env_step"):
+                    state = te.step(state, actions[i])
+            torch.cuda.synchronize()
+    launches = env.physics.launches
+    split = trace_split(read_trace(os.path.join(out_dir, "trace.json")),
+                        ("env_window", "env_step", "env_logic", "physics"))
+    finite = all(bool(torch.isfinite(v).all()) for v in state.obs.values())
+    log(f"[profile] env step {task} B={B} DR on: {plain_ms:.3f} ms per step untraced, "
+        f"{split['env_step']['host_ms']:.3f} ms traced (host); {split['_device_events']} device "
+        f"events in the trace, {split['_unattributed']} without their launch; kernel launches "
+        f"counted {launches}")
+    log_split("env", split, top_of=("env_window",))
+    fused = split["env_step"]["fused_per_instance"]
+    ok = (finite and launches == PROFILE_STEPS and fused == [1] * PROFILE_STEPS
+          and split["env_step"]["instances"] == PROFILE_STEPS)
+    log(f"[profile] env step: fused kernel launches per annotated step {fused} "
+        f"({fused.count(1)} of {PROFILE_STEPS} with exactly one); {'OK' if ok else 'FAIL'}")
+    return dict(ok=ok, untraced_ms=plain_ms, split=split, fused_launches=sum(fused))
+
+
+def profile_training_step(out_dir: str) -> dict:
+    """Phase 9 (b): one training_step at phase 4's configuration (the
+    runner's recipe: flat_terrain_backlash, 8192 DR envs, unroll 20, 256 x 32
+    minibatches, 4 updates, (512, 256, 128) networks), after a warm-up step
+    and one timed untraced; ppo's functions, TrainEnv.step and the optimizer's are wrapped
+    from outside in annotations: rollout, env_step, normalizer, loss_fn,
+    backward (torch.autograd.grad), clip, adam, sgd_step. A minibatch step
+    runs from the end of the normalizer update or of the last Adam step to
+    the end of its own Adam step."""
+    import contextlib
+    import dataclasses
+    import inspect
+
+    from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
+    from open_duck_playground_tpu_torch.train import networks as nets
+    from open_duck_playground_tpu_torch.train import optim, ppo
+    from open_duck_playground_tpu_torch.train import runner as rn
+    from open_duck_playground_tpu_torch.utils import profiling
+
+    cli = rn.build_parser().parse_args(
+        ["--output_dir", os.path.join(ROOT, "build", "profile_run"), *TRAINER_ARGS])
+    runner = rn.OpenDuckMiniV2Runner(cli)
+    kw = runner.train_kwargs()
+    dev = runner.device
+    defaults = inspect.signature(ppo.train).parameters
+    hp = ppo.Hyper(**{f.name: kw.get(f.name, defaults[f.name].default)
+                      for f in dataclasses.fields(ppo.Hyper)})
+    gens = ppo.seeded_generators(kw["seed"], dev)
+    env = runner.env
+    te = TrainEnv(env, num_envs=hp.num_envs, episode_length=kw["episode_length"],
+                  randomization_fn=kw["randomization_fn"],
+                  randomization_generator=gens["randomization"])
+    obs_sizes = {k: v[0] for k, v in env.observation_size.items()}
+    ts = ppo.init_training_state(obs_sizes, env.action_size, kw["network_factory"], gens["net"], dev)
+    state = te.reset(gens["reset"])
+    mb_steps = hp.num_updates_per_batch * hp.num_minibatches
+
+    for _ in range(2):  # a warm-up step, then one timed untraced
+        t0 = time.perf_counter()
+        draws = ppo.draw_training_step(gens["epoch"], hp, env.action_size, dev)
+        ts, state, _ = ppo.training_step(ts, te, state, draws, hp)
+        torch.cuda.synchronize()
+        untraced_s = time.perf_counter() - t0
+
+    draws = ppo.draw_training_step(gens["epoch"], hp, env.action_size, dev)
+    torch.cuda.synchronize()
+    env.physics.launches = 0
+    with contextlib.ExitStack() as stack:
+        for obj, attr, label in ((ppo, "rollout", "rollout"), (TrainEnv, "step", "env_step"),
+                                 (ppo, "sgd_step", "sgd_step"), (nets, "rs_update", "normalizer"),
+                                 (ppo, "loss_fn", "loss_fn"), (torch.autograd, "grad", "backward"),
+                                 (optim, "clip_by_global_norm", "clip"), (optim, "adam", "adam")):
+            _annotated(stack, obj, attr, label)
+        with profiling.trace(out_dir, device=dev):
+            with profiling.annotate("training_step"):
+                ts, state, losses = ppo.training_step(ts, te, state, draws, hp)
+                torch.cuda.synchronize()
+    launches = env.physics.launches
+    regions = ("training_step", "rollout", "env_step", "sgd_step", "normalizer", "loss_fn",
+               "backward", "clip", "adam")
+    trace = read_trace(os.path.join(out_dir, "trace.json"))
+    adam_ends = sorted(e for _, e in trace[0]["adam"])
+    prev = sorted(e for _, e in trace[0]["normalizer"]) + adam_ends
+    split = trace_split(trace, regions + (("minibatch", list(zip(prev[:-1], adam_ends))),))
+    finite = all(math.isfinite(float(v)) for v in losses.values())
+    log(f"[profile] training step flat_terrain_backlash B={hp.num_envs} DR on, {mb_steps} "
+        f"minibatch steps: {untraced_s:.3f} s untraced, {split['training_step']['host_ms'] / 1e3:.3f} "
+        f"s traced; {split['_device_events']} device events, {split['_unattributed']} without "
+        f"their launch; kernel launches counted {launches}")
+    log_split("sgd", split, top_of=("training_step", "rollout", "sgd_step", "minibatch"))
+    fused_rollout = split["rollout"]["fused_per_instance"]
+    fused_steps = split["env_step"]["fused_per_instance"]
+    ok = (finite and launches == hp.unroll_length and fused_rollout == [hp.unroll_length]
+          and fused_steps == [1] * hp.unroll_length
+          and sum(split["sgd_step"]["fused_per_instance"]) == 0
+          and all(split[r]["instances"] == mb_steps
+                  for r in ("loss_fn", "backward", "clip", "adam", "minibatch")))
+    log(f"[profile] training step: fused kernel launches per env_step {fused_steps}, in the "
+        f"rollout {sum(fused_rollout)}, in the SGD step {sum(split['sgd_step']['fused_per_instance'])}; "
+        f"{'OK' if ok else 'FAIL'}")
+    return dict(ok=ok, untraced_s=untraced_s, split=split, fused_launches=sum(fused_rollout))
+
+
+class ScriptedTeleop:
+    """A teleop that sets commands[0] = vx at tick `at`, replacing the
+    host's commands list as deploy/teleop.StdinTeleop does."""
+
+    def __init__(self, at: int, vx: float):
+        self.at, self.vx, self.polls = at, vx, 0
+
+    def poll(self, host) -> None:
+        if self.polls == self.at:
+            c = list(host.commands)
+            c[0] = self.vx
+            host.commands = c
+        self.polls += 1
+
+
+class RecordingVideo:
+    """A video with MjVideoRenderer's add_qpos_frame that keeps a copy of
+    each frame's qpos (no MuJoCo)."""
+
+    def __init__(self):
+        self.frames = []
+
+    def add_qpos_frame(self, qpos) -> None:
+        self.frames.append(np.array(qpos, copy=True))
+
+
+def deploy_hooks(onnx: str) -> dict:
+    """Phase 9 (c): SimInfer on the card rolls `onnx` for DEPLOY_HOOK_S with a
+    scripted teleop (commands[0] = 0.1 at tick 10) and a recording video.
+    Checks launches 1 + ticks (counted from the engine's making), one frame
+    every second tick, bit-identical to the qpos that tick left on the card,
+    and the obs's command 0 before tick 10 and 0.1 from it on."""
+    from open_duck_playground_tpu_torch.deploy.sim_infer import SimInfer
+    from open_duck_playground_tpu_torch.models.open_duck_mini_v2 import constants
+
+    inf = SimInfer(constants.task_to_xml(TRAINER_TASK), constants.reference_motion_path(), onnx,
+                   device="cuda")
+    after = []
+    step = inf.step_control
+
+    def recorded(targets):
+        step(targets)
+        after.append(inf.data.qpos.clone())
+
+    inf.step_control = recorded
+    tele, video = ScriptedTeleop(at=10, vx=0.1), RecordingVideo()
+    t0 = time.perf_counter()
+    inf.run(seconds=DEPLOY_HOOK_S, save_path=None, teleop=tele, video=video)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ticks = len(inf.saved_obs)
+    frames_ok = (len(video.frames) == math.ceil(ticks / 2) and all(
+        f.dtype == np.float32 and np.array_equal(f, after[2 * k][0].cpu().numpy())
+        for k, f in enumerate(video.frames)))
+    cmd = [float(o[6]) for o in inf.saved_obs]
+    cmd_ok = ticks > 10 and cmd == [0.0] * 10 + [0.1] * (ticks - 10)
+    ok = inf.physics.launches == 1 + ticks and tele.polls == ticks and frames_ok and cmd_ok
+    log(f"[profile] deploy hooks: {ticks} ticks in {wall:.3f} s, launches {inf.physics.launches} "
+        f"(want {1 + ticks}); {len(video.frames)} frames, bit-identical to the ticks' qpos "
+        f"{frames_ok}; obs command from tick 10 {cmd_ok}; {'OK' if ok else 'FAIL'}")
+    return dict(ok=ok, ticks=ticks, launches=inf.physics.launches, frames=len(video.frames))
+
+
+def gait_playback() -> dict:
+    """Phase 9 (d): ref_motion_viewer.playback on the card against the CPU,
+    2 periods, no plot: the feet within PLAYBACK_ATOL_M."""
+    from open_duck_playground_tpu_torch.deploy import ref_motion_viewer
+
+    feet = {d: ref_motion_viewer.playback(periods=2, out=None, device=d) for d in ("cuda", "cpu")}
+    err = float(np.abs(feet["cuda"] - feet["cpu"]).max())
+    ok = feet["cuda"].shape == feet["cpu"].shape and np.isfinite(feet["cuda"]).all() \
+        and err <= PLAYBACK_ATOL_M
+    log(f"[profile] gait playback: {feet['cuda'].shape[0]} ticks; feet max |cuda - cpu| {err:.3g} m "
+        f"(limit {PLAYBACK_ATOL_M}); {'OK' if ok else 'FAIL'}")
+    return dict(ok=ok, max_abs_err=err)
+
+
+def phase_profile(onnx: str) -> dict:
+    """Phase 9: the traced split of the env step (a) and of a training step
+    (b), the deploy loop's teleop and video hooks on the card (c), and the
+    gait playback on the card against the CPU (d). Traces go under
+    build/profile/, with every printed number in build/profile/split.json."""
+    out = os.path.join(ROOT, "build", "profile")
+    shutil.rmtree(out, ignore_errors=True)
+    env = profile_env_step(os.path.join(out, "env_step"))
+    train = profile_training_step(os.path.join(out, "training_step"))
+    hooks = deploy_hooks(onnx)
+    gait = gait_playback()
+    with open(os.path.join(out, "split.json"), "w") as f:
+        json.dump({"gpu": gpu_line(), "env_step": env, "training_step": train, "deploy": hooks,
+                   "gait": gait}, f)
+    log(f"[profile] gpu {gpu_line()}")
+    ok = env["ok"] and train["ok"] and hooks["ok"] and gait["ok"]
+    log(f"[profile] {'OK' if ok else 'FAIL'}")
+    return dict(ok=ok, launches_profiled=env["fused_launches"] + train["fused_launches"])
+
+
 def kernel_entry(name: str, replaces: str, main: dict, report: dict, case: str) -> dict:
     """One entry of the kernels line: launches, times and bound from the
     main path's run; max_abs_err from phase 2's step variant at the main
@@ -1238,10 +1626,11 @@ def main() -> int:
     standing = timed("6 standing trainer", phase_trainer, report, STANDING_ARGS, "standing")
     deploy = timed("7 deploy", phase_deploy, trainer["onnx"], standing["onnx"], report)
     pipeline = timed("8 pipeline", phase_pipeline, report)
+    profiled = timed("9 profile and deploy tools", phase_profile, trainer["onnx"])
     log(f"[chip_smoke] seconds per phase {json.dumps(seconds)}")
     if not (ok and flat["ok"] and rough["ok"] and trainer["ok"]
             and all(run["ok"] for run in sharded) and standing["ok"] and deploy["ok"]
-            and pipeline["ok"]):
+            and pipeline["ok"] and profiled["ok"]):
         log("[chip_smoke] FAILED")
         return 1
     step_kernel = kernel_entry("fused_physics_step", "open_duck_playground_tpu/ops/pallas_step.py:225",
@@ -1264,6 +1653,11 @@ def main() -> int:
     for variant, t in deploy["timed"].items():
         for k in ("ms", "plain_ms", "bound_ms", "bound_by"):
             step_kernel[f"{k}_deploy_b1_{variant}"] = t[k]
+    # phase 9: its launches in the traced windows, one per annotated env step
+    step_kernel["launches_profiled"] = profiled["launches_profiled"]
+    step_kernel["launches_profiled_of"] = (f"phase 9 traces: {PROFILE_STEPS} env steps at "
+                                           f"{FLAT_MAIN[0]} {FLAT_MAIN[1]} and one training step's "
+                                           f"rollout")
     log(json.dumps({"kernels": [
         step_kernel,
         kernel_entry("fused_physics_step_hfield",

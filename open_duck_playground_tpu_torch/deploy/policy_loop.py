@@ -124,12 +124,22 @@ class PolicyLoopMixin:
             self.prev_motor_targets = self.motor_targets.copy()
         return self.motor_targets
 
-    def run(self, seconds: float = 10.0, save_path: str = "mujoco_saved_obs.pkl"):
+    def run(self, seconds: float = 10.0, save_path: str = "mujoco_saved_obs.pkl",
+            teleop=None, video=None):
+        """Roll the policy for `seconds` at 50 Hz. `teleop.poll(self)` runs
+        before each tick's obs (it may replace self.commands); `video`
+        gets every second tick's qpos (25 fps) through add_qpos_frame,
+        from the ``qpos`` property: the tick's one host copy, no second
+        device sync (the JAX loop passes np.asarray(self.data.qpos))."""
         n_ticks = int(seconds * 50)
         try:
             for tick in range(n_ticks):
+                if teleop is not None:
+                    teleop.poll(self)
                 targets = self.control_step()
                 self.step_control(targets)
+                if video is not None and tick % 2 == 0:  # 50 Hz -> 25 fps
+                    video.add_qpos_frame(self.qpos)
                 up_z = self.get_gravity(self.data)[2]
                 if tick % 50 == 0:
                     print(

@@ -12,10 +12,17 @@ The control loop is shared with deploy/mujoco_infer.py (the MuJoCo C
 engine) via deploy/policy_loop.py: run both and diff the obs traces to
 localize engine gaps.
 
+Headless by default; `--interactive` enables terminal keyboard teleop
+(same key map as the reference's viewer callback, deploy/teleop.py), and
+`--render` records the rollout, re-posed in MuJoCo from the engine's qpos
+(deploy/render.py: needs ``mujoco`` and PIL or OpenCV, and fails before
+the engine is built where they are missing).
+
 Usage:
   python -m open_duck_playground_tpu_torch.deploy.sim_infer -o policy.onnx \
       [--task flat_terrain_backlash] [--standing] [--seconds 10] \
-      [--command vx vy wz np hp hy hr] [--device cuda|cpu]
+      [--command vx vy wz np hp hy hr] [--device cuda|cpu] [--interactive] \
+      [--render rollout.gif]
 """
 
 from __future__ import annotations
@@ -48,17 +55,39 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         default=[0.1, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
         help="vx vy wz neck_pitch head_pitch head_yaw head_roll",
     )
+    parser.add_argument("--interactive", action="store_true",
+                        help="terminal keyboard teleop (see deploy/teleop.py)")
     parser.add_argument("--save_obs", type=str, default="mujoco_saved_obs.pkl")
+    parser.add_argument("--render", type=str, default=None,
+                        help="record the rollout to a .gif/.mp4 (EGL offscreen; "
+                             "frames re-posed in MuJoCo from the engine's qpos)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (the fused kernel) or 'cpu' (its plain version)")
     args = parser.parse_args(argv)
 
     model_path = args.model_path or constants.task_to_xml(args.task)
     reference_data = args.reference_data or constants.reference_motion_path()
+    video = None
+    if args.render:  # before the engine: a missing mujoco fails here
+        from open_duck_playground_tpu_torch.deploy.render import MjVideoRenderer
+
+        video = MjVideoRenderer(model_path)
     infer = SimInfer(model_path, reference_data, args.onnx_model_path,
                      args.standing, args.device)
     infer.commands = list(args.command)
-    infer.run(seconds=args.seconds, save_path=args.save_obs)
+    teleop = None
+    if args.interactive:
+        from open_duck_playground_tpu_torch.deploy.teleop import StdinTeleop
+
+        teleop = StdinTeleop()
+    try:
+        infer.run(seconds=args.seconds, save_path=args.save_obs, teleop=teleop,
+                  video=video)
+    finally:
+        if teleop is not None:
+            teleop.close()
+        if video is not None and video.frames:
+            video.save(args.render)
 
 
 if __name__ == "__main__":

@@ -269,3 +269,37 @@ def test_deploy_engine_runs_through_the_kernel(card, root, tmp_path):
     args = (d.qpos, d.qvel, d.qacc_warmstart, ctrl, 10, None)
     assert chip_smoke.parity_table("deploy B=1 step", fp(*args), fp.plain(*args), accel, "step",
                                    False, False, {}, duck_standin.DEPLOY_PARITY_LIMITS["step"])
+
+
+@pytest.mark.cuda
+def test_trace_sees_one_fused_launch_per_env_step(card, root, tmp_path):
+    """utils.profiling.trace records the card's kernels: three annotated
+    steps of a 64-env flat DR env hold one fused kernel launch each, tied to
+    their step by chip_smoke's trace split."""
+    import chip_smoke
+    from open_duck_playground_tpu_torch.utils import profiling
+
+    env = Joystick("flat_terrain", device=card, seed=0)
+    te = TrainEnv(env, num_envs=64, episode_length=1000,
+                  randomization_fn=randomize.domain_randomize,
+                  randomization_generator=torch.Generator(device=card).manual_seed(0))
+    state = te.reset(torch.Generator(device=card).manual_seed(1))
+    state = te.step(state, torch.zeros(64, env.action_size, device=card))
+    with profiling.trace(str(tmp_path), device=card):
+        for _ in range(3):
+            with profiling.annotate("env_step"):
+                state = te.step(state, torch.zeros(64, env.action_size, device=card))
+        torch.cuda.synchronize()
+    split = chip_smoke.trace_split(chip_smoke.read_trace(str(tmp_path / "trace.json")),
+                                   ("env_step",))
+    assert split["env_step"]["fused_per_instance"] == [1, 1, 1]
+    assert split["env_step"]["launches"] > 1 and split["_unattributed"] == 0
+
+
+@pytest.mark.cuda
+def test_gait_playback_on_the_card_matches_the_cpu(card, root):
+    from open_duck_playground_tpu_torch.deploy import ref_motion_viewer
+
+    feet = [ref_motion_viewer.playback(periods=1, out=None, device=d) for d in (card, "cpu")]
+    assert feet[0].shape == feet[1].shape
+    assert abs(feet[0] - feet[1]).max() <= 1e-5
