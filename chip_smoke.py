@@ -28,7 +28,10 @@ Phases:
    time for one control step at 4096 envs;
 3b. the rough main path: the same with Joystick("rough_terrain_backlash")
    at 8192 envs, through the kernel's heightfield branch;
-4. the trainer: OpenDuckMiniV2Runner (--env joystick --task
+4. the trainer: first the captured SGD step against its eager body
+   (sgd_graph_vs_eager: SGD_GRAPH_STEPS steps at the recipe's widths,
+   equal bit for bit; host launches per minibatch step, capture seconds,
+   graph pool bytes); then OpenDuckMiniV2Runner (--env joystick --task
    flat_terrain_backlash, on cuda) and ppo.train with the runner's recipe and
    callbacks (checkpoint + ONNX at every eval) and profile_breakdown=True, at
    8192 DR envs, batch 256 x 32 minibatches, unroll 20, 4 updates per batch,
@@ -43,7 +46,8 @@ Phases:
    this path's inputs (trainer_vs_twin): the train env at 8192 envs with
    train()'s DR draw (reset, and the trained state of that checkpoint) and
    the eval env at 1024 envs, DR off (reset, and 20 steps of the trained
-   policy), within duck_standin.TRAINER_PARITY_LIMITS. Prints training/sps
+   policy), within duck_standin.TRAINER_PARITY_LIMITS; every SGD step of
+   the run is one replay of train()'s CapturedSGDStep. Prints training/sps
    per epoch and the profile_breakdown line.
 5. the env-sharded trainer: the same runner and recipe under
    `python -m torch.distributed.run`, 8192 DR envs split over the ranks:
@@ -55,7 +59,9 @@ Phases:
    (b) the params identical on every rank (train() checks params, Adam
    state, normalizer and generators after every epoch); (c) one training
    step at this world size against the same step at world size 1 from the
-   same init and global draws: the normalizer count and env_steps exactly,
+   same init and global draws (world 1 through the captured SGD step,
+   world > 1 through the eager body, as train() runs them): the
+   normalizer count and env_steps exactly,
    the first rollout's transitions and the params after the step within
    SHARDED_LIMITS; (d) on rank 0, the kernel against its twin on its rows
    of the trained state (step variant, DR on; TRAINER_PARITY_LIMITS, 0);
@@ -80,10 +86,13 @@ Phases:
    steps, then PROFILE_STEPS steps traced, each annotated env_step: per
    step host and device ms, kernel launches, the fused kernel's share of
    the device time, the device's idle share of the window and its top 10
-   operations; exactly one fused launch in each annotated step; (b) one
-   training step at phase 4's configuration, its functions annotated from
-   outside (rollout, env_step, sgd_step, normalizer, loss_fn, backward,
-   clip, adam, and each minibatch step): the same numbers per region;
+   operations; exactly one fused launch, no host wait and no pageable copy
+   in each annotated step; (b) one training step at phase 4's
+   configuration through the captured SGD step, rollout, env_step and each
+   call of the captured step (sgd_step) annotated from outside: the same
+   numbers per region, with the host calls and graph launches behind the
+   SGD step's device work (one replay, at most 4 host launches per
+   minibatch step);
    (c) SimInfer on the card with a scripted teleop and a recording video
    on phase 4's ONNX: launches 1 + ticks, frames bit-identical to the
    ticks' qpos, the obs carry the teleop's command from its tick; (d) the
@@ -106,11 +115,13 @@ Assets: $OPEN_DUCK_ASSETS if set, else the generated stand-in duck
 (tests/duck_standin.py), written into build/standin_assets/.
 
 Exits non-zero, printing no result, if CUDA is unavailable or any phase
-fails. The last line of stdout is {"ok": true, "device": {...}}.
+fails; a failing run ends by naming every failed check on stdout and on
+stderr. The last line of stdout is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -156,6 +167,8 @@ SHARDED_LIMITS = {"transitions": 0.0, "params_q99": 8e-5, "params_max": 2 * 3e-4
 # phase 9: steps before the traced window and in it; the deploy hooks'
 # rollout; the gait playback's cuda-vs-cpu limit on the feet (float32 both)
 PROFILE_WARMUP, PROFILE_STEPS = 10, 20
+# phase 4: SGD steps of the captured step held against the eager body
+SGD_GRAPH_STEPS = 3
 DEPLOY_HOOK_S = 2.0
 PLAYBACK_ATOL_M = 1e-5
 FUSED_KERNEL = "physics_step_kernel"  # the __global__ of ops/csrc/physics_step.cu
@@ -170,6 +183,19 @@ ARITH_OPS = frozenset((
 
 def log(*a):
     print(*a, flush=True)
+
+
+FAILED = []  # "<where>: <check>" of every check that failed in this run
+
+
+def passed(where: str, **checks) -> bool:
+    """Whether every named check holds; each that does not is logged and
+    kept in FAILED, which a failing run prints at its end."""
+    for name, ok in checks.items():
+        if not ok:
+            FAILED.append(f"{where}: {name}")
+            log(f"[check] FAILED {where}: {name}")
+    return all(checks.values())
 
 
 def gpu_line() -> str:
@@ -310,7 +336,7 @@ def parity_table(tag, out_k, out_p, accel, variant, with_dr, rough, report,
     ok = True
     for f in limits or sd.parity_limits(variant, with_dr, rough):
         r = sd.parity(np_k[f], np_p[f], variant, with_dr, f, rough, limits)
-        ok &= r["ok"]
+        ok &= passed(f"parity {tag}", **{f: r["ok"]})
         flips = f", {r['flips']} flips" if r["flips"] else ""
         log(f"| {f} | {r['q50']:.1e} | {r['q95']:.1e} | {r['col_q95']:.1e} ({r['col']}) "
             f"| {r['max']:.1e}{flips} | {r['scale']:.1e} | {'OK' if r['ok'] else 'FAIL'} |")
@@ -399,8 +425,9 @@ def phase_main_path(task: str, B: int) -> dict:
     log(f"[main] {task} B={B}: reset {t_reset:.3f} s; {N_STEPS} steps {t_steps:.3f} s; "
         f"env-steps/s {rate:.1f}; launches {launches}; obs {shapes}; "
         f"done {float(state.done.mean()):.3f}; finite {finite}")
-    ok = (launches == 1 + N_STEPS and shapes == {"state": (B, 101), "privileged_state": (B, 212)}
-          and finite)
+    ok = passed(f"main path {task} B={B}", launches=launches == 1 + N_STEPS,
+                shapes=shapes == {"state": (B, 101), "privileged_state": (B, 212)},
+                finite=finite)
 
     # one control step at the main path's shape: kernel vs twin, same inputs
     data = state.data
@@ -468,8 +495,8 @@ def run_env(task: str, B: int, physics: str) -> dict:
         f"{base / 2**20:.1f} MiB held before); done {float(state.done.mean()):.3f}; "
         f"finite {finite}")
     want = 0 if physics == "pipeline" else 1 + PIPELINE_STEPS
-    ok = (launches == want and finite
-          and shapes == {"state": (B, 101), "privileged_state": (B, 212)})
+    ok = passed(f"pipeline {task} B={B} physics={physics}", launches=launches == want,
+                finite=finite, shapes=shapes == {"state": (B, 101), "privileged_state": (B, 212)})
     return dict(ok=ok, step_ms=step_ms)
 
 
@@ -572,20 +599,39 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
     # per eval: one at 0, one after each epoch, two in the breakdown
     want_train = 1 + T * (2 + 2 + epochs * steps_per_epoch)
     want_eval = (1 + epochs + 2) * (1 + ep_len)
+    # SGD steps the code gives, each one graph replay: the breakdown's SGD
+    # step and training step (twice each), every training step's
+    want_replays = 2 + 2 + epochs * steps_per_epoch
+    graph = sgd_graph_vs_eager(runner, kw, label) if label == "trainer" else {"ok": True}
+
+    # every CapturedSGDStep train() makes (its replays are the object's own)
+    made = []
+    init = ppo.CapturedSGDStep.__init__
+
+    def recorded(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
 
     runner.env.physics.launches = 0
     runner.eval_env.physics.launches = 0
+    ppo.CapturedSGDStep.__init__ = recorded
     t0 = time.perf_counter()
-    make_policy, (normalizer, params), metrics = ppo.train(
-        environment=runner.env, eval_env=runner.eval_env, **kw, profile_breakdown=True)
+    try:
+        make_policy, (normalizer, params), metrics = ppo.train(
+            environment=runner.env, eval_env=runner.eval_env, **kw, profile_breakdown=True)
+    finally:
+        ppo.CapturedSGDStep.__init__ = init
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     launches = {"train_env": runner.env.physics.launches,
                 "eval_env": runner.eval_env.physics.launches}
     bd = ppo.LAST_PROFILE_BREAKDOWN
+    replays = [c.replays for c in made]
+    graph_ok = replays == [want_replays]
     log(f"[{label}] ppo.train {t_train:.1f} s; launches {launches} (want train_env "
-        f"{want_train}, eval_env {want_eval})")
+        f"{want_train}, eval_env {want_eval}); SGD steps as graph replays {replays} (want "
+        f"[{want_replays}], one per SGD step); capture {json.dumps(bd.get('sgd_graph'))}")
     log(f"[{label}] profile_breakdown {json.dumps(bd)}")
 
     with open(runner.metrics_path) as f:
@@ -660,12 +706,107 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
                                                                 deterministic=True), report,
                                     label, dr_off=cli.env == "joystick")
     log(f"[{label}] gpu {gpu_line()}")
-    ok = (recipe_ok and sizes_ok and finite and counts_ok and ckpt_ok and onnx_err <= 1e-5
-          and live_ok and same and epoch == epochs - 1 and parity_ok
-          and launches == {"train_env": want_train, "eval_env": want_eval})
+    ok = passed(label, recipe=recipe_ok, sizes=sizes_ok, metrics_finite=finite, counts=counts_ok,
+                checkpoint=ckpt_ok, onnx=onnx_err <= 1e-5, full_state_live=live_ok,
+                full_state_loads=same, full_state_epoch=epoch == epochs - 1,
+                kernel_vs_twin=parity_ok, sgd_graph_vs_eager=graph["ok"], graph_replays=graph_ok,
+                launches=launches == {"train_env": want_train, "eval_env": want_eval})
     log(f"[{label}] {'OK' if ok else 'FAIL'}")
-    return dict(ok=ok, launches=launches, breakdown=bd, onnx=onnx_path,
+    return dict(ok=ok, launches=launches, breakdown=bd, onnx=onnx_path, sgd_graph=graph,
                 sps=[line["training/sps"] for line in lines if "training/sps" in line])
+
+
+def sgd_graph_vs_eager(runner, kw, label: str) -> dict:
+    """Phase 4, before ppo.train: the captured SGD step against its eager
+    body at the recipe's widths. Two states from train()'s init (the same
+    seed), one run by ppo.sgd_step, the other by a CapturedSGDStep, take
+    SGD_GRAPH_STEPS SGD steps on the same data and draws (each a rollout of
+    the eager state's policy on the train env, 8192 DR envs); after each,
+    the params, Adam count and moments, normalizer and loss terms must be
+    equal bit for bit (limit 0: the same kernels on the same inputs). The
+    last step of each is traced (build/sgd_graph/trace.json): host launches
+    (runtime calls that put work on the card: kernels, copies, sets, graph
+    launches) per minibatch step, graph replays, device ms and idle share.
+    Prints each step's host seconds, eager against captured (the first
+    captured call includes the capture), and the capture's warm-up, capture
+    and instantiation seconds and graph pool bytes."""
+    import dataclasses
+    import inspect
+
+    from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
+    from open_duck_playground_tpu_torch.train import ppo
+    from open_duck_playground_tpu_torch.utils import profiling
+
+    dev = runner.device
+    defaults = inspect.signature(ppo.train).parameters
+    hp = ppo.Hyper(**{f.name: kw.get(f.name, defaults[f.name].default)
+                      for f in dataclasses.fields(ppo.Hyper)})
+    mb_steps = hp.num_updates_per_batch * hp.num_minibatches
+    gens = ppo.seeded_generators(kw["seed"], dev)
+    env = runner.env
+    te = TrainEnv(env, num_envs=hp.num_envs, episode_length=kw["episode_length"],
+                  randomization_fn=kw["randomization_fn"],
+                  randomization_generator=gens["randomization"])
+    obs_sizes = {k: v[0] for k, v in env.observation_size.items()}
+
+    def init():
+        g = ppo.seeded_generators(kw["seed"], dev)["net"]
+        return ppo.init_training_state(obs_sizes, env.action_size, kw["network_factory"], g, dev)
+
+    eager, graphed = init(), init()
+    cap = ppo.CapturedSGDStep(graphed, hp)
+    state = te.reset(gens["reset"])
+    out_dir = os.path.join(ROOT, "build", "sgd_graph")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    steps, ok = [], True
+    for i in range(SGD_GRAPH_STEPS):
+        noise, perms, ent = ppo.draw_training_step(gens["epoch"], hp, env.action_size, dev)
+        state, data = ppo.rollout(te, state, eager.normalizer, eager.params, noise)
+        torch.cuda.synchronize()
+        traced = i == SGD_GRAPH_STEPS - 1
+        with (profiling.trace(out_dir, device=dev) if traced else contextlib.nullcontext()):
+            times = {}
+            for name, fn, ts in (("eager", ppo.sgd_step, eager), ("graph", cap, graphed)):
+                t0 = time.perf_counter()
+                with profiling.annotate(f"{name}_sgd"):
+                    _, losses = fn(ts, data, perms, ent, hp)
+                    torch.cuda.synchronize()
+                times[name] = (time.perf_counter() - t0, losses)
+        la, lb = times["eager"][1], times["graph"][1]
+        ta, tb = ppo.learner_tensors(eager), ppo.learner_tensors(graphed)
+        differ = [j for j, (a, b) in enumerate(zip(ta, tb)) if not torch.equal(a, b)]
+        worst = max((float((ta[j].double() - tb[j].double()).abs().max()) for j in differ),
+                    default=0.0)
+        loss_same = la.keys() == lb.keys() and all(torch.equal(la[k], lb[k]) for k in la)
+        ok &= passed(f"{label} SGD step {i + 1} captured vs eager", learner_equal=not differ,
+                     losses_equal=loss_same)
+        steps.append({"eager_s": round(times["eager"][0], 4), "graph_s": round(times["graph"][0], 4),
+                      "tensors_differing": len(differ), "max_abs_diff": worst,
+                      "losses_equal": loss_same, "traced": traced})
+        log(f"[{label}] SGD step {i + 1} at {hp.num_envs} envs, eager vs captured: "
+            f"{json.dumps(steps[-1])}")
+    split = trace_split(read_trace(os.path.join(out_dir, "trace.json")), ("eager_sgd", "graph_sgd"))
+    per_mb = {k: split[f"{k}_sgd"]["host_calls"] / mb_steps for k in ("eager", "graph")}
+    event_ms = cuda_ms(cap.graph.replay, reps=1)
+    out = {"steps": steps, "capture": cap.info, "replays": cap.replays,
+           "host_launches_per_minibatch_step": per_mb,
+           "graph_replays_in_traced_call": split["graph_sgd"]["graph_launches"],
+           "replay_event_ms": event_ms,
+           "split": {k: {f: split[f"{k}_sgd"][f] for f in (
+               "host_ms", "device_ms", "launches", "host_calls", "graph_launches", "copies",
+               "waits", "idle_share")} for k in ("eager", "graph")}}
+    ok &= passed(f"{label} captured SGD step", replays=cap.replays == SGD_GRAPH_STEPS,
+                 host_launches_per_minibatch_step=per_mb["graph"] <= 4,
+                 one_replay_traced=out["graph_replays_in_traced_call"] == 1)
+    log(f"[{label}] captured SGD step: capture {json.dumps(cap.info)}; replays {cap.replays} "
+        f"(one per SGD step); host launches per minibatch step {per_mb['graph']:.3f} captured "
+        f"against {per_mb['eager']:.1f} eager (limit 4); one replay {event_ms:.3f} ms by CUDA "
+        f"events")
+    log_split("sgd graph", split)
+    log(f"[{label}] captured SGD step vs eager body: {'OK' if ok else 'FAIL'}")
+    del eager, graphed, cap, te, state, data
+    torch.cuda.empty_cache()
+    return dict(ok=ok, **out)
 
 
 def trainer_vs_twin(runner, kw, trained, policy, report, label: str = "trainer",
@@ -747,7 +888,7 @@ def run_sharded(backend: str, world: int) -> dict:
         if os.path.exists(path):
             with open(path) as f:
                 reps.append(json.load(f))
-    ok = rc == 0 and len(reps) == world
+    ok = passed(f"sharded {backend} world {world}", exit=rc == 0, reports=len(reps) == world)
     log(f"[sharded] {backend} world {world}: exit {rc} after {wall:.1f} s; "
         f"{len(reps)} of {world} rank reports")
     if ok:
@@ -761,8 +902,7 @@ def check_sharded(backend: str, world: int, cards: int, reps: list, out: str) ->
     share cards only over gloo), finite metrics and the global counts."""
     ok = True
     for rep in reps:
-        for name, passed in rep["checks"].items():
-            ok &= passed
+        ok &= passed(f"sharded {backend} world {world} rank {rep['rank']}", **rep["checks"])
         log(f"[sharded] rank {rep['rank']} on {rep['device']}: {rep['rows']} train rows; "
             f"geometry {rep['geometry']}; launches {rep['launches']} (want {rep['want']}) "
             f"as {rep['launch_rows']}; kernel {rep['kernel_ms']:.3f} ms per control step at "
@@ -774,7 +914,8 @@ def check_sharded(backend: str, world: int, cards: int, reps: list, out: str) ->
     devices = [rep["device"] for rep in reps]
     own_cards = [f"cuda:{r % cards}" for r in range(world)]
     same_params = len({rep["params_digest"] for rep in reps}) == 1
-    ok &= same_params and devices == own_cards and (backend == "gloo" or len(set(devices)) == world)
+    ok &= passed(f"sharded {backend} world {world}", same_params=same_params,
+                 devices=devices == own_cards and (backend == "gloo" or len(set(devices)) == world))
     with open(os.path.join(out, "run", "metrics.jsonl")) as f:
         lines = [json.loads(line) for line in f]
     finite = len(lines) == 3 and all(
@@ -783,7 +924,8 @@ def check_sharded(backend: str, world: int, cards: int, reps: list, out: str) ->
     for line in lines[1:]:
         log(f"[sharded] epoch at step {line['step']}: training/sps {line['training/sps']:.1f}, "
             f"eval/episode_reward {line['eval/episode_reward']:.4f}")
-    ok &= finite and lines[-1]["step"] == 655360
+    ok &= passed(f"sharded {backend} world {world}", metrics_finite=finite,
+                 env_steps=lines[-1]["step"] == 655360)
     log(f"[sharded] {backend} world {world}: devices {devices}; params identical on every "
         f"rank {same_params}; metrics finite {finite}; {'OK' if ok else 'FAIL'}")
     return ok
@@ -884,6 +1026,8 @@ def sharded_rank(runner, shard, out: str) -> dict:
     hp = ppo.Hyper(**{f.name: kw.get(f.name, defaults[f.name].default)
                       for f in dataclasses.fields(ppo.Hyper)})
 
+    kinds = []  # the SGD step each one_step ran
+
     def one_step(env_shard):
         gens = ppo.seeded_generators(kw["seed"], dev)
         env = Joystick(TRAINER_TASK, device=dev)
@@ -899,8 +1043,11 @@ def sharded_rank(runner, shard, out: str) -> dict:
         if env_shard is not None:
             noise = env_shard.take(noise, dim=1)
         state, data = ppo.rollout(te, state, ts.normalizer, ts.params, noise)
-        ts, _ = ppo.sgd_step(ts, data, perms, ent, hp, env_shard)
+        # as train() runs it: world 1 captured, world > 1 eager
+        sgd = ppo.make_sgd_step(ts, hp, env_shard)
+        ts, _ = sgd(ts, data, perms, ent, hp, env_shard)
         ts = ts.replace(env_steps=ts.env_steps + hp.env_steps_per_training_step)
+        kinds.append(type(sgd).__name__ if isinstance(sgd, ppo.CapturedSGDStep) else sgd.__name__)
         return ts, state, data, te, {"epoch": gens["epoch"], "env": env.generator}
 
     p0 = torch.cat([p.detach().reshape(-1) for p in ppo.init_training_state(
@@ -929,8 +1076,9 @@ def sharded_rank(runner, shard, out: str) -> dict:
            "envs_differing": envs_differ, "params_q99": float(torch.quantile(d, 0.99)),
            "params_max": float(d.max()), "update_cos": cos, "normalizer_mean_max": norm_d,
            "count": [float(ts1.normalizer.count), float(ts2.normalizer.count)],
-           "env_steps": [int(ts1.env_steps), int(ts2.env_steps)]}
-    checks["invariance"] = (inv["transitions_max"] <= SHARDED_LIMITS["transitions"]
+           "env_steps": [int(ts1.env_steps), int(ts2.env_steps)], "sgd_steps": kinds}
+    checks["invariance"] = (kinds == ["CapturedSGDStep", "sgd_step"]
+                            and inv["transitions_max"] <= SHARDED_LIMITS["transitions"]
                             and inv["params_q99"] <= SHARDED_LIMITS["params_q99"]
                             and inv["params_max"] <= SHARDED_LIMITS["params_max"]
                             and cos >= SHARDED_LIMITS["update_cos"]
@@ -1104,7 +1252,7 @@ def phase_deploy(joystick_onnx: str, standing_onnx: str, report: dict) -> dict:
     total = 0
     per_task = {}
     obs_len = {"joystick": OBS_SIZES["joystick"]["state"], "standing": OBS_SIZES["standing"]["state"]}
-    for ro in rollouts:
+    for i, ro in enumerate(rollouts):
         inf, ticks = ro["engine"], ro["ticks"]
         rec = launches.get(id(inf.physics), {"rows": {}, "events": []})
         n = len(ticks)
@@ -1112,7 +1260,7 @@ def phase_deploy(joystick_onnx: str, standing_onnx: str, report: dict) -> dict:
         a_ok = inf.physics.launches == 1 + n and rec["rows"] == want and len(inf.saved_obs) == n
         c_ok = (all(o.shape == (obs_len[ro["task"]],) and np.isfinite(o).all() for o in inf.saved_obs)
                 and all(np.isfinite(t[4]).all() for t in ticks))
-        ok &= a_ok and c_ok
+        ok &= passed(f"deploy {ro['task']} rollout {i}", launches=a_ok, finite=c_ok)
         total += inf.physics.launches
         kern = [a.elapsed_time(b) for a, b in rec["events"][1:]]  # the ticks' launches
         wall = np.diff([t[0] for t in ticks]) * 1e3
@@ -1132,7 +1280,8 @@ def phase_deploy(joystick_onnx: str, standing_onnx: str, report: dict) -> dict:
         log(f"[deploy] {task}: {s['rollouts']} rollouts, {s['ticks']} ticks, {s['launches']} "
             f"launches; ms per tick {w:.3f}: kernel {k:.3f} (CUDA events), host {w - k:.3f} (obs, "
             f"host copy, ONNX, clamp, the gate's reads)")
-    ok &= set(per_task) == {"joystick", "standing"} and per_task["standing"]["rollouts"] == 9
+    ok &= passed("deploy", tasks=set(per_task) == {"joystick", "standing"},
+                 standing_rollouts=per_task.get("standing", {}).get("rollouts") == 9)
 
     # (b) kernel vs twin at B=1, DR off, from the standing plain rollout's
     # home, mid-run and last states; the kernel's and the twin's time from
@@ -1181,12 +1330,14 @@ def read_trace(path: str):
     """A torch.profiler Chrome trace as (annotations, device work, host
     waits): the record_function spans {name: [(start, end)]}; per kernel,
     copy or set on the card, (category, name, start, end, ts of the runtime
-    call that launched it, or nan); the ts of each runtime call that waits
-    for the card (cuda*Synchronize); all in microseconds on one clock."""
+    call that launched it or nan, that call's correlation id, its name); the
+    ts of each runtime call that waits for the card (cuda*Synchronize); all
+    in microseconds on one clock. The kernels of a CUDA graph replay share
+    the correlation of its one cudaGraphLaunch."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     runtime = [e for e in events if e.get("cat", "").startswith("cuda_")]  # runtime, driver API
-    launched = {e["args"]["correlation"]: e["ts"] for e in runtime
+    launched = {e["args"]["correlation"]: (e["ts"], e["name"]) for e in runtime
                 if "correlation" in e.get("args", {})}
     waits = np.array(sorted(e["ts"] for e in runtime if "Synchronize" in e["name"]))
     spans, work = {}, []
@@ -1195,8 +1346,9 @@ def read_trace(path: str):
         if cat == "user_annotation":
             spans.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
         elif cat in DEVICE_CATS:
-            t = launched.get(e.get("args", {}).get("correlation"), float("nan"))
-            work.append((cat, e["name"], e["ts"], e["ts"] + e["dur"], t))
+            corr = e.get("args", {}).get("correlation")
+            t, call = launched.get(corr, (float("nan"), ""))
+            work.append((cat, e["name"], e["ts"], e["ts"] + e["dur"], t, corr, call))
     return spans, work, waits
 
 
@@ -1207,9 +1359,11 @@ def _busy(merged: np.ndarray, a: float, b: float) -> float:
 
 def region_stats(spans, work, merged: np.ndarray, waits: np.ndarray) -> dict:
     """One annotated region (its instances `spans`): per instance, the host
-    ms (span length) and the device ms, kernel launches, and copies and sets
-    by kind, of the work launched inside it, and the host's waits for the
-    card; the fused kernel's launches per instance and its share of that
+    ms (span length) and the device ms, kernels run, and copies and sets by
+    kind, of the work launched inside it, the host calls that launched it
+    (a graph replay is one call for all its kernels) and the graph launches
+    among them, and the host's waits for the card; the fused kernel's
+    launches per instance and its share of that
     device time; the device's idle share while the region runs (1 - the
     union of all device intervals inside its spans / their length); its top
     10 device operations by total time, with counts."""
@@ -1237,8 +1391,11 @@ def region_stats(spans, work, merged: np.ndarray, waits: np.ndarray) -> dict:
             kinds[w[1]] = kinds.get(w[1], 0) + 1 / n
     k = np.searchsorted(starts, waits, side="right") - 1
     n_waits = int(sum(1 for t, i in zip(waits, k) if i >= 0 and t <= ends[i]))
+    calls = {(w[5], w[6]) for w, _ in own}
     return dict(instances=n, host_ms=host_us / n / 1e3, device_ms=dev_us / n / 1e3,
-                launches=len(kernels) / n, copies=kinds, waits=n_waits / n,
+                launches=len(kernels) / n, host_calls=len(calls) / n,
+                graph_launches=sum("GraphLaunch" in c for _, c in calls) / n,
+                copies=kinds, waits=n_waits / n,
                 fused_per_instance=fused_per, fused_share=fused_us / dev_us if dev_us else 0.0,
                 idle_share=1 - busy_us / host_us if host_us else float("nan"),
                 top=sorted(([name, ms, c] for name, (ms, c) in top.items()),
@@ -1274,8 +1431,10 @@ def log_split(tag: str, split: dict, top_of=()) -> None:
         if name.startswith("_"):
             continue
         log(f"[profile] {tag} {name}: x{s['instances']}; per instance host {s['host_ms']:.3f} ms, "
-            f"device {s['device_ms']:.3f} ms, {s['launches']:.1f} kernel launches, copies and "
-            f"sets {json.dumps(s['copies'])}, {s['waits']:.1f} host waits for the card; fused kernel "
+            f"device {s['device_ms']:.3f} ms, {s['launches']:.1f} kernels run, copies and "
+            f"sets {json.dumps(s['copies'])}, launched by {s['host_calls']:.1f} host calls "
+            f"({s['graph_launches']:.1f} graph launches), {s['waits']:.1f} host waits for the "
+            f"card; fused kernel "
             f"{sum(s['fused_per_instance'])} launches, {100 * s['fused_share']:.1f}% of the device "
             f"time; device idle {100 * s['idle_share']:.1f}% of the region's wall time")
         if name in top_of:
@@ -1308,9 +1467,8 @@ def profile_env_step(out_dir: str) -> dict:
     step, the env's step_with_model is annotated env_logic and its
     physics_step physics (so env_step - env_logic is the wrapper and its
     autoreset, env_logic - physics the task's own logic). The same number
-    of steps timed untraced just before, for the profiler's cost."""
-    import contextlib
-
+    of steps timed untraced just before, for the profiler's cost. Checks
+    one fused launch, no host wait and no pageable copy in each step."""
     from open_duck_playground_tpu_torch.envs import randomize
     from open_duck_playground_tpu_torch.envs.joystick import Joystick
     from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
@@ -1355,29 +1513,33 @@ def profile_env_step(out_dir: str) -> dict:
         f"counted {launches}")
     log_split("env", split, top_of=("env_window",))
     fused = split["env_step"]["fused_per_instance"]
-    ok = (finite and launches == PROFILE_STEPS and fused == [1] * PROFILE_STEPS
-          and split["env_step"]["instances"] == PROFILE_STEPS)
+    waits = split["env_step"]["waits"]
+    pageable = sum(n for kind, n in split["env_step"]["copies"].items() if "Pageable" in kind)
+    ok = passed("profile env step", finite=finite, launches=launches == PROFILE_STEPS,
+                one_fused_launch_per_step=fused == [1] * PROFILE_STEPS,
+                steps=split["env_step"]["instances"] == PROFILE_STEPS, no_host_wait=waits == 0,
+                no_pageable_copy=pageable == 0)
     log(f"[profile] env step: fused kernel launches per annotated step {fused} "
-        f"({fused.count(1)} of {PROFILE_STEPS} with exactly one); {'OK' if ok else 'FAIL'}")
+        f"({fused.count(1)} of {PROFILE_STEPS} with exactly one); host waits per step {waits} "
+        f"and pageable copies per step {pageable} (want 0 and 0); {'OK' if ok else 'FAIL'}")
     return dict(ok=ok, untraced_ms=plain_ms, split=split, fused_launches=sum(fused))
 
 
 def profile_training_step(out_dir: str) -> dict:
     """Phase 9 (b): one training_step at phase 4's configuration (the
     runner's recipe: flat_terrain_backlash, 8192 DR envs, unroll 20, 256 x 32
-    minibatches, 4 updates, (512, 256, 128) networks), after a warm-up step
-    and one timed untraced; ppo's functions, TrainEnv.step and the optimizer's are wrapped
-    from outside in annotations: rollout, env_step, normalizer, loss_fn,
-    backward (torch.autograd.grad), clip, adam, sgd_step. A minibatch step
-    runs from the end of the normalizer update or of the last Adam step to
-    the end of its own Adam step."""
-    import contextlib
+    minibatches, 4 updates, (512, 256, 128) networks) with the SGD step the
+    trainer runs on the card, a CapturedSGDStep, after a warm-up step (which
+    captures it) and one timed untraced. ppo.rollout and TrainEnv.step are
+    wrapped from outside in annotations, and so is each call of the
+    captured step (sgd_step): its body runs in Python only at the capture,
+    so the SGD step reads as its host calls (the input copies, one graph
+    launch, the loss terms' copies) and the device work they launch."""
     import dataclasses
     import inspect
 
     from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
-    from open_duck_playground_tpu_torch.train import networks as nets
-    from open_duck_playground_tpu_torch.train import optim, ppo
+    from open_duck_playground_tpu_torch.train import ppo
     from open_duck_playground_tpu_torch.train import runner as rn
     from open_duck_playground_tpu_torch.utils import profiling
 
@@ -1396,51 +1558,55 @@ def profile_training_step(out_dir: str) -> dict:
                   randomization_generator=gens["randomization"])
     obs_sizes = {k: v[0] for k, v in env.observation_size.items()}
     ts = ppo.init_training_state(obs_sizes, env.action_size, kw["network_factory"], gens["net"], dev)
+    cap = ppo.CapturedSGDStep(ts, hp)
     state = te.reset(gens["reset"])
     mb_steps = hp.num_updates_per_batch * hp.num_minibatches
 
-    for _ in range(2):  # a warm-up step, then one timed untraced
+    for _ in range(2):  # a warm-up step (the capture), then one timed untraced
         t0 = time.perf_counter()
         draws = ppo.draw_training_step(gens["epoch"], hp, env.action_size, dev)
-        ts, state, _ = ppo.training_step(ts, te, state, draws, hp)
+        ts, state, _ = ppo.training_step(ts, te, state, draws, hp, sgd=cap)
         torch.cuda.synchronize()
         untraced_s = time.perf_counter() - t0
+
+    def sgd(*a, **k):
+        with profiling.annotate("sgd_step"):
+            return cap(*a, **k)
 
     draws = ppo.draw_training_step(gens["epoch"], hp, env.action_size, dev)
     torch.cuda.synchronize()
     env.physics.launches = 0
     with contextlib.ExitStack() as stack:
-        for obj, attr, label in ((ppo, "rollout", "rollout"), (TrainEnv, "step", "env_step"),
-                                 (ppo, "sgd_step", "sgd_step"), (nets, "rs_update", "normalizer"),
-                                 (ppo, "loss_fn", "loss_fn"), (torch.autograd, "grad", "backward"),
-                                 (optim, "clip_by_global_norm", "clip"), (optim, "adam", "adam")):
+        for obj, attr, label in ((ppo, "rollout", "rollout"), (TrainEnv, "step", "env_step")):
             _annotated(stack, obj, attr, label)
         with profiling.trace(out_dir, device=dev):
             with profiling.annotate("training_step"):
-                ts, state, losses = ppo.training_step(ts, te, state, draws, hp)
+                ts, state, losses = ppo.training_step(ts, te, state, draws, hp, sgd=sgd)
                 torch.cuda.synchronize()
     launches = env.physics.launches
-    regions = ("training_step", "rollout", "env_step", "sgd_step", "normalizer", "loss_fn",
-               "backward", "clip", "adam")
-    trace = read_trace(os.path.join(out_dir, "trace.json"))
-    adam_ends = sorted(e for _, e in trace[0]["adam"])
-    prev = sorted(e for _, e in trace[0]["normalizer"]) + adam_ends
-    split = trace_split(trace, regions + (("minibatch", list(zip(prev[:-1], adam_ends))),))
+    regions = ("training_step", "rollout", "env_step", "sgd_step")
+    split = trace_split(read_trace(os.path.join(out_dir, "trace.json")), regions)
     finite = all(math.isfinite(float(v)) for v in losses.values())
+    sgd_split = split["sgd_step"]
+    per_mb = sgd_split["host_calls"] / mb_steps
     log(f"[profile] training step flat_terrain_backlash B={hp.num_envs} DR on, {mb_steps} "
-        f"minibatch steps: {untraced_s:.3f} s untraced, {split['training_step']['host_ms'] / 1e3:.3f} "
-        f"s traced; {split['_device_events']} device events, {split['_unattributed']} without "
-        f"their launch; kernel launches counted {launches}")
-    log_split("sgd", split, top_of=("training_step", "rollout", "sgd_step", "minibatch"))
+        f"minibatch steps in one captured SGD step: {untraced_s:.3f} s untraced, "
+        f"{split['training_step']['host_ms'] / 1e3:.3f} s traced; {split['_device_events']} device "
+        f"events, {split['_unattributed']} without their launch; kernel launches counted {launches}")
+    log_split("sgd", split, top_of=("training_step", "rollout", "sgd_step"))
     fused_rollout = split["rollout"]["fused_per_instance"]
     fused_steps = split["env_step"]["fused_per_instance"]
-    ok = (finite and launches == hp.unroll_length and fused_rollout == [hp.unroll_length]
-          and fused_steps == [1] * hp.unroll_length
-          and sum(split["sgd_step"]["fused_per_instance"]) == 0
-          and all(split[r]["instances"] == mb_steps
-                  for r in ("loss_fn", "backward", "clip", "adam", "minibatch")))
+    ok = passed("profile training step", finite=finite, launches=launches == hp.unroll_length,
+                fused_in_rollout=fused_rollout == [hp.unroll_length],
+                one_fused_launch_per_env_step=fused_steps == [1] * hp.unroll_length,
+                no_fused_in_sgd=sum(sgd_split["fused_per_instance"]) == 0,
+                one_sgd_step=sgd_split["instances"] == 1,
+                one_graph_launch=sgd_split["graph_launches"] == 1,
+                host_launches_per_minibatch_step=per_mb <= 4)
     log(f"[profile] training step: fused kernel launches per env_step {fused_steps}, in the "
-        f"rollout {sum(fused_rollout)}, in the SGD step {sum(split['sgd_step']['fused_per_instance'])}; "
+        f"rollout {sum(fused_rollout)}, in the SGD step {sum(sgd_split['fused_per_instance'])}; "
+        f"SGD step: {sgd_split['graph_launches']:.0f} graph replay, {per_mb:.3f} host launches "
+        f"per minibatch step (limit 4), device idle {100 * sgd_split['idle_share']:.1f}%; "
         f"{'OK' if ok else 'FAIL'}")
     return dict(ok=ok, untraced_s=untraced_s, split=split, fused_launches=sum(fused_rollout))
 
@@ -1501,7 +1667,8 @@ def deploy_hooks(onnx: str) -> dict:
         for k, f in enumerate(video.frames)))
     cmd = [float(o[6]) for o in inf.saved_obs]
     cmd_ok = ticks > 10 and cmd == [0.0] * 10 + [0.1] * (ticks - 10)
-    ok = inf.physics.launches == 1 + ticks and tele.polls == ticks and frames_ok and cmd_ok
+    ok = passed("profile deploy hooks", launches=inf.physics.launches == 1 + ticks,
+                polls=tele.polls == ticks, frames=frames_ok, command=cmd_ok)
     log(f"[profile] deploy hooks: {ticks} ticks in {wall:.3f} s, launches {inf.physics.launches} "
         f"(want {1 + ticks}); {len(video.frames)} frames, bit-identical to the ticks' qpos "
         f"{frames_ok}; obs command from tick 10 {cmd_ok}; {'OK' if ok else 'FAIL'}")
@@ -1515,8 +1682,8 @@ def gait_playback() -> dict:
 
     feet = {d: ref_motion_viewer.playback(periods=2, out=None, device=d) for d in ("cuda", "cpu")}
     err = float(np.abs(feet["cuda"] - feet["cpu"]).max())
-    ok = feet["cuda"].shape == feet["cpu"].shape and np.isfinite(feet["cuda"]).all() \
-        and err <= PLAYBACK_ATOL_M
+    ok = passed("profile gait playback", shape=feet["cuda"].shape == feet["cpu"].shape,
+                finite=bool(np.isfinite(feet["cuda"]).all()), feet=err <= PLAYBACK_ATOL_M)
     log(f"[profile] gait playback: {feet['cuda'].shape[0]} ticks; feet max |cuda - cpu| {err:.3g} m "
         f"(limit {PLAYBACK_ATOL_M}); {'OK' if ok else 'FAIL'}")
     return dict(ok=ok, max_abs_err=err)
@@ -1631,7 +1798,15 @@ def main() -> int:
     if not (ok and flat["ok"] and rough["ok"] and trainer["ok"]
             and all(run["ok"] for run in sharded) and standing["ok"] and deploy["ok"]
             and pipeline["ok"] and profiled["ok"]):
-        log("[chip_smoke] FAILED")
+        phases = {"2 kernel vs twin": ok, "3 flat main path": flat["ok"],
+                  "3b rough main path": rough["ok"], "4 trainer": trainer["ok"],
+                  "5 sharded trainer": all(run["ok"] for run in sharded),
+                  "6 standing trainer": standing["ok"], "7 deploy": deploy["ok"],
+                  "8 pipeline": pipeline["ok"], "9 profile and deploy tools": profiled["ok"]}
+        summary = (f"[chip_smoke] FAILED phases {[k for k, v in phases.items() if not v]}; "
+                   f"failed checks {json.dumps(FAILED)}; gpu {gpu_line()}")
+        log(summary)
+        print(summary, file=sys.stderr, flush=True)
         return 1
     step_kernel = kernel_entry("fused_physics_step", "open_duck_playground_tpu/ops/pallas_step.py:225",
                                flat, report, f"{FLAT_MAIN[0]} B={FLAT_MAIN[1]} dr=1 step")

@@ -250,12 +250,16 @@ class OpenDuckMiniV2Env:
 
     # --- tasks: tables and draws ------------------------------------------------
     def _task_tables(self) -> None:
-        """The home keyframe, the IMU site, the feet and the joint noise
-        scales, on the env's device."""
+        """The home keyframe, the IMU site, the feet, the joint noise scales
+        and the world's up and down axes, on the env's device (made once: a
+        tensor built from a Python list is a host copy and a host wait on
+        every step that builds it)."""
         m = self._model
         dev = self.device
         kf = m.keyframe("home")
         self._init_q = torch.tensor(kf.qpos, dtype=torch.float32, device=dev)
+        self._z_axis = torch.tensor([0.0, 0.0, 1.0], device=dev)
+        self._down = torch.tensor([0.0, 0.0, -1.0], device=dev)
         self._default_actuator = torch.tensor(kf.ctrl, dtype=torch.float32, device=dev)
         self._site_id = m.site("imu")
         self._feet_site_id = torch.as_tensor([m.site(n) for n in constants.FEET_SITES],
@@ -307,7 +311,7 @@ class OpenDuckMiniV2Env:
         a = self._floating_base_qpos_addr
         qpos[:, a : a + 2] += self._uniform((B, 2), -0.05, 0.05, g)
         yaw = self._uniform((B,), -3.14, 3.14, g)
-        quat = m3.axis_angle_to_quat(torch.tensor([0.0, 0.0, 1.0], device=dev), yaw)
+        quat = m3.axis_angle_to_quat(self._z_axis, yaw)
         qpos[:, a + 3 : a + 7] = m3.quat_mul(qpos[:, a + 3 : a + 7], quat)
         qpos[:, self._actuator_qpos_addr] = self.get_actuator_joints_qpos(
             qpos) * self._uniform((B, model.nu), 0.5, 1.5, g)
@@ -412,8 +416,7 @@ class OpenDuckMiniV2Env:
             r["accelerometer"], cfg.scales.accelerometer, g)
 
         R = data.site_xmat[:, self._site_id]
-        down = torch.tensor([0.0, 0.0, -1.0], device=self.device)
-        r["gravity"] = torch.matmul(R.transpose(1, 2), down)
+        r["gravity"] = torch.matmul(R.transpose(1, 2), self._down)
         noisy_gravity = r["gravity"] + self._noise(r["gravity"], cfg.scales.gravity, g)
         imu_history = torch.roll(info["imu_history"], 3, dims=1)
         imu_history[:, :3] = noisy_gravity

@@ -135,9 +135,12 @@ class RunningStatisticsState:
 
 
 def rs_init(obs_sizes: Dict[str, int], device=None) -> RunningStatisticsState:
-    zeros = {k: torch.zeros(v, device=device) for k, v in obs_sizes.items()}
+    """A fresh state; every tensor its own (the SGD step updates them in place)."""
+    def zeros():
+        return {k: torch.zeros(v, device=device) for k, v in obs_sizes.items()}
+
     return RunningStatisticsState(
-        count=torch.zeros((), device=device), mean=zeros, summed_variance=dict(zeros),
+        count=torch.zeros((), device=device), mean=zeros(), summed_variance=zeros(),
         std={k: torch.ones(v, device=device) for k, v in obs_sizes.items()})
 
 

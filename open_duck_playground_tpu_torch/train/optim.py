@@ -12,6 +12,15 @@ The arithmetic follows optax term for term:
   correction by the incremented count, ``eps`` outside the sqrt, then
   ``p + (-lr) * update``.
 No step reads a value back to the host.
+
+The state's tensors are persistent buffers: ``adam`` updates the count and
+the moments in place, as it does the params, so that a captured CUDA graph
+of the SGD step (``ppo.CapturedSGDStep``) reads and writes the same
+addresses at every replay. Each moment is still the functional update term
+for term, every product and sum rounded on its own (a fused
+``m.mul_(b1).add_(g, alpha=1-b1)`` or ``lerp`` could round as one FMA), so
+the result is the functional one bit for bit. A restore copies into the
+buffers (``copy_state_``); it does not rebind them.
 """
 
 from __future__ import annotations
@@ -50,18 +59,29 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> List[
 def adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], state: AdamState,
          learning_rate: float, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> AdamState:
-    """One Adam step: updates `params` in place, returns the new state."""
-    mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, state.mu)]
-    nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)]
-    count = state.count + 1
-    bc1 = 1 - b1 ** count.to(torch.float32)
-    bc2 = 1 - b2 ** count.to(torch.float32)
-    for p, m, v in zip(params, mu, nu):
+    """One Adam step: updates `params` and `state` in place, returns `state`."""
+    for g, m, v in zip(grads, state.mu, state.nu):
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * (g * g))
+    state.count.add_(1)
+    bc1 = 1 - b1 ** state.count.to(torch.float32)
+    bc2 = 1 - b2 ** state.count.to(torch.float32)
+    for p, m, v in zip(params, state.mu, state.nu):
         update = (m / bc1) / (torch.sqrt(v / bc2) + eps)
         p.copy_(p + (-learning_rate) * update)
-    return AdamState(count=count, mu=mu, nu=nu)
+    return state
 
 
 def clone_state(state: AdamState) -> AdamState:
     return AdamState(count=state.count.clone(), mu=[m.clone() for m in state.mu],
                      nu=[v.clone() for v in state.nu])
+
+
+@torch.no_grad()
+def copy_state_(dst: AdamState, src: AdamState) -> AdamState:
+    """`src`'s values copied into `dst`'s buffers; returns `dst`."""
+    if len(dst.mu) != len(src.mu):
+        raise ValueError(f"{len(src.mu)} moments into a state of {len(dst.mu)}")
+    for a, b in zip([dst.count, *dst.mu, *dst.nu], [src.count, *src.mu, *src.nu]):
+        a.copy_(b)
+    return dst

@@ -14,6 +14,10 @@ per-minibatch entropy noise, as tensors. ``train`` makes them from its own
 
 The learner's products, its Adam and its GAE are plain PyTorch; every env
 step goes through the env's physics (the fused CUDA kernel on the card).
+On the card at world size 1 the whole SGD step of a training step is one
+CUDA graph replay (``CapturedSGDStep``), the counterpart of the JAX
+package's jitted SGD step; on the CPU and in env-sharded runs its body,
+``sgd_step``, runs eagerly (``make_sgd_step`` picks, and train() logs which).
 
 Env-sharded runs (``shard``, ``parallel/dist.py``) keep the JAX package's
 global view: every draw is made at the global shape on every rank, each
@@ -24,7 +28,6 @@ world size 1 no collective runs and the arithmetic is the one-device one.
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import functools
 import json
@@ -220,8 +223,13 @@ def sgd_step(training_state: TrainingState, data: Transition, perms: torch.Tenso
     per-epoch env permutations (minibatch j of epoch e takes envs
     perms[e, j*b:(j+1)*b] at every t, as `take(perm, axis=1)` then
     `reshape(T, nmb, b).swapaxes(0, 1)`); `entropy_noise` [epochs, nmb, T,
-    b, action_size]. The params are updated in place; returns
+    b, action_size]. The params, the Adam state and the normalizer are
+    updated in place (the same tensors before and after); returns
     (training_state, {name: [epochs, nmb] losses}).
+
+    This is the one body of the SGD step: run eagerly on the CPU and in an
+    env-sharded run, captured as a CUDA graph on the card at world size 1
+    (`CapturedSGDStep`). It reads nothing back to the host.
 
     With a shard of world > 1, `data` holds this rank's envs and the draws
     are the global ones: the normalizer takes the global batch's
@@ -230,10 +238,9 @@ def sgd_step(training_state: TrainingState, data: Transition, perms: torch.Tenso
     ranks in one all-reduce per minibatch, before the clip and Adam, so
     that every rank makes the same update."""
     sharded = shard is not None and shard.world > 1
+    normalizer = training_state.normalizer
     if hp.normalize_observations:
-        normalizer = nets.rs_update(training_state.normalizer, data.observation, shard=shard)
-    else:
-        normalizer = training_state.normalizer
+        _copy_into(normalizer, nets.rs_update(normalizer, data.observation, shard=shard))
     networks = training_state.params
     params = list(networks.parameters())
     opt_state = training_state.opt_state
@@ -254,11 +261,158 @@ def sgd_step(training_state: TrainingState, data: Transition, perms: torch.Tenso
                 grads, mb_aux = _sum_over_ranks(grads, mb_aux, shard)
             if hp.max_grad_norm is not None:
                 grads = optim.clip_by_global_norm(grads, hp.max_grad_norm)
-            opt_state = optim.adam(params, grads, opt_state, hp.learning_rate)
+            optim.adam(params, grads, opt_state, hp.learning_rate)
             aux.append(mb_aux)
     stacked = {k: torch.stack([a[k] for a in aux]).reshape(
         hp.num_updates_per_batch, hp.num_minibatches) for k in aux[0]}
-    return training_state.replace(normalizer=normalizer, opt_state=opt_state), stacked
+    return training_state, stacked
+
+
+def learner_tensors(training_state: TrainingState) -> list:
+    """The tensors an SGD step updates in place, in a fixed order: the
+    params, the Adam count and moments, the normalizer."""
+    norm: Dict[str, torch.Tensor] = {}
+    _tensors(training_state.normalizer, "normalizer", norm)
+    opt = training_state.opt_state
+    return [*training_state.params.parameters(), opt.count, *opt.mu, *opt.nu, *norm.values()]
+
+
+def snapshot_learner(training_state: TrainingState) -> list:
+    """Copies of learner_tensors, for `restore_learner`."""
+    return [t.detach().clone() for t in learner_tensors(training_state)]
+
+
+@torch.no_grad()
+def restore_learner(training_state: TrainingState, saved: list) -> None:
+    """Copy a `snapshot_learner` back into the state's own tensors."""
+    for t, s in zip(learner_tensors(training_state), saved, strict=True):
+        t.copy_(s)
+
+
+@torch.no_grad()
+def _copy_into(dst, src) -> None:
+    """Every tensor of `src` copied into the tensor at the same place of
+    `dst` (nested dicts and dataclasses of one structure)."""
+    a: Dict[str, torch.Tensor] = {}
+    b: Dict[str, torch.Tensor] = {}
+    _tensors(dst, "", a)
+    _tensors(src, "", b)
+    if a.keys() != b.keys() or any(t.shape != b[k].shape for k, t in a.items()):
+        raise ValueError(f"cannot copy {({k: tuple(v.shape) for k, v in b.items()})} into "
+                         f"{({k: tuple(v.shape) for k, v in a.items()})}")
+    for k, t in a.items():
+        t.copy_(b[k])
+
+
+class CapturedSGDStep:
+    """`sgd_step` captured as one CUDA graph and replayed once per training
+    step, on a CUDA device at world size 1: the JAX package's jitted SGD
+    step (normalizer + epochs x minibatches in one program), here ~88,000
+    kernel launches recorded once and replayed by one host call.
+
+    Called as `sgd_step` is. The graph reads and writes fixed addresses:
+    the params, Adam state and normalizer of the `training_state` it was
+    made for (every call must hand that state's own tensors; a restore
+    copies into them), and static copies of the rollout's Transition, the
+    permutations and the entropy noise, into which each call copies its
+    inputs (one copy per tensor, then one replay; the loss terms come back
+    as copies of the graph's outputs).
+
+    The first call captures: a warm-up runs the body eagerly on a side
+    stream (cuBLAS handles, autograd state), the learner's tensors are
+    restored from a snapshot taken before it, the body is captured on that
+    stream (capture executes nothing) and instantiated, and the replay
+    then applies the step, once. A capture or replay that fails raises;
+    nothing falls back to the eager body.
+
+    The env-sharded step stays eager: `_members` gives each rank
+    minibatches whose size varies per draw, which a static graph cannot
+    hold, and gloo collectives stage through the host."""
+
+    def __init__(self, training_state: TrainingState, hp: Hyper, log=None):
+        dev = training_state.env_steps.device
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {dev}: the CPU runs "
+                             "sgd_step eagerly")
+        self.hp, self.device, self.log = hp, dev, log
+        self._learner = learner_tensors(training_state)
+        self.graph = None
+        self.replays = 0
+        self.info: Dict[str, Any] = {}
+
+    def __call__(self, training_state: TrainingState, data: Transition, perms: torch.Tensor,
+                 entropy_noise: torch.Tensor, hp: Hyper, shard: Optional[EnvShard] = None):
+        if hp != self.hp:
+            raise ValueError("the captured SGD step was made for other hyperparameters")
+        if shard is not None and shard.world > 1:
+            raise ValueError("the env-sharded SGD step runs eagerly (sgd_step)")
+        mine = learner_tensors(training_state)
+        if len(mine) != len(self._learner) or any(a is not b for a, b in zip(mine, self._learner)):
+            raise ValueError("the captured SGD step updates the tensors of the state it was "
+                             "made for: restore into them (restore_full_state), do not rebind")
+        inputs = {"data": data, "perms": perms, "entropy_noise": entropy_noise}
+        if self.graph is None:
+            self._capture(training_state, inputs)
+        else:
+            _copy_into(self.inputs, inputs)
+        self.graph.replay()
+        self.replays += 1
+        return training_state, {k: v.clone() for k, v in self.losses.items()}
+
+    def _capture(self, training_state: TrainingState, inputs: Dict[str, Any]) -> None:
+        self.inputs = _map(torch.clone, inputs)
+        saved = snapshot_learner(training_state)
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            sgd_step(training_state, **self.inputs, hp=self.hp)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        restore_learner(training_state, saved)
+        torch.cuda.synchronize(self.device)
+        warmup_s = time.perf_counter() - t0
+        del saved
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=stream):
+            _, self.losses = sgd_step(training_state, **self.inputs, hp=self.hp)
+        capture_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph.instantiate()
+        torch.cuda.synchronize(self.device)
+        self.graph = graph
+        static: Dict[str, torch.Tensor] = {}
+        _tensors(self.inputs, "", static)
+        self.info = {"warmup_s": round(warmup_s, 4), "capture_s": round(capture_s, 4),
+                     "instantiate_s": round(time.perf_counter() - t0, 4),
+                     "pool_bytes": torch.cuda.memory_reserved(self.device) - reserved,
+                     "static_input_bytes": sum(t.numel() * t.element_size()
+                                               for t in static.values())}
+        if self.log is not None:
+            self.log(f"[ppo] SGD step captured: {json.dumps(self.info)}")
+
+
+def make_sgd_step(training_state: TrainingState, hp: Hyper, shard: Optional[EnvShard] = None,
+                  log=None):
+    """The SGD step train() runs, and the log line that says which: the
+    captured graph on a CUDA device at world size 1, else the eager body
+    (the CPU has no CUDA graph; the env-sharded step is not static)."""
+    dev = training_state.env_steps.device
+    if shard is not None and shard.world > 1:
+        how = (f"eager at world {shard.world} (each rank's minibatches vary in size per draw, "
+               "which a static graph cannot hold)")
+        fn = sgd_step
+    elif dev.type == "cuda":
+        how = f"one CUDA graph replay per training step on {dev}, captured at its first call"
+        fn = CapturedSGDStep(training_state, hp, log)
+    else:
+        how = f"eager on {dev} (no CUDA graph on the CPU)"
+        fn = sgd_step
+    if log is not None:
+        log(f"[ppo] SGD step: {how}")
+    return fn
 
 
 def _members(perms: torch.Tensor, shard: EnvShard, hp: Hyper):
@@ -307,8 +461,9 @@ def draw_training_step(generator: torch.Generator, hp: Hyper, action_size: int, 
 
 
 def training_step(training_state: TrainingState, train_env: TrainEnv, env_state, draws,
-                  hp: Hyper, shard: Optional[EnvShard] = None):
-    """Rollout with the current (normalizer, params), then the SGD step.
+                  hp: Hyper, shard: Optional[EnvShard] = None, sgd=sgd_step):
+    """Rollout with the current (normalizer, params), then the SGD step
+    `sgd` (`sgd_step`, or a CapturedSGDStep of this state).
     Returns (training_state, env_state, {name: mean loss}). With a shard,
     `env_state` is this rank's rows and `draws` the global draws: the
     rollout takes its rows of the policy noise."""
@@ -317,7 +472,7 @@ def training_step(training_state: TrainingState, train_env: TrainEnv, env_state,
         noise = shard.take(noise, dim=1)
     env_state, data = rollout(train_env, env_state, training_state.normalizer,
                               training_state.params, noise)
-    training_state, aux = sgd_step(training_state, data, perms, ent, hp, shard)
+    training_state, aux = sgd(training_state, data, perms, ent, hp, shard)
     training_state = training_state.replace(
         env_steps=training_state.env_steps + hp.env_steps_per_training_step)
     return training_state, env_state, {k: v.mean() for k, v in aux.items()}
@@ -443,10 +598,11 @@ def restore_full_state(arrays: Dict[str, np.ndarray], training_state: TrainingSt
                        env_state, generators: Dict[str, torch.Generator],
                        shard: Optional[EnvShard] = None):
     """Inverse of `full_state` against templates of the same run: loads the
-    params in place, sets each generator's state, and returns
-    (training_state, env_state). With a shard, this rank takes its rows of
-    the global env batch, so a state saved at any world size restores at
-    any other that divides its envs."""
+    params, the Adam state and the normalizer into the template's own
+    tensors (a captured SGD step keeps updating them), sets each
+    generator's state, and returns (training_state, env_state). With a
+    shard, this rank takes its rows of the global env batch, so a state
+    saved at any world size restores at any other that divides its envs."""
     if shard is not None:
         arrays = {k: (v[shard.rows(v.shape[0])] if k.startswith("env_state/") else v)
                   for k, v in arrays.items()}
@@ -458,15 +614,15 @@ def restore_full_state(arrays: Dict[str, np.ndarray], training_state: TrainingSt
     nw = training_state.params
     dev = training_state.env_steps.device
     interop.ppo_params_from_numpy(tree("training_state/params"), nw)
-    opt = tree("training_state/opt_state")
-    opt_state = interop.adam_state_from_numpy(opt, nw, dev)
-    normalizer = _rebuild(training_state.normalizer, "training_state/normalizer", arrays)
+    optim.copy_state_(training_state.opt_state,
+                      interop.adam_state_from_numpy(tree("training_state/opt_state"), nw, dev))
+    _copy_into(training_state.normalizer,
+               _rebuild(training_state.normalizer, "training_state/normalizer", arrays))
     env_steps = _rebuild(training_state.env_steps, "training_state/env_steps", arrays)
     env_state = _rebuild(env_state, "env_state", arrays)
     for name, g in generators.items():
         g.set_state(torch.as_tensor(arrays[f"generators/{name}"]))
-    return training_state.replace(normalizer=normalizer, opt_state=opt_state,
-                                  env_steps=env_steps), env_state
+    return training_state.replace(env_steps=env_steps), env_state
 
 
 def seeded_generators(seed: int, device) -> Dict[str, torch.Generator]:
@@ -619,7 +775,7 @@ def train(
         for _ in range(num_training_steps_per_epoch):
             draws = draw_training_step(g_epoch, hp, action_size, dev)
             training_state, env_state, m = training_step(
-                training_state, train_env, env_state, draws, hp, shard)
+                training_state, train_env, env_state, draws, hp, shard, sgd)
             step_metrics.append(m)
         metrics = {k: torch.stack([m[k] for m in step_metrics]).mean() for k in step_metrics[0]}
         return training_state, env_state, metrics
@@ -673,6 +829,9 @@ def train(
             log(f"[ppo] resumed full train state from {resume_path} (epoch "
                 f"{resume_epoch}, env_steps {int(training_state.env_steps)})")
 
+    # after any restore: a captured step updates this state's own tensors
+    sgd = make_sgd_step(training_state, hp, shard, log)
+
     def _save_full_state(epoch_i: int, directory: Optional[str] = save_full_state_dir):
         if directory is None:
             return
@@ -709,11 +868,13 @@ def train(
         shard.barrier()
 
     if profile_breakdown:
-        # Time the real rollout, SGD step, training step, eval and full-state
-        # save, each run twice and timed the second time. Training is left
-        # as it is: the rollouts and evals draw from throwaway generators and
-        # the envs' own generators are restored afterwards; SGD runs on
-        # copies of the params and the optimizer state; outputs are dropped.
+        # Time the real rollout, SGD step (the one the loop runs: on the card
+        # at world 1, its graph, captured by the first of these calls),
+        # training step, eval and full-state save, each run twice and timed
+        # the second time. Training is left as it is: the rollouts and evals
+        # draw from throwaway generators and the envs' own generators are
+        # restored afterwards; the SGD steps update the learner's own
+        # tensors, which are restored from a snapshot; outputs are dropped.
         # Every rank runs the same passes, so the collectives stay in step.
         def _timed(fn):
             fn()
@@ -725,10 +886,6 @@ def train(
 
         def throwaway():
             return torch.Generator(device=dev).manual_seed(0xB0)
-
-        def copied(ts):
-            return ts.replace(params=copy.deepcopy(ts.params),
-                              opt_state=optim.clone_state(ts.opt_state))
 
         env_gens = {k: g.get_state() for k, g in generators.items() if k in ("env", "eval_env")}
         draws0 = draw_training_step(throwaway(), hp, action_size, dev)
@@ -742,25 +899,27 @@ def train(
             shard.take(draws0[0], dim=1)))
         bd["rollout_s"] = round(t_roll, 4)
         bd["rollout_env_sps"] = round(num_envs * unroll_length / t_roll, 1)
-        ts0 = copied(training_state)
-        t_sgd, _ = _timed(lambda: sgd_step(ts0, data0, draws0[1], draws0[2], hp, shard))
+        saved = snapshot_learner(training_state)
+        t_sgd, _ = _timed(lambda: sgd(training_state, data0, draws0[1], draws0[2], hp, shard))
         bd["sgd_s"] = round(t_sgd, 4)
+        if isinstance(sgd, CapturedSGDStep):
+            bd["sgd_graph"] = sgd.info
         if shard.world > 1:
             # once more with every collective between two device
             # synchronizations: their count and time within an SGD step
-            ts0 = copied(training_state)
             n0, shard.collective_s, shard.timed = shard.collectives, 0.0, True
             try:
-                sgd_step(ts0, data0, draws0[1], draws0[2], hp, shard)
+                sgd(training_state, data0, draws0[1], draws0[2], hp, shard)
             finally:
                 shard.timed = False
             bd["sgd_collectives"] = shard.collectives - n0
             bd["sgd_collective_s"] = round(shard.collective_s, 4)
-        ts0 = copied(training_state)
-        t_step, _ = _timed(lambda: training_step(ts0, train_env, env_state, draws0, hp, shard))
+        t_step, _ = _timed(lambda: training_step(training_state, train_env, env_state, draws0,
+                                                 hp, shard, sgd))
         bd["training_step_s"] = round(t_step, 4)
         bd["e2e_env_sps"] = round(env_step_per_training_step / t_step, 1)
-        del data0, ts0, draws0
+        restore_learner(training_state, saved)
+        del data0, draws0, saved
         if eval_wrapped is not None:
             t_eval, _ = _timed(lambda: evaluate(
                 (training_state.normalizer, training_state.params), throwaway()))
@@ -814,5 +973,7 @@ def train(
                 f"after epoch {epoch_i}")
             break
 
+    if isinstance(sgd, CapturedSGDStep):
+        log(f"[ppo] SGD step: {sgd.replays} graph replays")
     full_params = (training_state.normalizer, training_state.params)
     return make_policy, full_params, metrics

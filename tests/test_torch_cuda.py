@@ -294,6 +294,101 @@ def test_trace_sees_one_fused_launch_per_env_step(card, root, tmp_path):
                                    ("env_step",))
     assert split["env_step"]["fused_per_instance"] == [1, 1, 1]
     assert split["env_step"]["launches"] > 1 and split["_unattributed"] == 0
+    assert split["env_step"]["waits"] == 0  # no host value made into a tensor per step
+
+
+def _small_trainer_inputs(card):
+    """A 64-env flat backlash DR env through the kernel and train()'s init
+    at (32, 16) networks, with hyperparameters for 4 minibatches of 16, 2
+    updates, unroll 8."""
+    import dataclasses
+    import inspect
+
+    from open_duck_playground_tpu_torch.train import ppo
+
+    num_envs = 64
+    kw = dict(num_envs=num_envs, unroll_length=8, num_minibatches=4, batch_size=16,
+              num_updates_per_batch=2)
+    defaults = inspect.signature(ppo.train).parameters
+    hp = ppo.Hyper(**{f.name: kw.get(f.name, defaults[f.name].default)
+                      for f in dataclasses.fields(ppo.Hyper)})
+    gens = ppo.seeded_generators(0, card)
+    env = Joystick("flat_terrain_backlash", device=card)
+    te = TrainEnv(env, num_envs=num_envs, episode_length=1000,
+                  randomization_fn=randomize.domain_randomize,
+                  randomization_generator=gens["randomization"])
+    nf = {"policy_hidden_layer_sizes": (32, 16), "value_hidden_layer_sizes": (32, 16)}
+    obs_sizes = {k: v[0] for k, v in env.observation_size.items()}
+
+    def init():
+        return ppo.init_training_state(obs_sizes, env.action_size, nf,
+                                       ppo.seeded_generators(0, card)["net"], card)
+
+    return hp, gens, env, te, init
+
+
+@pytest.mark.cuda
+def test_captured_sgd_step_matches_eager_body(card, root):
+    """ppo.CapturedSGDStep against the eager ppo.sgd_step on the card, on the
+    same rollouts and draws for 3 SGD steps: params, Adam state, normalizer
+    and loss terms bit for bit, one replay per step. Then both states take a
+    full state, are restored from it (into the captured buffers: the graph
+    keeps them) and take one more step: still bit for bit."""
+    from open_duck_playground_tpu_torch.train import ppo
+
+    hp, gens, env, te, init = _small_trainer_inputs(card)
+    eager, graphed = init(), init()
+    cap = ppo.CapturedSGDStep(graphed, hp)
+    state = te.reset(gens["reset"])
+
+    def step(state):
+        noise, perms, ent = ppo.draw_training_step(gens["epoch"], hp, env.action_size, card)
+        state, data = ppo.rollout(te, state, eager.normalizer, eager.params, noise)
+        _, la = ppo.sgd_step(eager, data, perms, ent, hp)
+        _, lb = cap(graphed, data, perms, ent, hp)
+        for a, b in zip(ppo.learner_tensors(eager), ppo.learner_tensors(graphed)):
+            assert torch.equal(a, b)
+        assert all(torch.equal(la[k], lb[k]) for k in la)
+        return state
+
+    for _ in range(3):
+        state = step(state)
+    assert cap.replays == 3 and cap.info["pool_bytes"] > 0
+    saved = ppo.full_state_to_numpy(ppo.full_state(eager, None, {}))
+    for ts in (eager, graphed):
+        ppo.restore_full_state(saved, ts, None, {})
+    step(state)
+    assert cap.replays == 4
+
+
+@pytest.mark.cuda
+def test_profile_breakdown_leaves_captured_training_untouched(card, root):
+    """ppo.train on the card (64 flat backlash DR envs, one epoch of two
+    training steps, no eval env) with and without profile_breakdown: the
+    breakdown captures the graph and times its replays on throwaway draws,
+    and the same seed gives bit-identical params and normalizer."""
+    from open_duck_playground_tpu_torch import interop
+    from open_duck_playground_tpu_torch.train import ppo
+
+    def run(profile_breakdown):
+        env = Joystick("flat_terrain_backlash", device=card)
+        _, (normalizer, params), _ = ppo.train(
+            env, None, num_timesteps=2 * 64 * 8, episode_length=100, num_envs=64,
+            unroll_length=8, num_minibatches=4, batch_size=16, num_updates_per_batch=2,
+            num_evals=2, randomization_fn=randomize.domain_randomize,
+            network_factory={"policy_hidden_layer_sizes": (32, 16),
+                             "value_hidden_layer_sizes": (32, 16)},
+            profile_breakdown=profile_breakdown)
+        return interop.normalizer_to_numpy(normalizer), list(params.parameters())
+
+    norm_a, params_a = run(False)
+    norm_b, params_b = run(True)
+    assert "sgd_graph" in ppo.LAST_PROFILE_BREAKDOWN
+    for f in ("mean", "summed_variance", "std"):
+        for k in norm_a[f]:
+            assert (norm_a[f][k] == norm_b[f][k]).all()
+    assert norm_a["count"] == norm_b["count"] == 2 * 64 * 8
+    assert all(torch.equal(a, b) for a, b in zip(params_a, params_b))
 
 
 @pytest.mark.cuda

@@ -1,0 +1,252 @@
+"""The trainer's SGD step over persistent buffers, on the CPU.
+
+On the card at world size 1 the SGD step is one CUDA graph
+(`ppo.CapturedSGDStep`) over the params, the Adam state and the normalizer,
+updated in place. Its body, `ppo.sgd_step`, is what the CPU runs eagerly;
+it must give what the functional step gave before the buffers became
+persistent, bit for bit, over consecutive steps (a step that aliased or
+rebound a buffer would show on the second). The functional step and Adam
+are kept below as the oracle, as they stood before.
+
+Inputs are seeded numpy at a small size: 64 envs, 4 minibatches of 16, 2
+updates per batch, unroll 5, (32, 16) networks. The replay against the
+eager body on the card is `tests/test_torch_cuda.py`
+(test_captured_sgd_step_matches_eager_body).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
+from open_duck_playground_tpu_torch.parallel.dist import EnvShard
+from open_duck_playground_tpu_torch.train import networks as nets
+from open_duck_playground_tpu_torch.train import optim, ppo
+from tests.duck_standin import write_standin
+
+pytest_plugins = ["tests.torch_lock"]  # never beside tests/test_resume.py (see there)
+
+OBS = {"state": 12, "privileged_state": 20}
+ACT = 4
+N, T, NMB, B, E = 64, 5, 4, 16, 2
+NF = {"policy_hidden_layer_sizes": (32, 16), "value_hidden_layer_sizes": (32, 16)}
+
+
+def _hyper(normalize_observations=True, max_grad_norm=1.0) -> ppo.Hyper:
+    return ppo.Hyper(num_envs=N, unroll_length=T, num_minibatches=NMB, batch_size=B,
+                     num_updates_per_batch=E, action_repeat=1, learning_rate=3e-4,
+                     entropy_cost=5e-3, discounting=0.97, gae_lambda=0.95,
+                     clipping_epsilon=0.2, normalize_advantage=True, reward_scaling=1.0,
+                     normalize_observations=normalize_observations, max_grad_norm=max_grad_norm)
+
+
+def _state(seed: int) -> ppo.TrainingState:
+    return ppo.init_training_state(OBS, ACT, NF, torch.Generator().manual_seed(seed), "cpu")
+
+
+def _clone(ts: ppo.TrainingState) -> ppo.TrainingState:
+    params = nets.PPONetworks(OBS, ACT, **NF)
+    params.load_state_dict(ts.params.state_dict())
+    return ts.replace(params=params, opt_state=optim.clone_state(ts.opt_state),
+                      normalizer=ppo._map(torch.clone, ts.normalizer))
+
+
+def _inputs(ts: ppo.TrainingState, seed: int):
+    """A seeded rollout's Transition (actions, raw actions and log probs from
+    the state's policy), per-epoch permutations and entropy noise."""
+    rng = np.random.RandomState(seed)
+    f32 = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))  # noqa: E731
+    obs = {k: f32(T, N, n) * 2.0 + 0.5 for k, n in OBS.items()}
+    nxt = {k: v + 0.1 * f32(T, N, v.shape[-1]) for k, v in obs.items()}
+    action, raw, log_prob = nets.sample_actions(ts.params, ts.normalizer, obs, f32(T, N, ACT))
+    done = torch.from_numpy((rng.rand(T, N) < 0.1).astype(np.float32))
+    trunc = torch.from_numpy((rng.rand(T, N) < 0.1).astype(np.float32)) * done
+    data = ppo.Transition(observation=obs, action=action, reward=f32(T, N), discount=1.0 - done,
+                          next_observation=nxt, truncation=trunc, raw_action=raw,
+                          log_prob=log_prob)
+    perms = torch.from_numpy(np.stack([rng.permutation(N) for _ in range(E)]))
+    return data, perms, f32(E, NMB, T, B, ACT)
+
+
+# ---------------------------------------------------------------------------
+# the oracle: the functional Adam and SGD step, as they stood before the
+# buffers became persistent (world size 1)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def _functional_adam(params, grads, state, learning_rate, b1=0.9, b2=0.999, eps=1e-8):
+    mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, state.mu)]
+    nu = [(1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu)]
+    count = state.count + 1
+    bc1 = 1 - b1 ** count.to(torch.float32)
+    bc2 = 1 - b2 ** count.to(torch.float32)
+    for p, m, v in zip(params, mu, nu):
+        update = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        p.copy_(p + (-learning_rate) * update)
+    return optim.AdamState(count=count, mu=mu, nu=nu)
+
+
+def _functional_sgd_step(training_state, data, perms, entropy_noise, hp):
+    if hp.normalize_observations:
+        normalizer = nets.rs_update(training_state.normalizer, data.observation)
+    else:
+        normalizer = training_state.normalizer
+    networks = training_state.params
+    params = list(networks.parameters())
+    opt_state = training_state.opt_state
+    b = hp.batch_size
+    aux = []
+    for e in range(hp.num_updates_per_batch):
+        for j in range(hp.num_minibatches):
+            idx, ent = perms[e, j * b:(j + 1) * b], entropy_noise[e, j]
+            mb = ppo._map(lambda x: x.index_select(1, idx), data)
+            total, mb_aux = ppo.loss_fn(networks, normalizer, mb, ent, hp)
+            grads = torch.autograd.grad(total, params)
+            if hp.max_grad_norm is not None:
+                grads = optim.clip_by_global_norm(grads, hp.max_grad_norm)
+            opt_state = _functional_adam(params, grads, opt_state, hp.learning_rate)
+            aux.append(mb_aux)
+    stacked = {k: torch.stack([a[k] for a in aux]).reshape(
+        hp.num_updates_per_batch, hp.num_minibatches) for k in aux[0]}
+    return training_state.replace(normalizer=normalizer, opt_state=opt_state), stacked
+
+
+def _assert_same_learner(a: ppo.TrainingState, b: ppo.TrainingState) -> None:
+    ta, tb = ppo.learner_tensors(a), ppo.learner_tensors(b)
+    assert len(ta) == len(tb)
+    for i, (x, y) in enumerate(zip(ta, tb)):
+        assert x.dtype == y.dtype and torch.equal(x, y), i
+
+
+# ---------------------------------------------------------------------------
+
+
+def test_adam_in_place_equals_functional():
+    """optim.adam over the state's own buffers against the functional step,
+    3 steps with the clip taken on the first and last: params, count, mu,
+    nu bit for bit, and the same tensors before and after."""
+    ts = _state(0)
+    params = list(ts.params.parameters())
+    ref_params = [p.detach().clone() for p in params]
+    state, ref = ts.opt_state, optim.clone_state(ts.opt_state)
+    buffers = [state.count, *state.mu, *state.nu]
+    rng = np.random.RandomState(1)
+    for norm in (25.0, 0.5, 3.0):
+        g = [torch.from_numpy(rng.randn(*p.shape).astype(np.float32)) for p in params]
+        scale = norm / float(optim.global_norm(g))
+        g = optim.clip_by_global_norm([x * scale for x in g], 1.0)
+        assert optim.adam(params, g, state, 3e-4) is state
+        ref = _functional_adam(ref_params, g, ref, 3e-4)
+    assert all(a is b for a, b in zip([state.count, *state.mu, *state.nu], buffers))
+    assert int(state.count) == 3 and state.count.dtype == torch.int32
+    for x, y in zip([*params, state.count, *state.mu, *state.nu],
+                    [*ref_params, ref.count, *ref.mu, *ref.nu]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("normalize_observations,max_grad_norm", [(True, 1.0), (False, None)])
+def test_sgd_body_equals_functional_step(normalize_observations, max_grad_norm):
+    """Two consecutive SGD steps of the body against the functional step on
+    a copy of the same state: params, Adam count and moments, normalizer
+    and the [epochs, nmb] loss terms bit for bit; the body's state keeps its
+    tensors (the same objects, updated in place)."""
+    hp = _hyper(normalize_observations, max_grad_norm)
+    ts = _state(2)
+    ref = _clone(ts)
+    buffers = ppo.learner_tensors(ts)
+    for step in range(2):
+        data, perms, ent = _inputs(ts, 10 + step)
+        out, losses = ppo.sgd_step(ts, data, perms, ent, hp)
+        ref, ref_losses = _functional_sgd_step(ref, data, perms, ent, hp)
+        assert out is ts
+        _assert_same_learner(ts, ref)
+        assert losses.keys() == ref_losses.keys()
+        for k, v in losses.items():
+            assert v.shape == (E, NMB) and torch.equal(v, ref_losses[k]), (step, k)
+    assert all(a is b for a, b in zip(ppo.learner_tensors(ts), buffers))
+    assert int(ts.opt_state.count) == 2 * E * NMB
+    assert float(ts.normalizer.count) == (2 * T * N if normalize_observations else 0)
+
+
+def test_restore_full_state_into_existing_buffers():
+    """A run of two SGD steps, and the same run saved after its first step
+    (full_state, through numpy) and restored into the buffers of another
+    run's state: the restore keeps that state's tensors, and its second
+    step gives the uninterrupted run's learner bit for bit."""
+    hp = _hyper()
+    inputs = [_inputs(_state(3), 20 + s) for s in range(2)]
+    a = _state(3)
+    for x in inputs:
+        ppo.sgd_step(a, *x, hp)
+
+    b = _state(3)
+    ppo.sgd_step(b, *inputs[0], hp)
+    b = b.replace(env_steps=b.env_steps + hp.env_steps_per_training_step)
+    arrays = ppo.full_state_to_numpy(ppo.full_state(b, None, {}))
+    c = _state(4)
+    buffers = ppo.learner_tensors(c)
+    c, env_state = ppo.restore_full_state(arrays, c, None, {})
+    assert env_state is None and int(c.env_steps) == hp.env_steps_per_training_step
+    assert all(x is y for x, y in zip(ppo.learner_tensors(c), buffers))
+    _assert_same_learner(c, b)
+    ppo.sgd_step(c, *inputs[1], hp)
+    _assert_same_learner(c, a)
+
+
+def test_snapshot_and_restore_of_the_learner():
+    """restore_learner puts a snapshot back into the state's own tensors:
+    a step taken and undone leaves the learner bit for bit as before."""
+    ts = _state(5)
+    before = [t.clone() for t in ppo.learner_tensors(ts)]
+    saved = ppo.snapshot_learner(ts)
+    ppo.sgd_step(ts, *_inputs(ts, 30), _hyper())
+    assert not torch.equal(ppo.learner_tensors(ts)[0], before[0])
+    ppo.restore_learner(ts, saved)
+    assert all(torch.equal(x, y) for x, y in zip(ppo.learner_tensors(ts), before))
+
+
+def test_sgd_step_choice_off_the_card():
+    """On the CPU and in an env-sharded run the trainer runs the eager body,
+    and its log line says so; a captured step refuses a CPU state."""
+    ts, hp = _state(6), _hyper()
+    lines = []
+    assert ppo.make_sgd_step(ts, hp, EnvShard(0, 1), lines.append) is ppo.sgd_step
+    assert ppo.make_sgd_step(ts, hp, EnvShard(1, 2), lines.append) is ppo.sgd_step
+    assert lines[0] == "[ppo] SGD step: eager on cpu (no CUDA graph on the CPU)"
+    assert lines[1].startswith("[ppo] SGD step: eager at world 2")
+    with pytest.raises(ValueError, match="CUDA device"):
+        ppo.CapturedSGDStep(ts, hp)
+
+
+def test_env_step_makes_no_tensor_from_host_values(tmp_path, monkeypatch):
+    """A duck env step (physics stubbed) builds no tensor from host values
+    (torch.tensor / torch.as_tensor): on the card each is a pageable copy
+    and a host wait; the gravity direction and the up axis are made once
+    with the env."""
+    from open_duck_playground_tpu_torch.envs import randomize
+    from open_duck_playground_tpu_torch.envs.joystick import Joystick
+
+    monkeypatch.setenv("OPEN_DUCK_ASSETS", write_standin(str(tmp_path / "standin")))
+    env = Joystick("flat_terrain", device="cpu")
+    te = TrainEnv(env, num_envs=2, episode_length=1000,
+                  randomization_fn=randomize.domain_randomize,
+                  randomization_generator=torch.Generator().manual_seed(0))
+    state = te.reset(torch.Generator().manual_seed(1))
+    monkeypatch.setattr(env, "physics_step", lambda model, data, ctrl: data)
+    made = []
+
+    def spy(name):
+        fn = getattr(torch, name)
+
+        def spied(*a, **k):
+            made.append(name)
+            return fn(*a, **k)
+        return spied
+
+    for name in ("tensor", "as_tensor"):
+        monkeypatch.setattr(torch, name, spy(name))
+    for _ in range(2):
+        state = te.step(state, torch.zeros(2, env.action_size))
+    assert made == []
+    assert all(bool(torch.isfinite(v).all()) for v in state.obs.values())
