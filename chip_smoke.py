@@ -22,16 +22,24 @@ Phases:
    kernel-vs-eager table, RESULTS.md; the init variant's site_xpos /
    site_xmat / contact_dist also within 1e-4);
 3. the flat main path: TrainEnv(Joystick("flat_terrain", device="cuda"),
-   num_envs=4096, DR on), reset, then 100 steps of random actions. Checks
-   the kernel's launch count (1 for the reset + 100), the obs shapes, that
-   everything is finite; prints env-steps/s and the kernel's and the twin's
-   time for one control step at 4096 envs;
+   num_envs=4096, DR on), reset, then 100 steps of random actions, first
+   eagerly (TrainEnv.step), then from the same reset and generator states
+   through a CapturedEnvStep (one CUDA graph replay per step). Checks the
+   kernel's launch count in each run (1 for the reset + 100), the two final
+   states and the env generator's states equal bit for bit, the obs
+   shapes, that everything is finite, one graph launch per captured step;
+   prints env-steps/s of both runs, host launches per env step of each
+   (GRAPH_TRACE_STEPS steps under the profiler) and the kernel's and the
+   twin's time for one control step at 4096 envs;
 3b. the rough main path: the same with Joystick("rough_terrain_backlash")
    at 8192 envs, through the kernel's heightfield branch;
 4. the trainer: first the captured SGD step against its eager body
    (sgd_graph_vs_eager: SGD_GRAPH_STEPS steps at the recipe's widths,
    equal bit for bit; host launches per minibatch step, capture seconds,
-   graph pool bytes); then OpenDuckMiniV2Runner (--env joystick --task
+   graph pool bytes) and the captured rollout against the eager one
+   (rollout_graph_vs_eager: ROLLOUT_GRAPH_ROLLOUTS rollouts at the recipe's
+   widths, states, Transitions and generator states bit for bit); then
+   OpenDuckMiniV2Runner (--env joystick --task
    flat_terrain_backlash, on cuda) and ppo.train with the runner's recipe and
    callbacks (checkpoint + ONNX at every eval) and profile_breakdown=True, at
    8192 DR envs, batch 256 x 32 minibatches, unroll 20, 4 updates per batch,
@@ -46,9 +54,13 @@ Phases:
    this path's inputs (trainer_vs_twin): the train env at 8192 envs with
    train()'s DR draw (reset, and the trained state of that checkpoint) and
    the eval env at 1024 envs, DR off (reset, and 20 steps of the trained
-   policy), within duck_standin.TRAINER_PARITY_LIMITS; every SGD step of
-   the run is one replay of train()'s CapturedSGDStep. Prints training/sps
-   per epoch and the profile_breakdown line.
+   policy), within duck_standin.TRAINER_PARITY_LIMITS; every rollout, SGD
+   step and eval step of the run is one replay of train()'s
+   CapturedRollout, CapturedSGDStep and CapturedEvalStep; one eval of the
+   trained policy by run_eval, eager against captured
+   (eval_graph_vs_eager), has every metric equal. Prints training/sps per
+   epoch, the profile_breakdown line (rollout_s, sgd_s, training_step_s,
+   eval_s, each graph's capture seconds and pool bytes).
 5. the env-sharded trainer: the same runner and recipe under
    `python -m torch.distributed.run`, 8192 DR envs split over the ranks:
    world 2 sharing the one card over gloo and, where the machine has two
@@ -87,12 +99,15 @@ Phases:
    step host and device ms, kernel launches, the fused kernel's share of
    the device time, the device's idle share of the window and its top 10
    operations; exactly one fused launch, no host wait and no pageable copy
-   in each annotated step; (b) one training step at phase 4's
-   configuration through the captured SGD step, rollout, env_step and each
-   call of the captured step (sgd_step) annotated from outside: the same
-   numbers per region, with the host calls and graph launches behind the
-   SGD step's device work (one replay, at most 4 host launches per
-   minibatch step);
+   in each annotated step; the same for PROFILE_STEPS replays of a
+   CapturedEnvStep in the same trace (host calls, graph launches, device
+   ms, idle share beside the eager step's; one graph launch and one fused
+   kernel per replay, the launch count equal to the profiler's); (b) one
+   training step at phase 4's configuration through the captured rollout
+   and the captured SGD step, each call annotated from outside: the same
+   numbers per region, with the host calls and graph launches behind each
+   (one replay each, unroll_length fused kernels in the rollout, at most 4
+   host launches per minibatch step);
    (c) SimInfer on the card with a scripted teleop and a recording video
    on phase 4's ONNX: launches 1 + ticks, frames bit-identical to the
    ticks' qpos, the obs carry the teleop's command from its tick; (d) the
@@ -102,8 +117,9 @@ Phases:
 The kernels line gives, per kernel, its launches on its main path, its
 largest |kernel - twin| there (step variant, DR on, all outputs; for the
 flat kernel also its launches and largest |kernel - twin| on the trainer's
-path, both variants, DR on and off, and its launches in phase 9's traced
-windows, launches_profiled; for the sharded dispatch, phase 5's
+path, both variants, DR on and off, its launches in phase 9's traced
+windows, launches_profiled, and the fused launches in one replay of each
+captured program; for the sharded dispatch, phase 5's
 launches summed over the ranks and per rank, and (d)), its time
 and the twin's for one control step, and its bound: the larger of the
 twin's arithmetic (counted per env and substep on the CPU under a torch
@@ -143,6 +159,8 @@ CASES = (("flat_terrain", 1024, False), ("flat_terrain", 1024, True),
 # main paths: (task, envs); DR on, 100 steps of random actions
 FLAT_MAIN, ROUGH_MAIN = ("flat_terrain", 4096), ("rough_terrain_backlash", 8192)
 N_STEPS = 100
+# phase 3: captured and eager steps traced for their host calls
+GRAPH_TRACE_STEPS = 5
 # phase 8: timed steps of each env (the pipeline takes ~1 s per step)
 PIPELINE_STEPS = 20
 # phase 4: the recipe's widths (BASELINE.md:14), cut to 2 epochs of 2 training steps
@@ -167,8 +185,10 @@ SHARDED_LIMITS = {"transitions": 0.0, "params_q99": 8e-5, "params_max": 2 * 3e-4
 # phase 9: steps before the traced window and in it; the deploy hooks'
 # rollout; the gait playback's cuda-vs-cpu limit on the feet (float32 both)
 PROFILE_WARMUP, PROFILE_STEPS = 10, 20
-# phase 4: SGD steps of the captured step held against the eager body
+# phase 4: SGD steps of the captured step held against the eager body, and
+# consecutive rollouts of the captured rollout held against the eager one
 SGD_GRAPH_STEPS = 3
+ROLLOUT_GRAPH_ROLLOUTS = 2
 DEPLOY_HOOK_S = 2.0
 PLAYBACK_ATOL_M = 1e-5
 FUSED_KERNEL = "physics_step_kernel"  # the __global__ of ops/csrc/physics_step.cu
@@ -253,6 +273,38 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def bitwise_equal(a, b) -> bool:
+    """Every tensor of two trees equal bit for bit (NaN for NaN)."""
+    from open_duck_playground_tpu_torch.utils.graphs import tree_leaves
+
+    ta, tb = tree_leaves(a), tree_leaves(b)
+    bits = lambda x: x.reshape(-1).contiguous().view(torch.uint8)  # noqa: E731
+    return ta.keys() == tb.keys() and all(
+        x.dtype == tb[k].dtype and x.shape == tb[k].shape and torch.equal(bits(x), bits(tb[k]))
+        for k, x in ta.items())
+
+
+def trace_env_steps(out_dir: str, te, cap, actions, n: int):
+    """n replays of the CapturedEnvStep `cap` (each in annotate("graph_step"),
+    from the state it holds) and then n eager TrainEnv.step calls from
+    there (each in annotate("eager_step")) under the profiler; returns the
+    read_trace of build/.../trace.json."""
+    from open_duck_playground_tpu_torch.utils import profiling
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    state = cap.state
+    torch.cuda.synchronize()
+    with profiling.trace(out_dir, device=actions.device):
+        for i in range(n):
+            with profiling.annotate("graph_step"):
+                state = cap(state, actions[i])
+        for i in range(n):
+            with profiling.annotate("eager_step"):
+                state = te.step(state, actions[i])
+        torch.cuda.synchronize()
+    return read_trace(os.path.join(out_dir, "trace.json"))
 
 
 def phase_build():
@@ -390,12 +442,18 @@ def step_bound(fp, B: int, n_substeps: int, dr, per_env_substep: float) -> dict:
 
 def phase_main_path(task: str, B: int) -> dict:
     """TrainEnv(Joystick(task), B envs, DR on): reset, then N_STEPS steps of
-    random actions, with the kernel's launch count set to 0 just before and
-    read just after; then one control step at this shape timed, kernel vs
-    twin, and its bound."""
+    random actions, eagerly (TrainEnv.step) and then, from the same reset
+    and the same generator states, through a CapturedEnvStep (one CUDA
+    graph replay per step, captured beforehand from another reset, which
+    the capture leaves as it found it), each run with the kernel's launch
+    count set to 0 just before and read just after; the two final states
+    and the env generator's states must be equal bit for bit. Then
+    GRAPH_TRACE_STEPS replays and as many eager steps under the profiler
+    (host calls per env step), and one control step at this shape timed,
+    kernel vs twin, and its bound."""
     from open_duck_playground_tpu_torch.envs import randomize
     from open_duck_playground_tpu_torch.envs.joystick import Joystick
-    from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
+    from open_duck_playground_tpu_torch.envs.wrapper import CapturedEnvStep, TrainEnv
     from open_duck_playground_tpu_torch.ops.cuda_step import flatten_dr_fields
 
     dev = torch.device("cuda")
@@ -405,29 +463,61 @@ def phase_main_path(task: str, B: int) -> dict:
                   randomization_generator=torch.Generator(device=dev).manual_seed(0))
     g = torch.Generator(device=dev).manual_seed(2)
     actions = torch.rand((N_STEPS, B, env.action_size), generator=g, device=dev) * 2 - 1
+    g_env = env.generator.get_state()
+
+    def reset():
+        return te.reset(torch.Generator(device=dev).manual_seed(1))
 
     env.physics.launches = 0
     t0 = time.perf_counter()
-    state = te.reset(torch.Generator(device=dev).manual_seed(1))
+    state = reset()
     torch.cuda.synchronize()
     t_reset = time.perf_counter() - t0
     t0 = time.perf_counter()
     for i in range(N_STEPS):
         state = te.step(state, actions[i])
     torch.cuda.synchronize()
-    t_steps = time.perf_counter() - t0
+    t_eager = time.perf_counter() - t0
+    launches_eager = env.physics.launches
+    eager, g_eager = state, env.generator.get_state()
+
+    cap = CapturedEnvStep(te, log=log)
+    cap.capture(reset(), actions[0])
+    env.generator.set_state(g_env)
+    env.physics.launches = 0
+    state = reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(N_STEPS):
+        state = cap(state, actions[i])
+    torch.cuda.synchronize()
+    t_graph = time.perf_counter() - t0
     launches = env.physics.launches
+    same = bitwise_equal(eager, state)
+    gens_same = bool(torch.equal(env.generator.get_state(), g_eager))
 
     finite = all(bool(torch.isfinite(v).all()) for v in (
         *state.obs.values(), state.reward, state.data.qpos))
     shapes = {k: tuple(v.shape) for k, v in state.obs.items()}
-    rate = B * N_STEPS / t_steps
-    log(f"[main] {task} B={B}: reset {t_reset:.3f} s; {N_STEPS} steps {t_steps:.3f} s; "
-        f"env-steps/s {rate:.1f}; launches {launches}; obs {shapes}; "
-        f"done {float(state.done.mean()):.3f}; finite {finite}")
-    ok = passed(f"main path {task} B={B}", launches=launches == 1 + N_STEPS,
+    rate, rate_eager = B * N_STEPS / t_graph, B * N_STEPS / t_eager
+    log(f"[main] {task} B={B}: reset {t_reset:.3f} s; {N_STEPS} steps eager {t_eager:.3f} s, "
+        f"captured {t_graph:.3f} s; env-steps/s eager {rate_eager:.1f}, captured {rate:.1f} "
+        f"({rate / rate_eager:.2f}x); launches eager {launches_eager}, captured {launches}; "
+        f"final state and env generator bit for bit {same} and {gens_same}; capture "
+        f"{json.dumps(cap.graph.info)}; obs {shapes}; done {float(state.done.mean()):.3f}; "
+        f"finite {finite}")
+    split = trace_split(trace_env_steps(
+        os.path.join(ROOT, "build", "main_trace", f"{task}_{B}"), te, cap, actions,
+        GRAPH_TRACE_STEPS), ("eager_step", "graph_step"))
+    host_calls = {k: split[f"{k}_step"]["host_calls"] for k in ("eager", "graph")}
+    log(f"[main] {task} B={B}: host launches per env step (runtime calls that put work on the "
+        f"card, {GRAPH_TRACE_STEPS} steps traced) eager {host_calls['eager']:.1f}, captured "
+        f"{host_calls['graph']:.1f}; graph launches per captured step "
+        f"{split['graph_step']['graph_launches']:.1f}; gpu {gpu_line()}")
+    ok = passed(f"main path {task} B={B}", launches=launches == launches_eager == 1 + N_STEPS,
                 shapes=shapes == {"state": (B, 101), "privileged_state": (B, 212)},
-                finite=finite)
+                finite=finite, graph_equals_eager=same, generators_equal=gens_same,
+                one_graph_launch_per_step=split["graph_step"]["graph_launches"] == 1)
 
     # one control step at the main path's shape: kernel vs twin, same inputs
     data = state.data
@@ -448,7 +538,9 @@ def phase_main_path(task: str, B: int) -> dict:
             f"{bound['bound_by']} ({per_env_substep:.0f} flops per env and substep, "
             f"{bound['flops']:.4g} flops, {bound['bytes']} bytes)")
         timed[variant] = dict(ms=ms, plain_ms=plain_ms, **bound)
-    return dict(ok=ok, launches=launches, rate=rate, **timed["step"])
+    return dict(ok=ok, launches=launches, launches_eager=launches_eager, rate=rate,
+                rate_eager=rate_eager, host_calls_per_step=host_calls,
+                launches_per_replay=cap.graph.info["fused_launches_per_replay"], **timed["step"])
 
 
 def run_env(task: str, B: int, physics: str) -> dict:
@@ -593,46 +685,61 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
     epochs = kw["num_evals"] - 1
     steps_per_epoch = math.ceil(kw["num_timesteps"] / (epochs * env_steps_per_step))
     ep_len = kw["episode_length"] // kw["action_repeat"]
-    # launches the code gives: the train env's reset, the breakdown's rollout
-    # and training step (each run twice: warm-up, then timed), every
-    # training step's rollout; the eval env's reset and episode_length steps
-    # per eval: one at 0, one after each epoch, two in the breakdown
-    want_train = 1 + T * (2 + 2 + epochs * steps_per_epoch)
-    want_eval = (1 + epochs + 2) * (1 + ep_len)
-    # SGD steps the code gives, each one graph replay: the breakdown's SGD
-    # step and training step (twice each), every training step's
-    want_replays = 2 + 2 + epochs * steps_per_epoch
+    # rollouts, SGD steps and eval steps the code gives, each one replay of
+    # its graph: the breakdown's rollout, SGD step and training step (each
+    # run twice: warm-up, then timed), every training step's; episode_length
+    # eval steps per eval: one at 0, one after each epoch, two in the
+    # breakdown
+    n_evals = 1 + epochs + 2
+    want_replays = {"rollout": 2 + 2 + epochs * steps_per_epoch,
+                    "SGD step": 2 + 2 + epochs * steps_per_epoch, "eval step": n_evals * ep_len}
+    # launches the code gives: the train env's reset, the rollouts' env
+    # steps and the rollout capture's warm-up (T real steps); the eval env's
+    # reset and episode_length steps per eval and the eval capture's warm-up
+    want_train = 1 + T * (1 + want_replays["rollout"])
+    want_eval = n_evals * (1 + ep_len) + 1
     graph = sgd_graph_vs_eager(runner, kw, label) if label == "trainer" else {"ok": True}
+    roll_graph = rollout_graph_vs_eager(runner, kw, label) if label == "trainer" else {"ok": True}
 
-    # every CapturedSGDStep train() makes (its replays are the object's own)
-    made = []
-    init = ppo.CapturedSGDStep.__init__
+    # every captured program train() makes (its replays are the object's own)
+    made = {}
+    inits = {"rollout": ppo.CapturedRollout, "SGD step": ppo.CapturedSGDStep,
+             "eval step": ppo.CapturedEvalStep}
 
-    def recorded(self, *a, **k):
-        init(self, *a, **k)
-        made.append(self)
+    def recorder(name, init):
+        def recorded(self, *a, **k):
+            init(self, *a, **k)
+            made.setdefault(name, []).append(self)
+        return recorded
 
+    saved_inits = {name: cls.__init__ for name, cls in inits.items()}
     runner.env.physics.launches = 0
     runner.eval_env.physics.launches = 0
-    ppo.CapturedSGDStep.__init__ = recorded
+    for name, cls in inits.items():
+        cls.__init__ = recorder(name, saved_inits[name])
     t0 = time.perf_counter()
     try:
         make_policy, (normalizer, params), metrics = ppo.train(
             environment=runner.env, eval_env=runner.eval_env, **kw, profile_breakdown=True)
     finally:
-        ppo.CapturedSGDStep.__init__ = init
+        for name, cls in inits.items():
+            cls.__init__ = saved_inits[name]
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     launches = {"train_env": runner.env.physics.launches,
                 "eval_env": runner.eval_env.physics.launches}
     bd = ppo.LAST_PROFILE_BREAKDOWN
-    replays = [c.replays for c in made]
-    graph_ok = replays == [want_replays]
+    replays = {name: [c.replays for c in made.get(name, [])] for name in inits}
+    graph_ok = replays == {name: [n] for name, n in want_replays.items()}
     log(f"[{label}] ppo.train {t_train:.1f} s; launches {launches} (want train_env "
-        f"{want_train}, eval_env {want_eval}); SGD steps as graph replays {replays} (want "
-        f"[{want_replays}], one per SGD step); capture {json.dumps(bd.get('sgd_graph'))}")
+        f"{want_train}, eval_env {want_eval}); graph replays {json.dumps(replays)} (want "
+        f"{json.dumps(want_replays)}: every rollout, SGD step and eval step a replay); captures "
+        f"rollout {json.dumps(bd.get('rollout_graph'))}, SGD step "
+        f"{json.dumps(bd.get('sgd_graph'))}, eval step {json.dumps(bd.get('eval_graph'))}")
     log(f"[{label}] profile_breakdown {json.dumps(bd)}")
+    log(f"[{label}] rollout_s {bd['rollout_s']}, training_step_s {bd['training_step_s']}, "
+        f"eval_s {bd['eval_s']}, sgd_s {bd['sgd_s']}; gpu {gpu_line()}")
 
     with open(runner.metrics_path) as f:
         lines = [json.loads(line) for line in f]
@@ -701,6 +808,8 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
         f"{sum(a.nbytes for a in arrays.values())} bytes; equals the final params and "
         f"normalizer {live_ok}; loads back tensor for tensor {same}")
 
+    evals = (eval_graph_vs_eager(runner, kw, normalizer, params, label)
+             if label == "trainer" else {"ok": True})
     with torch.no_grad():
         parity_ok = trainer_vs_twin(runner, kw, es, make_policy((normalizer, params),
                                                                 deterministic=True), report,
@@ -709,10 +818,13 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
     ok = passed(label, recipe=recipe_ok, sizes=sizes_ok, metrics_finite=finite, counts=counts_ok,
                 checkpoint=ckpt_ok, onnx=onnx_err <= 1e-5, full_state_live=live_ok,
                 full_state_loads=same, full_state_epoch=epoch == epochs - 1,
-                kernel_vs_twin=parity_ok, sgd_graph_vs_eager=graph["ok"], graph_replays=graph_ok,
+                kernel_vs_twin=parity_ok, sgd_graph_vs_eager=graph["ok"],
+                rollout_graph_vs_eager=roll_graph["ok"], eval_graph_vs_eager=evals["ok"],
+                graph_replays=graph_ok,
                 launches=launches == {"train_env": want_train, "eval_env": want_eval})
     log(f"[{label}] {'OK' if ok else 'FAIL'}")
     return dict(ok=ok, launches=launches, breakdown=bd, onnx=onnx_path, sgd_graph=graph,
+                rollout_graph=roll_graph, eval_graph=evals,
                 sps=[line["training/sps"] for line in lines if "training/sps" in line])
 
 
@@ -730,17 +842,12 @@ def sgd_graph_vs_eager(runner, kw, label: str) -> dict:
     Prints each step's host seconds, eager against captured (the first
     captured call includes the capture), and the capture's warm-up, capture
     and instantiation seconds and graph pool bytes."""
-    import dataclasses
-    import inspect
-
     from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
     from open_duck_playground_tpu_torch.train import ppo
     from open_duck_playground_tpu_torch.utils import profiling
 
     dev = runner.device
-    defaults = inspect.signature(ppo.train).parameters
-    hp = ppo.Hyper(**{f.name: kw.get(f.name, defaults[f.name].default)
-                      for f in dataclasses.fields(ppo.Hyper)})
+    hp = _trainer_hyper(kw)
     mb_steps = hp.num_updates_per_batch * hp.num_minibatches
     gens = ppo.seeded_generators(kw["seed"], dev)
     env = runner.env
@@ -807,6 +914,112 @@ def sgd_graph_vs_eager(runner, kw, label: str) -> dict:
     del eager, graphed, cap, te, state, data
     torch.cuda.empty_cache()
     return dict(ok=ok, **out)
+
+
+def _trainer_hyper(kw):
+    import dataclasses
+    import inspect
+
+    from open_duck_playground_tpu_torch.train import ppo
+
+    defaults = inspect.signature(ppo.train).parameters
+    return ppo.Hyper(**{f.name: kw.get(f.name, defaults[f.name].default)
+                        for f in dataclasses.fields(ppo.Hyper)})
+
+
+def rollout_graph_vs_eager(runner, kw, label: str) -> dict:
+    """Phase 4, before ppo.train: the captured rollout against the eager one
+    at the recipe's widths (8192 DR envs on the train env, unroll 20, the
+    policy of train()'s init). From one reset and one state of the env's
+    generator, ROLLOUT_GRAPH_ROLLOUTS consecutive rollouts run by
+    ppo.rollout, then as many by a CapturedRollout (the first call
+    captures), on the same policy noise: every rollout's final env state and
+    Transition, and the env generator's state after the last, equal bit for
+    bit (limit 0: the same kernels on the same inputs, the same draws).
+    Prints each rollout's seconds, eager against captured (the first
+    captured call includes the capture), and the capture's warm-up, capture
+    and instantiation seconds and graph pool bytes."""
+    from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
+    from open_duck_playground_tpu_torch.train import ppo
+    from open_duck_playground_tpu_torch.utils.graphs import tree_map
+
+    dev = runner.device
+    hp = _trainer_hyper(kw)
+    gens = ppo.seeded_generators(kw["seed"], dev)
+    env = runner.env
+    te = TrainEnv(env, num_envs=hp.num_envs, episode_length=kw["episode_length"],
+                  randomization_fn=kw["randomization_fn"],
+                  randomization_generator=gens["randomization"])
+    obs_sizes = {k: v[0] for k, v in env.observation_size.items()}
+    ts = ppo.init_training_state(obs_sizes, env.action_size, kw["network_factory"], gens["net"],
+                                 dev)
+    start = te.reset(gens["reset"])
+    noises = [ppo.draw_training_step(gens["epoch"], hp, env.action_size, dev)[0]
+              for _ in range(ROLLOUT_GRAPH_ROLLOUTS)]
+    g0 = env.generator.get_state()
+    cap = ppo.CapturedRollout(te, ts.normalizer, ts.params)
+    out, ok = {}, True
+    for name, fn in (("eager", ppo.rollout), ("graph", cap)):
+        env.generator.set_state(g0)
+        state, runs = start, []
+        for noise in noises:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, data = fn(te, state, ts.normalizer, ts.params, noise)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0,
+                         tree_map(torch.clone, {"state": state, "data": data})))
+        out[name] = (runs, env.generator.get_state())
+    (eager, g_eager), (graph, g_graph) = out["eager"], out["graph"]
+    same = [bitwise_equal(a[1], b[1]) for a, b in zip(eager, graph)]
+    gens_same = bool(torch.equal(g_eager, g_graph))
+    ok = passed(f"{label} rollout captured vs eager", states_and_transitions_equal=all(same),
+                generators_equal=gens_same, replays=cap.replays == ROLLOUT_GRAPH_ROLLOUTS)
+    res = {"eager_s": [round(r[0], 4) for r in eager], "graph_s": [round(r[0], 4) for r in graph],
+           "equal": same, "generators_equal": gens_same, "capture": cap.graph.info,
+           "replays": cap.replays}
+    log(f"[{label}] rollout at {hp.num_envs} envs x {hp.unroll_length} steps, eager vs captured: "
+        f"{json.dumps(res)}; {'OK' if ok else 'FAIL'}")
+    del cap, te, start, out, eager, graph
+    torch.cuda.empty_cache()
+    return dict(ok=ok, **res)
+
+
+def eval_graph_vs_eager(runner, kw, normalizer, params, label: str) -> dict:
+    """Phase 4, after ppo.train: one eval of the trained policy (the eval
+    env, num_eval_envs envs, one episode of episode_length steps, train()'s
+    stochastic or deterministic policy) by ppo.run_eval with the eager
+    eval_step and twice with a CapturedEvalStep (the first captures), each
+    from the same generator states: every eval metric equal to every digit.
+    Prints each run's seconds."""
+    from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
+    from open_duck_playground_tpu_torch.train import ppo
+
+    dev = runner.device
+    te = TrainEnv(runner.eval_env, num_envs=kw["num_eval_envs"],
+                  episode_length=kw["episode_length"])
+    det = kw.get("deterministic_eval", False)
+    g = torch.Generator(device=dev)
+    cap = ppo.CapturedEvalStep(te, normalizer, params, g, det)
+    outs, secs = [], []
+    for step in (ppo.eval_step, cap, cap):
+        g.manual_seed(5)
+        runner.eval_env.generator.manual_seed(6)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ppo.run_eval(te, normalizer, params, g, episode_length=kw["episode_length"],
+                           deterministic=det, step=step)
+        outs.append({k: float(v) for k, v in out.items()})
+        secs.append(round(time.perf_counter() - t0, 4))
+    same = outs[1] == outs[0] and outs[2] == outs[0]
+    ok = passed(f"{label} eval captured vs eager", metrics_equal=same,
+                replays=cap.replays == 2 * kw["episode_length"])
+    log(f"[{label}] eval at {te.num_envs} envs x {kw['episode_length']} steps: seconds eager "
+        f"{secs[0]}, captured {secs[1]} (with the capture) and {secs[2]}; eval/episode_reward "
+        f"eager {outs[0]['eval/episode_reward']!r}, captured {outs[1]['eval/episode_reward']!r} "
+        f"and {outs[2]['eval/episode_reward']!r}; every metric equal {same}; capture "
+        f"{json.dumps(cap.graph.info)}; {'OK' if ok else 'FAIL'}")
+    return dict(ok=ok, seconds=secs, metrics=outs[0], capture=cap.graph.info)
 
 
 def trainer_vs_twin(runner, kw, trained, policy, report, label: str = "trainer",
@@ -970,9 +1183,7 @@ def sharded_rank(runner, shard, out: str) -> dict:
     """Phase 5's work on one rank: the main path (ppo.train through the
     runner's recipe) with its launches counted from 0, then checks (a)-(f)
     of the module docstring. Every rank makes the same collectives."""
-    import dataclasses
     import hashlib
-    import inspect
 
     from open_duck_playground_tpu_torch import interop
     from open_duck_playground_tpu_torch.envs.joystick import Joystick
@@ -980,6 +1191,7 @@ def sharded_rank(runner, shard, out: str) -> dict:
     from open_duck_playground_tpu_torch.ops.cuda_step import flatten_dr_fields
     from open_duck_playground_tpu_torch.train import checkpoint as ckpt
     from open_duck_playground_tpu_torch.train import ppo
+    from open_duck_playground_tpu_torch.utils.graphs import tree_leaves
 
     dev = shard.device
     kw = runner.train_kwargs()
@@ -1022,9 +1234,7 @@ def sharded_rank(runner, shard, out: str) -> dict:
 
     # (c) one training step at this world size against world size 1, from
     # train()'s init and the same global draws
-    defaults = inspect.signature(ppo.train).parameters
-    hp = ppo.Hyper(**{f.name: kw.get(f.name, defaults[f.name].default)
-                      for f in dataclasses.fields(ppo.Hyper)})
+    hp = _trainer_hyper(kw)
 
     kinds = []  # the SGD step each one_step ran
 
@@ -1057,8 +1267,8 @@ def sharded_rank(runner, shard, out: str) -> dict:
     ts2, state2, data2, te2, gens2 = one_step(shard)
     mine = shard.rows(B)
     flat1, flat2 = {}, {}
-    ppo._tensors(data1, "data", flat1)
-    ppo._tensors(data2, "data", flat2)
+    tree_leaves(data1, "data", flat1)
+    tree_leaves(data2, "data", flat2)
     trans = {k: float((v[:, mine] - flat2[k]).abs().max()) for k, v in flat1.items()}
     per_t = [max(float((v[t, mine] - flat2[k][t]).abs().max()) for k, v in flat1.items())
              for t in range(T)]
@@ -1101,8 +1311,8 @@ def sharded_rank(runner, shard, out: str) -> dict:
     gens_t = {k: torch.Generator(device=dev) for k in gens2}
     ts_b, es_b = ppo.restore_full_state(saved, tmpl, state2, gens_t, shard)
     live, back = {}, {}
-    ppo._tensors(state2, "env_state", live)
-    ppo._tensors(es_b, "env_state", back)
+    tree_leaves(state2, "env_state", live)
+    tree_leaves(es_b, "env_state", back)
     checks["full_state_rows"] = (
         all(v.shape[0] == B for k, v in saved.items() if k.startswith("env_state/"))
         and all(torch.equal(live[k], back[k]) for k in live)
@@ -1462,16 +1672,21 @@ def _annotated(stack, obj, attr: str, label: str) -> None:
 
 def profile_env_step(out_dir: str) -> dict:
     """Phase 9 (a): the flat main path's env (FLAT_MAIN, DR on), PROFILE_WARMUP
-    steps, then PROFILE_STEPS steps traced, each in annotate("env_step"),
-    the window in annotate("env_window") ending in a synchronize; inside a
-    step, the env's step_with_model is annotated env_logic and its
-    physics_step physics (so env_step - env_logic is the wrapper and its
-    autoreset, env_logic - physics the task's own logic). The same number
-    of steps timed untraced just before, for the profiler's cost. Checks
-    one fused launch, no host wait and no pageable copy in each step."""
+    steps, then PROFILE_STEPS eager steps traced, each in
+    annotate("env_step"), the window in annotate("env_window") ending in a
+    synchronize; inside a step, the env's step_with_model is annotated
+    env_logic and its physics_step physics (so env_step - env_logic is the
+    wrapper and its autoreset, env_logic - physics the task's own logic).
+    Before them, in the same trace, PROFILE_STEPS replays of a
+    CapturedEnvStep (captured before the trace), each in
+    annotate("graph_step"), in annotate("graph_window"). The same number of steps of each timed
+    untraced just before, for the profiler's cost. Checks one fused launch,
+    no host wait and no pageable copy in each eager step; one graph launch
+    and one fused kernel per replay, and the kernel's launch count over the
+    replays equal to the fused kernels the profiler saw in them."""
     from open_duck_playground_tpu_torch.envs import randomize
     from open_duck_playground_tpu_torch.envs.joystick import Joystick
-    from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
+    from open_duck_playground_tpu_torch.envs.wrapper import CapturedEnvStep, TrainEnv
     from open_duck_playground_tpu_torch.utils import profiling
 
     task, B = FLAT_MAIN
@@ -1481,63 +1696,84 @@ def profile_env_step(out_dir: str) -> dict:
                   randomization_fn=randomize.domain_randomize,
                   randomization_generator=torch.Generator(device=dev).manual_seed(0))
     g = torch.Generator(device=dev).manual_seed(2)
-    n = PROFILE_WARMUP + 2 * PROFILE_STEPS
+    n = PROFILE_WARMUP + 4 * PROFILE_STEPS
     actions = torch.rand((n, B, env.action_size), generator=g, device=dev) * 2 - 1
     state = te.reset(torch.Generator(device=dev).manual_seed(1))
     for i in range(PROFILE_WARMUP):
         state = te.step(state, actions[i])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(PROFILE_WARMUP, PROFILE_WARMUP + PROFILE_STEPS):
-        state = te.step(state, actions[i])
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    cap = CapturedEnvStep(te)
+    cap.capture(state, actions[0])
+    windows = {}
+    for name, step, at in (("eager", te.step, PROFILE_WARMUP),
+                           ("graph", cap, PROFILE_WARMUP + PROFILE_STEPS)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(at, at + PROFILE_STEPS):
+            state = step(state, actions[i])
+        torch.cuda.synchronize()
+        windows[name] = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
 
-    env.physics.launches = 0
+    launches = {}
     with contextlib.ExitStack() as stack:
         _annotated(stack, env, "step_with_model", "env_logic")
         _annotated(stack, env, "physics_step", "physics")
         stack.enter_context(profiling.trace(out_dir, device=dev))
-        with profiling.annotate("env_window"):
-            for i in range(PROFILE_WARMUP + PROFILE_STEPS, n):
-                with profiling.annotate("env_step"):
-                    state = te.step(state, actions[i])
-            torch.cuda.synchronize()
-    launches = env.physics.launches
+        at = PROFILE_WARMUP + 2 * PROFILE_STEPS
+        for name, step in (("graph", cap), ("env", te.step)):  # replays from the buffers
+            env.physics.launches = 0
+            with profiling.annotate(f"{name}_window"):
+                for i in range(at, at + PROFILE_STEPS):
+                    with profiling.annotate(f"{name}_step"):
+                        state = step(state, actions[i])
+                torch.cuda.synchronize()
+            launches[name] = env.physics.launches
+            at += PROFILE_STEPS
     split = trace_split(read_trace(os.path.join(out_dir, "trace.json")),
-                        ("env_window", "env_step", "env_logic", "physics"))
+                        ("env_window", "env_step", "env_logic", "physics", "graph_window",
+                         "graph_step"))
     finite = all(bool(torch.isfinite(v).all()) for v in state.obs.values())
-    log(f"[profile] env step {task} B={B} DR on: {plain_ms:.3f} ms per step untraced, "
-        f"{split['env_step']['host_ms']:.3f} ms traced (host); {split['_device_events']} device "
-        f"events in the trace, {split['_unattributed']} without their launch; kernel launches "
-        f"counted {launches}")
-    log_split("env", split, top_of=("env_window",))
+    log(f"[profile] env step {task} B={B} DR on: {windows['eager']:.3f} ms per eager step "
+        f"untraced, {split['env_step']['host_ms']:.3f} ms traced (host); {windows['graph']:.3f} ms "
+        f"per captured step untraced, {split['graph_step']['host_ms']:.3f} ms traced; "
+        f"{split['_device_events']} device events in the trace, {split['_unattributed']} without "
+        f"their launch; kernel launches counted {launches}")
+    log_split("env", split, top_of=("env_window", "graph_window"))
     fused = split["env_step"]["fused_per_instance"]
+    fused_graph = split["graph_step"]["fused_per_instance"]
     waits = split["env_step"]["waits"]
     pageable = sum(n for kind, n in split["env_step"]["copies"].items() if "Pageable" in kind)
-    ok = passed("profile env step", finite=finite, launches=launches == PROFILE_STEPS,
+    ok = passed("profile env step", finite=finite, launches=launches["env"] == PROFILE_STEPS,
                 one_fused_launch_per_step=fused == [1] * PROFILE_STEPS,
                 steps=split["env_step"]["instances"] == PROFILE_STEPS, no_host_wait=waits == 0,
-                no_pageable_copy=pageable == 0)
-    log(f"[profile] env step: fused kernel launches per annotated step {fused} "
-        f"({fused.count(1)} of {PROFILE_STEPS} with exactly one); host waits per step {waits} "
-        f"and pageable copies per step {pageable} (want 0 and 0); {'OK' if ok else 'FAIL'}")
-    return dict(ok=ok, untraced_ms=plain_ms, split=split, fused_launches=sum(fused))
+                no_pageable_copy=pageable == 0,
+                one_fused_kernel_per_replay=fused_graph == [1] * PROFILE_STEPS,
+                one_graph_launch_per_replay=split["graph_step"]["graph_launches"] == 1,
+                replay_count_equals_profiler=launches["graph"] == sum(fused_graph))
+    summary = {k: {f: split[f"{k}_step"][f] for f in ("host_ms", "device_ms", "host_calls",
+                                                      "graph_launches", "launches")}
+               for k in ("env", "graph")}
+    for k in ("env", "graph"):
+        summary[k]["idle_share"] = split[f"{k}_window"]["idle_share"]
+        summary[k]["untraced_ms"] = windows["eager" if k == "env" else "graph"]
+    log(f"[profile] env step, eager against captured: {json.dumps(summary)}; fused kernel "
+        f"launches per eager step {fused}, per replay {fused_graph} (counted {launches['graph']}); "
+        f"host waits per eager step {waits} and pageable copies per step {pageable} (want 0 and "
+        f"0); {'OK' if ok else 'FAIL'}")
+    return dict(ok=ok, untraced_ms=windows, split=split, summary=summary,
+                fused_launches=sum(fused) + sum(fused_graph))
 
 
 def profile_training_step(out_dir: str) -> dict:
     """Phase 9 (b): one training_step at phase 4's configuration (the
     runner's recipe: flat_terrain_backlash, 8192 DR envs, unroll 20, 256 x 32
-    minibatches, 4 updates, (512, 256, 128) networks) with the SGD step the
-    trainer runs on the card, a CapturedSGDStep, after a warm-up step (which
-    captures it) and one timed untraced. ppo.rollout and TrainEnv.step are
-    wrapped from outside in annotations, and so is each call of the
-    captured step (sgd_step): its body runs in Python only at the capture,
-    so the SGD step reads as its host calls (the input copies, one graph
-    launch, the loss terms' copies) and the device work they launch."""
-    import dataclasses
-    import inspect
-
+    minibatches, 4 updates, (512, 256, 128) networks) with the rollout and
+    the SGD step the trainer runs on the card, a CapturedRollout and a
+    CapturedSGDStep, after a warm-up step (which captures both) and one
+    timed untraced. Each call of the two is wrapped from outside in an
+    annotation (rollout, sgd_step): their bodies run in Python only at the
+    capture, so each reads as its host calls (the input copies, the
+    generators' seeds, one graph launch, the loss terms' copies) and the
+    device work they launch."""
     from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
     from open_duck_playground_tpu_torch.train import ppo
     from open_duck_playground_tpu_torch.train import runner as rn
@@ -1548,9 +1784,7 @@ def profile_training_step(out_dir: str) -> dict:
     runner = rn.OpenDuckMiniV2Runner(cli)
     kw = runner.train_kwargs()
     dev = runner.device
-    defaults = inspect.signature(ppo.train).parameters
-    hp = ppo.Hyper(**{f.name: kw.get(f.name, defaults[f.name].default)
-                      for f in dataclasses.fields(ppo.Hyper)})
+    hp = _trainer_hyper(kw)
     gens = ppo.seeded_generators(kw["seed"], dev)
     env = runner.env
     te = TrainEnv(env, num_envs=hp.num_envs, episode_length=kw["episode_length"],
@@ -1559,54 +1793,58 @@ def profile_training_step(out_dir: str) -> dict:
     obs_sizes = {k: v[0] for k, v in env.observation_size.items()}
     ts = ppo.init_training_state(obs_sizes, env.action_size, kw["network_factory"], gens["net"], dev)
     cap = ppo.CapturedSGDStep(ts, hp)
+    roll = ppo.CapturedRollout(te, ts.normalizer, ts.params)
     state = te.reset(gens["reset"])
     mb_steps = hp.num_updates_per_batch * hp.num_minibatches
 
-    for _ in range(2):  # a warm-up step (the capture), then one timed untraced
+    for _ in range(2):  # a warm-up step (the captures), then one timed untraced
         t0 = time.perf_counter()
         draws = ppo.draw_training_step(gens["epoch"], hp, env.action_size, dev)
-        ts, state, _ = ppo.training_step(ts, te, state, draws, hp, sgd=cap)
+        ts, state, _ = ppo.training_step(ts, te, state, draws, hp, sgd=cap, roll=roll)
         torch.cuda.synchronize()
         untraced_s = time.perf_counter() - t0
 
-    def sgd(*a, **k):
-        with profiling.annotate("sgd_step"):
-            return cap(*a, **k)
+    def annotated(label, fn):
+        def call(*a, **k):
+            with profiling.annotate(label):
+                return fn(*a, **k)
+        return call
 
     draws = ppo.draw_training_step(gens["epoch"], hp, env.action_size, dev)
     torch.cuda.synchronize()
     env.physics.launches = 0
-    with contextlib.ExitStack() as stack:
-        for obj, attr, label in ((ppo, "rollout", "rollout"), (TrainEnv, "step", "env_step")):
-            _annotated(stack, obj, attr, label)
-        with profiling.trace(out_dir, device=dev):
-            with profiling.annotate("training_step"):
-                ts, state, losses = ppo.training_step(ts, te, state, draws, hp, sgd=sgd)
-                torch.cuda.synchronize()
+    with profiling.trace(out_dir, device=dev):
+        with profiling.annotate("training_step"):
+            ts, state, losses = ppo.training_step(ts, te, state, draws, hp,
+                                                  sgd=annotated("sgd_step", cap),
+                                                  roll=annotated("rollout", roll))
+            torch.cuda.synchronize()
     launches = env.physics.launches
-    regions = ("training_step", "rollout", "env_step", "sgd_step")
+    regions = ("training_step", "rollout", "sgd_step")
     split = trace_split(read_trace(os.path.join(out_dir, "trace.json")), regions)
     finite = all(math.isfinite(float(v)) for v in losses.values())
-    sgd_split = split["sgd_step"]
+    sgd_split, roll_split = split["sgd_step"], split["rollout"]
     per_mb = sgd_split["host_calls"] / mb_steps
-    log(f"[profile] training step flat_terrain_backlash B={hp.num_envs} DR on, {mb_steps} "
-        f"minibatch steps in one captured SGD step: {untraced_s:.3f} s untraced, "
+    log(f"[profile] training step flat_terrain_backlash B={hp.num_envs} DR on, one captured "
+        f"rollout of {hp.unroll_length} env steps and {mb_steps} minibatch steps in one "
+        f"captured SGD step: {untraced_s:.3f} s untraced, "
         f"{split['training_step']['host_ms'] / 1e3:.3f} s traced; {split['_device_events']} device "
         f"events, {split['_unattributed']} without their launch; kernel launches counted {launches}")
     log_split("sgd", split, top_of=("training_step", "rollout", "sgd_step"))
-    fused_rollout = split["rollout"]["fused_per_instance"]
-    fused_steps = split["env_step"]["fused_per_instance"]
+    fused_rollout = roll_split["fused_per_instance"]
     ok = passed("profile training step", finite=finite, launches=launches == hp.unroll_length,
                 fused_in_rollout=fused_rollout == [hp.unroll_length],
-                one_fused_launch_per_env_step=fused_steps == [1] * hp.unroll_length,
+                one_rollout_graph_launch=roll_split["graph_launches"] == 1,
                 no_fused_in_sgd=sum(sgd_split["fused_per_instance"]) == 0,
                 one_sgd_step=sgd_split["instances"] == 1,
                 one_graph_launch=sgd_split["graph_launches"] == 1,
                 host_launches_per_minibatch_step=per_mb <= 4)
-    log(f"[profile] training step: fused kernel launches per env_step {fused_steps}, in the "
-        f"rollout {sum(fused_rollout)}, in the SGD step {sum(sgd_split['fused_per_instance'])}; "
-        f"SGD step: {sgd_split['graph_launches']:.0f} graph replay, {per_mb:.3f} host launches "
-        f"per minibatch step (limit 4), device idle {100 * sgd_split['idle_share']:.1f}%; "
+    log(f"[profile] training step: rollout {roll_split['graph_launches']:.0f} graph replay, "
+        f"{roll_split['host_calls']:.0f} host calls ({roll_split['host_calls'] / hp.unroll_length:.2f} "
+        f"per env step), fused kernel launches {sum(fused_rollout)} (counted {launches}), device "
+        f"idle {100 * roll_split['idle_share']:.1f}%; SGD step: {sgd_split['graph_launches']:.0f} "
+        f"graph replay, {per_mb:.3f} host launches per minibatch step (limit 4), fused kernel "
+        f"{sum(sgd_split['fused_per_instance'])}, device idle {100 * sgd_split['idle_share']:.1f}%; "
         f"{'OK' if ok else 'FAIL'}")
     return dict(ok=ok, untraced_s=untraced_s, split=split, fused_launches=sum(fused_rollout))
 
@@ -1710,8 +1948,10 @@ def phase_profile(onnx: str) -> dict:
 
 
 def kernel_entry(name: str, replaces: str, main: dict, report: dict, case: str) -> dict:
-    """One entry of the kernels line: launches, times and bound from the
-    main path's run; max_abs_err from phase 2's step variant at the main
+    """One entry of the kernels line: launches (the main path's captured
+    run; launches_eager: its eager run; the fused launches one replay of
+    the captured env step records), times and bound from the main path;
+    max_abs_err from phase 2's step variant at the main
     path's shape, over all outputs (contact_dist over slots valid on both
     sides: a slot valid on one side only reads 1e10 on the other)."""
     rs = report[case]
@@ -1722,6 +1962,8 @@ def kernel_entry(name: str, replaces: str, main: dict, report: dict, case: str) 
         "source": "open_duck_playground_tpu_torch/ops/csrc/physics_step.cu",
         "replaces": replaces,
         "launches": main["launches"],
+        "launches_eager": main["launches_eager"],
+        "launches_per_replay_env_step": main["launches_per_replay"],
         "max_abs_err": rs[worst]["max"],
         "max_abs_err_of": f"{case}: step variant, all outputs; largest in {worst}",
         "ms": main["ms"],
@@ -1830,9 +2072,16 @@ def main() -> int:
             step_kernel[f"{k}_deploy_b1_{variant}"] = t[k]
     # phase 9: its launches in the traced windows, one per annotated env step
     step_kernel["launches_profiled"] = profiled["launches_profiled"]
-    step_kernel["launches_profiled_of"] = (f"phase 9 traces: {PROFILE_STEPS} env steps at "
-                                           f"{FLAT_MAIN[0]} {FLAT_MAIN[1]} and one training step's "
+    step_kernel["launches_profiled_of"] = (f"phase 9 traces: {PROFILE_STEPS} eager env steps and "
+                                           f"{PROFILE_STEPS} replays at {FLAT_MAIN[0]} "
+                                           f"{FLAT_MAIN[1]} and one training step's captured "
                                            f"rollout")
+    # phase 4: the fused kernel's launches in each replay of the trainer's
+    # captured rollout and eval step
+    step_kernel["launches_per_replay_rollout"] = (
+        trainer["rollout_graph"]["capture"]["fused_launches_per_replay"])
+    step_kernel["launches_per_replay_eval_step"] = (
+        trainer["eval_graph"]["capture"]["fused_launches_per_replay"])
     log(json.dumps({"kernels": [
         step_kernel,
         kernel_entry("fused_physics_step_hfield",

@@ -85,6 +85,10 @@ class OpenDuckMiniV2Env:
         # (ppo.train sets it; None: the batch is the whole batch)
         self.shard: Optional[EnvShard] = None
         self._observation_size = None
+        # (randomized model, its flat DR fields): flattened once per model,
+        # so the kernel reads them at fixed addresses (a CUDA graph of the
+        # step keeps the pointers it captured)
+        self._dr_cache = None
 
         model_cpu = compile_mjcf(xml_path, timestep=self._config.sim_dt)
         self._model = model_cpu.to(self.device)
@@ -150,7 +154,11 @@ class OpenDuckMiniV2Env:
 
     # --- physics dispatch ---------------------------------------------------
     def _dr(self, model: Model):
-        return flatten_dr_fields(model) if is_randomized(model) else None
+        if not is_randomized(model):
+            return None
+        if self._dr_cache is None or self._dr_cache[0] is not model:
+            self._dr_cache = (model, flatten_dr_fields(model))
+        return self._dr_cache[1]
 
     def _data(self, data_time, qpos, qvel, ctrl, out) -> Data:
         B = qpos.shape[0]
@@ -219,11 +227,34 @@ class OpenDuckMiniV2Env:
         a = self._floating_base_qvel_addr
         return qvel[:, a : a + 6]
 
+    def set_floating_base_qpos(self, new_qpos: torch.Tensor, qpos: torch.Tensor) -> torch.Tensor:
+        """`qpos` with its floating base's 7 coordinates set (a new tensor)."""
+        a = self._floating_base_qpos_addr
+        out = qpos.clone()
+        out[:, a : a + 7] = new_qpos
+        return out
+
+    def set_floating_base_qvel(self, new_qvel: torch.Tensor, qvel: torch.Tensor) -> torch.Tensor:
+        a = self._floating_base_qvel_addr
+        out = qvel.clone()
+        out[:, a : a + 6] = new_qvel
+        return out
+
     def get_actuator_joints_qpos(self, qpos: torch.Tensor) -> torch.Tensor:
         return qpos[:, self._actuator_qpos_addr]
 
+    def set_actuator_joints_qpos(self, new_qpos: torch.Tensor, qpos: torch.Tensor) -> torch.Tensor:
+        out = qpos.clone()
+        out[:, self._actuator_qpos_addr] = new_qpos
+        return out
+
     def get_actuator_joints_qvel(self, qvel: torch.Tensor) -> torch.Tensor:
         return qvel[:, self._actuator_qvel_addr]
+
+    def set_actuator_joints_qvel(self, new_qvel: torch.Tensor, qvel: torch.Tensor) -> torch.Tensor:
+        out = qvel.clone()
+        out[:, self._actuator_qvel_addr] = new_qvel
+        return out
 
     def get_actuator_backlash_qpos(self, qpos: torch.Tensor) -> torch.Tensor:
         return qpos[:, self._backlash_qpos_addr]
@@ -236,6 +267,9 @@ class OpenDuckMiniV2Env:
     def get_gravity(self, data: Data) -> torch.Tensor:
         return self.get_sensor_data(data, constants.GRAVITY_SENSOR)
 
+    def get_global_linvel(self, data: Data) -> torch.Tensor:
+        return self.get_sensor_data(data, constants.GLOBAL_LINVEL_SENSOR)
+
     def get_global_angvel(self, data: Data) -> torch.Tensor:
         return self.get_sensor_data(data, constants.GLOBAL_ANGVEL_SENSOR)
 
@@ -247,6 +281,12 @@ class OpenDuckMiniV2Env:
 
     def get_gyro(self, data: Data) -> torch.Tensor:
         return self.get_sensor_data(data, constants.GYRO_SENSOR)
+
+    def get_feet_pos(self, data: Data) -> torch.Tensor:
+        """(B, 2, 3): each foot's position sensor, in FEET_POS_SENSOR order
+        (the JAX package stacks them as rows of (2, 3) per env)."""
+        return torch.stack([self.get_sensor_data(data, n) for n in constants.FEET_POS_SENSOR],
+                           dim=1)
 
     # --- tasks: tables and draws ------------------------------------------------
     def _task_tables(self) -> None:

@@ -8,6 +8,11 @@ Counterpart of the JAX package's ``envs/wrapper.py``, in the same order:
 - episode bookkeeping (step count, ``truncation`` flag at episode_length);
 - auto-reset to the episode's FIRST state on done (Brax semantics: envs
   restart from their cached initial state, not a fresh randomized reset).
+
+The JAX package jits ``TrainEnv.step``. Its counterpart on the card is
+``CapturedEnvStep``: the step over fixed buffers (``step_into``, which the
+CPU runs eagerly), replayed as one CUDA graph where it can run (a CUDA
+device, world size 1, ``physics="kernel"``; ``eager_reason`` says why not).
 """
 
 from __future__ import annotations
@@ -19,6 +24,12 @@ import torch
 
 from open_duck_playground_tpu_torch.envs import randomize
 from open_duck_playground_tpu_torch.envs.types import State
+from open_duck_playground_tpu_torch.utils.graphs import (
+    GraphedBody,
+    clone_tree,
+    copy_into,
+    tree_leaves,
+)
 
 
 class TrainEnv:
@@ -120,3 +131,105 @@ def _where_done(done: torch.Tensor, first, cur):
         f.name: _where_done(done, getattr(first, f.name), getattr(cur, f.name))
         for f in dataclasses.fields(cur)
     })
+
+
+def wrap_for_training(env, num_envs: int, episode_length: int, action_repeat: int = 1,
+                      randomization_fn: Optional[Callable] = None,
+                      randomization_generator: Optional[torch.Generator] = None) -> TrainEnv:
+    return TrainEnv(env, num_envs=num_envs, episode_length=episode_length,
+                    action_repeat=action_repeat, randomization_fn=randomization_fn,
+                    randomization_generator=randomization_generator)
+
+
+# ---------------------------------------------------------------------------
+# the step over fixed buffers, and its CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def eager_reason(env) -> Optional[str]:
+    """Why the steps of `env` run eagerly, or None where they can be
+    captured as a CUDA graph: on a CUDA device, at world size 1, on the
+    fused kernel."""
+    shard = getattr(env, "shard", None)
+    if shard is not None and shard.world > 1:
+        return (f"eager at world {shard.world} (the env-sharded trainer runs its steps "
+                "eagerly, as its SGD step)")
+    if getattr(env, "physics_mode", None) == "pipeline":
+        return "eager with physics='pipeline' (the general pipeline is a second engine)"
+    if env.device.type != "cuda":
+        return f"eager on {env.device} (no CUDA graph on the CPU)"
+    return None
+
+
+def capture_parts(env):
+    """The generators a captured step of `env` draws from and the fused
+    physics whose launches it counts; raises where the step runs eagerly."""
+    why = eager_reason(env)
+    if why is not None:
+        raise ValueError(f"a CUDA graph of the env step needs a CUDA device, world size 1 and "
+                         f"physics='kernel': this env steps {why}")
+    physics = [env.physics] if getattr(env, "physics_mode", None) == "kernel" else []
+    return [env.generator], physics
+
+
+@torch.no_grad()
+def step_into(train_env: TrainEnv, buffers: State, action: torch.Tensor) -> State:
+    """`train_env.step(buffers, action)` written into `buffers` in place;
+    returns `buffers`. The buffers must not share storage (`clone_tree` of
+    a state: reset hands the first state to the autoreset cache itself, and
+    a step writing into it would make the next autoreset restore the
+    stepped state)."""
+    copy_into(buffers, train_env.step(buffers, action))
+    return buffers
+
+
+class CapturedEnvStep:
+    """`TrainEnv.step` replayed as one CUDA graph: the JAX package's jitted
+    env step. Called as `train_env.step` is, `(state, action) -> state`.
+
+    The graph records `step_into` over fixed buffers: the env state, made
+    at the first call as distinct copies of the state given, and the
+    action. A call copies its state into the buffers unless it is the state
+    the last call returned, copies its action unless it is `self.action`,
+    and replays. The state returned is the buffers themselves: the next
+    call overwrites it (clone it to keep it). The first call captures
+    (utils.graphs.GraphedBody: warm-up from snapshots of the state and of
+    the env's generator, restored, then capture); `capture` does that
+    ahead of the first step. Every draw comes from the env's generator,
+    registered with the graph, so replays draw what eager steps draw."""
+
+    def __init__(self, train_env: TrainEnv, log=None):
+        self.generators, self.physics = capture_parts(train_env.env)
+        self.train_env, self.log = train_env, log
+        self.state: Optional[State] = None
+        self.action: Optional[torch.Tensor] = None
+        self.graph: Optional[GraphedBody] = None
+
+    def _load(self, state: State, action: torch.Tensor) -> None:
+        if self.state is None:
+            te, buffers, act = self.train_env, clone_tree(state), action.clone()
+            self.state, self.action = buffers, act
+            self.graph = GraphedBody(lambda: step_into(te, buffers, act),
+                                     tree_leaves(buffers).values(), self.generators,
+                                     self.physics, act.device, "[env] TrainEnv.step", self.log)
+            return
+        if state is not self.state:
+            copy_into(self.state, state)
+        if action is not self.action:
+            self.action.copy_(action)
+
+    def capture(self, state: State, action: torch.Tensor) -> None:
+        """Capture from `state` and `action` (their values are kept for the
+        next call), without stepping."""
+        self._load(state, action)
+        if self.graph.graph is None:
+            self.graph.capture()
+
+    def __call__(self, state: State, action: torch.Tensor) -> State:
+        self._load(state, action)
+        self.graph.replay()
+        return self.state
+
+    @property
+    def replays(self) -> int:
+        return 0 if self.graph is None else self.graph.replays

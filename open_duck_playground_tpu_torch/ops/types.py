@@ -255,6 +255,9 @@ class Names:
         except KeyError as e:
             raise AttributeError(k) from e
 
+    def id2name(self, kind: str, i: int) -> str:
+        return self._lists[kind][i]
+
     def list(self, kind: str) -> List[str]:
         return list(self._lists[kind])
 
@@ -340,3 +343,6 @@ class Data(_Replace):
     qfrc_smooth: Optional[torch.Tensor] = None  # (B, nv)
     qfrc_constraint: Optional[torch.Tensor] = None  # (B, nv)
     cvel: Optional[torch.Tensor] = None  # (B, nbody, 6) body spatial velocity @ root-com origin
+
+    def replace_qpos(self, qpos: torch.Tensor) -> "Data":
+        return self.replace(qpos=qpos)

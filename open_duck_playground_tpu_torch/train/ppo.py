@@ -14,10 +14,16 @@ per-minibatch entropy noise, as tensors. ``train`` makes them from its own
 
 The learner's products, its Adam and its GAE are plain PyTorch; every env
 step goes through the env's physics (the fused CUDA kernel on the card).
-On the card at world size 1 the whole SGD step of a training step is one
-CUDA graph replay (``CapturedSGDStep``), the counterpart of the JAX
-package's jitted SGD step; on the CPU and in env-sharded runs its body,
-``sgd_step``, runs eagerly (``make_sgd_step`` picks, and train() logs which).
+The JAX package jits its rollout scan, its eval scan and its SGD step. On
+the card at world size 1 with physics="kernel" each is a CUDA graph here:
+a training step is one replay of ``CapturedRollout`` (the unroll_length
+env steps and the policy) and one of ``CapturedSGDStep`` (the normalizer
+update and every minibatch step), and an eval step one replay of
+``CapturedEvalStep``. Each records a body over fixed buffers
+(``rollout_into``, ``sgd_step``, ``eval_step``; utils/graphs.py), which is
+what runs eagerly on the CPU, in env-sharded runs and on the general
+pipeline (``make_rollout``, ``make_sgd_step`` and ``make_eval_step`` pick,
+and train() logs which).
 
 Env-sharded runs (``shard``, ``parallel/dist.py``) keep the JAX package's
 global view: every draw is made at the global shape on every rank, each
@@ -40,29 +46,25 @@ import numpy as np
 import torch
 
 from open_duck_playground_tpu_torch import interop
-from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
+from open_duck_playground_tpu_torch.envs.types import State
+from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv, capture_parts, eager_reason
 from open_duck_playground_tpu_torch.parallel.dist import EnvShard, current_shard, draw
 from open_duck_playground_tpu_torch.train import checkpoint as ckpt
 from open_duck_playground_tpu_torch.train import networks as nets
 from open_duck_playground_tpu_torch.train import optim
+from open_duck_playground_tpu_torch.utils.graphs import (
+    GraphedBody,
+    clone_tree,
+    copy_into,
+    tree_leaves,
+    tree_map,
+)
 
 # train()'s generators, in the order seeded_generators spawns them
 GENERATORS = ("net", "randomization", "reset", "epoch", "eval", "env", "eval_env")
 # set by train(profile_breakdown=True): the timing dict of the last
 # breakdown, for harnesses that want the artifact without parsing stdout
 LAST_PROFILE_BREAKDOWN: Optional[Dict[str, Any]] = None
-
-
-def _map(fn, x):
-    """`fn` over every tensor of nested dicts and dataclasses (None stays)."""
-    if x is None:
-        return None
-    if isinstance(x, torch.Tensor):
-        return fn(x)
-    if isinstance(x, dict):
-        return {k: _map(fn, v) for k, v in x.items()}
-    return dataclasses.replace(x, **{f.name: _map(fn, getattr(x, f.name))
-                                     for f in dataclasses.fields(x)})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,6 +218,95 @@ def rollout(train_env: TrainEnv, env_state, normalizer, networks: nets.PPONetwor
     return state, data
 
 
+def _same_tensors(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
+
+
+def _policy_tensors(normalizer, networks: nets.PPONetworks) -> list:
+    return [*networks.parameters(), *tree_leaves(normalizer).values()]
+
+
+@torch.no_grad()
+def rollout_into(train_env: TrainEnv, buffers: State, normalizer, networks: nets.PPONetworks,
+                 noise: torch.Tensor):
+    """`rollout` from the env state `buffers`, whose final state is written
+    into `buffers` in place (utils.graphs.copy_into); returns (buffers,
+    Transition). The body CapturedRollout records."""
+    state, data = rollout(train_env, buffers, normalizer, networks, noise)
+    copy_into(buffers, state)
+    return buffers, data
+
+
+class CapturedRollout:
+    """`rollout` replayed as one CUDA graph per training step, on a CUDA
+    device at world size 1 with physics="kernel": the JAX package's
+    `lax.scan` of the policy and `train_env.step` (ppo.py rollout), here
+    unroll_length steps of `nets.sample_actions` and `TrainEnv.step` and the
+    stacked Transition in one graph. Called as `rollout` is.
+
+    The graph reads fixed addresses: the params and the normalizer it was
+    made for (those CapturedSGDStep updates in place; every call must hand
+    them, a restore copies into them), a static policy noise [T, N, A]
+    into which each call copies its `noise` (drawn outside, by
+    draw_training_step), and the env state buffers, made at the first call
+    as distinct copies of the state given. A call copies its env state in
+    unless it is the state the last call returned. It returns (the
+    buffers, the Transition): both are the graph's own tensors, which the
+    next call overwrites. The env's draws come from its generator,
+    registered with the graph (utils.graphs.GraphedBody, which also
+    captures at the first call and keeps the kernel's launch count)."""
+
+    def __init__(self, train_env: TrainEnv, normalizer, networks: nets.PPONetworks, log=None):
+        self.generators, self.physics = capture_parts(train_env.env)
+        self.train_env, self.log = train_env, log
+        self.normalizer, self.networks = normalizer, networks
+        self._policy = _policy_tensors(self.normalizer, self.networks)
+        self.graph: Optional[GraphedBody] = None
+        self.state: Optional[State] = None
+
+    def __call__(self, train_env: TrainEnv, env_state: State, normalizer,
+                 networks: nets.PPONetworks, noise: torch.Tensor):
+        if train_env is not self.train_env:
+            raise ValueError("the captured rollout steps the TrainEnv it was made for")
+        if not _same_tensors(_policy_tensors(normalizer, networks), self._policy):
+            raise ValueError("the captured rollout reads the params and normalizer it was made "
+                             "for: restore into them, do not rebind")
+        if self.graph is None:
+            state, static_noise, out = clone_tree(env_state), noise.clone(), {}
+            self.state, self.noise, self._out = state, static_noise, out
+            te, norm, nw = self.train_env, self.normalizer, self.networks
+
+            def body():  # references no `self` (see GraphedBody)
+                out["data"] = rollout_into(te, state, norm, nw, static_noise)[1]
+
+            self.graph = GraphedBody(body, tree_leaves(state).values(), self.generators,
+                                     self.physics, noise.device, "[ppo] rollout", self.log)
+        else:
+            if env_state is not self.state:
+                copy_into(self.state, env_state)
+            self.noise.copy_(noise)
+        self.graph.replay()
+        return self.state, self._out["data"]
+
+    @property
+    def replays(self) -> int:
+        return 0 if self.graph is None else self.graph.replays
+
+
+def make_rollout(train_env: TrainEnv, training_state: TrainingState, hp: Hyper, log=None):
+    """The rollout train() runs, and the log line that says which: a
+    CapturedRollout on a CUDA device at world size 1 with
+    physics="kernel", else `rollout` (wrapper.eager_reason)."""
+    why = eager_reason(train_env.env)
+    fn = (rollout if why is not None else
+          CapturedRollout(train_env, training_state.normalizer, training_state.params, log))
+    if log is not None:
+        how = (f"one CUDA graph replay per training step ({hp.unroll_length} env steps), "
+               "captured at its first call")
+        log(f"[ppo] rollout: {why or how}")
+    return fn
+
+
 def sgd_step(training_state: TrainingState, data: Transition, perms: torch.Tensor,
              entropy_noise: torch.Tensor, hp: Hyper, shard: Optional[EnvShard] = None):
     """Normalizer update from the whole rollout, then num_updates_per_batch
@@ -240,7 +331,7 @@ def sgd_step(training_state: TrainingState, data: Transition, perms: torch.Tenso
     sharded = shard is not None and shard.world > 1
     normalizer = training_state.normalizer
     if hp.normalize_observations:
-        _copy_into(normalizer, nets.rs_update(normalizer, data.observation, shard=shard))
+        copy_into(normalizer, nets.rs_update(normalizer, data.observation, shard=shard))
     networks = training_state.params
     params = list(networks.parameters())
     opt_state = training_state.opt_state
@@ -254,7 +345,7 @@ def sgd_step(training_state: TrainingState, data: Transition, perms: torch.Tenso
                 ent = entropy_noise[e, j].index_select(1, pos)
             else:
                 idx, ent = perms[e, j * b:(j + 1) * b], entropy_noise[e, j]
-            mb = _map(lambda x: x.index_select(1, idx), data)
+            mb = tree_map(lambda x: x.index_select(1, idx), data)
             total, mb_aux = loss_fn(networks, normalizer, mb, ent, hp, shard)
             grads = torch.autograd.grad(total, params)
             if sharded:
@@ -272,7 +363,7 @@ def learner_tensors(training_state: TrainingState) -> list:
     """The tensors an SGD step updates in place, in a fixed order: the
     params, the Adam count and moments, the normalizer."""
     norm: Dict[str, torch.Tensor] = {}
-    _tensors(training_state.normalizer, "normalizer", norm)
+    tree_leaves(training_state.normalizer, "normalizer", norm)
     opt = training_state.opt_state
     return [*training_state.params.parameters(), opt.count, *opt.mu, *opt.nu, *norm.values()]
 
@@ -287,21 +378,6 @@ def restore_learner(training_state: TrainingState, saved: list) -> None:
     """Copy a `snapshot_learner` back into the state's own tensors."""
     for t, s in zip(learner_tensors(training_state), saved, strict=True):
         t.copy_(s)
-
-
-@torch.no_grad()
-def _copy_into(dst, src) -> None:
-    """Every tensor of `src` copied into the tensor at the same place of
-    `dst` (nested dicts and dataclasses of one structure)."""
-    a: Dict[str, torch.Tensor] = {}
-    b: Dict[str, torch.Tensor] = {}
-    _tensors(dst, "", a)
-    _tensors(src, "", b)
-    if a.keys() != b.keys() or any(t.shape != b[k].shape for k, t in a.items()):
-        raise ValueError(f"cannot copy {({k: tuple(v.shape) for k, v in b.items()})} into "
-                         f"{({k: tuple(v.shape) for k, v in a.items()})}")
-    for k, t in a.items():
-        t.copy_(b[k])
 
 
 class CapturedSGDStep:
@@ -336,9 +412,17 @@ class CapturedSGDStep:
                              "sgd_step eagerly")
         self.hp, self.device, self.log = hp, dev, log
         self._learner = learner_tensors(training_state)
-        self.graph = None
+        self._graphed: Optional[GraphedBody] = None
         self.replays = 0
-        self.info: Dict[str, Any] = {}
+
+    @property
+    def graph(self):
+        """The CUDA graph (None before the first call)."""
+        return None if self._graphed is None else self._graphed.graph
+
+    @property
+    def info(self) -> Dict[str, Any]:
+        return {} if self._graphed is None else self._graphed.info
 
     def __call__(self, training_state: TrainingState, data: Transition, perms: torch.Tensor,
                  entropy_noise: torch.Tensor, hp: Hyper, shard: Optional[EnvShard] = None):
@@ -346,52 +430,26 @@ class CapturedSGDStep:
             raise ValueError("the captured SGD step was made for other hyperparameters")
         if shard is not None and shard.world > 1:
             raise ValueError("the env-sharded SGD step runs eagerly (sgd_step)")
-        mine = learner_tensors(training_state)
-        if len(mine) != len(self._learner) or any(a is not b for a, b in zip(mine, self._learner)):
+        if not _same_tensors(learner_tensors(training_state), self._learner):
             raise ValueError("the captured SGD step updates the tensors of the state it was "
                              "made for: restore into them (restore_full_state), do not rebind")
         inputs = {"data": data, "perms": perms, "entropy_noise": entropy_noise}
-        if self.graph is None:
-            self._capture(training_state, inputs)
-        else:
-            _copy_into(self.inputs, inputs)
-        self.graph.replay()
-        self.replays += 1
-        return training_state, {k: v.clone() for k, v in self.losses.items()}
+        if self._graphed is None:
+            static_inputs, out, hp = clone_tree(inputs), {}, self.hp
+            self.inputs, self._out = static_inputs, out
 
-    def _capture(self, training_state: TrainingState, inputs: Dict[str, Any]) -> None:
-        self.inputs = _map(torch.clone, inputs)
-        saved = snapshot_learner(training_state)
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        t0 = time.perf_counter()
-        with torch.cuda.stream(stream):
-            sgd_step(training_state, **self.inputs, hp=self.hp)
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        restore_learner(training_state, saved)
-        torch.cuda.synchronize(self.device)
-        warmup_s = time.perf_counter() - t0
-        del saved
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=stream):
-            _, self.losses = sgd_step(training_state, **self.inputs, hp=self.hp)
-        capture_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        graph.instantiate()
-        torch.cuda.synchronize(self.device)
-        self.graph = graph
-        static: Dict[str, torch.Tensor] = {}
-        _tensors(self.inputs, "", static)
-        self.info = {"warmup_s": round(warmup_s, 4), "capture_s": round(capture_s, 4),
-                     "instantiate_s": round(time.perf_counter() - t0, 4),
-                     "pool_bytes": torch.cuda.memory_reserved(self.device) - reserved,
-                     "static_input_bytes": sum(t.numel() * t.element_size()
-                                               for t in static.values())}
-        if self.log is not None:
-            self.log(f"[ppo] SGD step captured: {json.dumps(self.info)}")
+            def body():  # references no `self` (see GraphedBody)
+                out["losses"] = sgd_step(training_state, **static_inputs, hp=hp)[1]
+
+            static = tree_leaves(static_inputs).values()
+            self._graphed = GraphedBody(
+                body, self._learner, device=self.device, name="[ppo] SGD step", log=self.log,
+                extra={"static_input_bytes": sum(t.numel() * t.element_size() for t in static)})
+        else:
+            copy_into(self.inputs, inputs)
+        self._graphed.replay()
+        self.replays += 1
+        return training_state, {k: v.clone() for k, v in self._out["losses"].items()}
 
 
 def make_sgd_step(training_state: TrainingState, hp: Hyper, shard: Optional[EnvShard] = None,
@@ -461,53 +519,153 @@ def draw_training_step(generator: torch.Generator, hp: Hyper, action_size: int, 
 
 
 def training_step(training_state: TrainingState, train_env: TrainEnv, env_state, draws,
-                  hp: Hyper, shard: Optional[EnvShard] = None, sgd=sgd_step):
-    """Rollout with the current (normalizer, params), then the SGD step
-    `sgd` (`sgd_step`, or a CapturedSGDStep of this state).
+                  hp: Hyper, shard: Optional[EnvShard] = None, sgd=sgd_step, roll=rollout):
+    """The rollout `roll` (`rollout`, or a CapturedRollout of this state)
+    with the current (normalizer, params), then the SGD step `sgd`
+    (`sgd_step`, or a CapturedSGDStep of this state).
     Returns (training_state, env_state, {name: mean loss}). With a shard,
     `env_state` is this rank's rows and `draws` the global draws: the
     rollout takes its rows of the policy noise."""
     noise, perms, ent = draws
     if shard is not None:
         noise = shard.take(noise, dim=1)
-    env_state, data = rollout(train_env, env_state, training_state.normalizer,
-                              training_state.params, noise)
+    env_state, data = roll(train_env, env_state, training_state.normalizer,
+                           training_state.params, noise)
     training_state, aux = sgd(training_state, data, perms, ent, hp, shard)
     training_state = training_state.replace(
         env_steps=training_state.env_steps + hp.env_steps_per_training_step)
     return training_state, env_state, {k: v.mean() for k, v in aux.items()}
 
 
+@dataclasses.dataclass(frozen=True)
+class EvalCarry:
+    """What an eval episode carries from step to step: the env state, and
+    per env the reward and metric sums, the steps counted and whether it
+    is still running (1.0 until its first done)."""
+
+    state: State
+    sums: torch.Tensor
+    metric_sums: Dict[str, torch.Tensor]
+    length: torch.Tensor
+    active: torch.Tensor
+
+
+def eval_start(state: State) -> EvalCarry:
+    n, dev = state.reward.shape[0], state.reward.device
+    return EvalCarry(state=state, sums=torch.zeros(n, device=dev),
+                     metric_sums={k: torch.zeros(n, device=dev) for k in state.metrics},
+                     length=torch.zeros(n, device=dev), active=torch.ones(n, device=dev))
+
+
+@torch.no_grad()
+def eval_step(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
+              generator: torch.Generator, carry: EvalCarry, deterministic: bool = False,
+              shard: Optional[EnvShard] = None) -> EvalCarry:
+    """One step of every eval env, each env's sums masked once it is done.
+    The stochastic policy draws its noise from `generator` (at the global
+    shape with a shard)."""
+    state = carry.state
+    if deterministic:
+        action, _ = networks.make_policy_fn(deterministic=True)((normalizer, networks), state.obs)
+    else:
+        noise = draw(shard, torch.randn, (eval_env.num_envs, networks.action_size),
+                     generator=generator, device=state.reward.device)
+        action = nets.sample_actions(networks, normalizer, state.obs, noise)[0]
+    state = eval_env.step(state, action)
+    active = carry.active
+    return EvalCarry(state=state, sums=carry.sums + state.reward * active,
+                     metric_sums={k: v + state.metrics[k] * active
+                                  for k, v in carry.metric_sums.items()},
+                     length=carry.length + active, active=active * (1.0 - state.done))
+
+
+class CapturedEvalStep:
+    """`eval_step` replayed as one CUDA graph, on a CUDA device at world size
+    1 with physics="kernel": the step of the JAX package's jitted eval scan
+    (ppo.py run_eval). Called as `eval_step` is; `run_eval` replays it
+    episode_length // action_repeat times after its eager reset.
+
+    The graph reads the params and the normalizer it was made for and the
+    carry's buffers (made at the first call as distinct copies of the carry
+    given), and draws from `generator` and the eval env's own generator,
+    both registered with it. A call copies its carry in unless it is the
+    carry the last call returned, and returns the buffers, which the next
+    call overwrites."""
+
+    def __init__(self, eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
+                 generator: torch.Generator, deterministic: bool, log=None):
+        gens, self.physics = capture_parts(eval_env.env)
+        self.generators = gens if deterministic else [generator, *gens]
+        self.eval_env, self.generator, self.deterministic = eval_env, generator, deterministic
+        self.normalizer, self.networks = normalizer, networks
+        self._policy = _policy_tensors(self.normalizer, self.networks)
+        self.log = log
+        self.graph: Optional[GraphedBody] = None
+        self.carry: Optional[EvalCarry] = None
+
+    def __call__(self, eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
+                 generator: torch.Generator, carry: EvalCarry, deterministic: bool = False,
+                 shard: Optional[EnvShard] = None) -> EvalCarry:
+        if (eval_env is not self.eval_env or generator is not self.generator
+                or deterministic != self.deterministic):
+            raise ValueError("the captured eval step runs the eval env, generator and policy "
+                             "it was made for")
+        if shard is not None and shard.world > 1:
+            raise ValueError("the env-sharded eval runs eagerly (eval_step)")
+        if not _same_tensors(_policy_tensors(normalizer, networks), self._policy):
+            raise ValueError("the captured eval step reads the params and normalizer it was "
+                             "made for: restore into them, do not rebind")
+        if self.graph is None:
+            buffers = self.carry = clone_tree(carry)
+            ev, norm, nw, g, det = (self.eval_env, self.normalizer, self.networks, self.generator,
+                                    self.deterministic)
+
+            def body():  # references no `self` (see GraphedBody)
+                copy_into(buffers, eval_step(ev, norm, nw, g, buffers, det))
+
+            self.graph = GraphedBody(body, tree_leaves(buffers).values(), self.generators,
+                                     self.physics, carry.sums.device, "[ppo] eval step", self.log)
+        elif carry is not self.carry:
+            copy_into(self.carry, carry)
+        self.graph.replay()
+        return self.carry
+
+    @property
+    def replays(self) -> int:
+        return 0 if self.graph is None else self.graph.replays
+
+
+def make_eval_step(eval_env: TrainEnv, training_state: TrainingState, generator: torch.Generator,
+                   deterministic: bool, log=None):
+    """The eval step train() runs, and the log line that says which: a
+    CapturedEvalStep on a CUDA device at world size 1 with
+    physics="kernel", else `eval_step` (wrapper.eager_reason)."""
+    why = eager_reason(eval_env.env)
+    fn = (eval_step if why is not None else
+          CapturedEvalStep(eval_env, training_state.normalizer, training_state.params, generator,
+                           deterministic, log))
+    if log is not None:
+        how = "one CUDA graph replay per eval step, captured at its first call"
+        log(f"[ppo] eval step: {why or how}")
+    return fn
+
+
 @torch.no_grad()
 def run_eval(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
              generator: torch.Generator, *, episode_length: int, action_repeat: int = 1,
-             deterministic: bool = False, shard: Optional[EnvShard] = None
-             ) -> Dict[str, torch.Tensor]:
+             deterministic: bool = False, shard: Optional[EnvShard] = None,
+             step=eval_step) -> Dict[str, torch.Tensor]:
     """One episode of every eval env: reset from `generator`, then
-    episode_length // action_repeat steps, each env's sums masked once it is
-    done. The stochastic policy draws its noise from `generator`. With a
-    shard, `eval_env` holds this rank's rows: the noise is drawn at the
-    global shape, and the per-env sums are gathered from every rank before
-    the mean and std are taken over all eval envs."""
-    policy = networks.make_policy_fn(deterministic=True)
-    state = eval_env.reset(generator)
-    n, dev = eval_env.num_envs, state.reward.device
-    active = torch.ones(n, device=dev)
-    sums = torch.zeros(n, device=dev)
-    length = torch.zeros(n, device=dev)
-    metric_sums = {k: torch.zeros(n, device=dev) for k in state.metrics}
+    episode_length // action_repeat calls of `step` (`eval_step`, or a
+    CapturedEvalStep), each env's sums masked once it is done. The
+    stochastic policy draws its noise from `generator`. With a shard,
+    `eval_env` holds this rank's rows: the noise is drawn at the global
+    shape, and the per-env sums are gathered from every rank before the
+    mean and std are taken over all eval envs."""
+    carry = eval_start(eval_env.reset(generator))
     for _ in range(episode_length // action_repeat):
-        if deterministic:
-            action, _ = policy((normalizer, networks), state.obs)
-        else:
-            noise = draw(shard, torch.randn, (n, networks.action_size), generator=generator,
-                         device=dev)
-            action = nets.sample_actions(networks, normalizer, state.obs, noise)[0]
-        state = eval_env.step(state, action)
-        sums = sums + state.reward * active
-        metric_sums = {k: v + state.metrics[k] * active for k, v in metric_sums.items()}
-        length = length + active
-        active = active * (1.0 - state.done)
+        carry = step(eval_env, normalizer, networks, generator, carry, deterministic, shard)
+    sums, length, metric_sums = carry.sums, carry.length, carry.metric_sums
     if shard is not None and shard.world > 1:
         per_env = shard.all_gather_rows(torch.stack([sums, length, *metric_sums.values()], 1))
         sums, length, *cols = per_env.T.contiguous()
@@ -525,19 +683,6 @@ def run_eval(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
 # ---------------------------------------------------------------------------
 # full training state <-> named arrays
 # ---------------------------------------------------------------------------
-
-
-def _tensors(x, prefix: str, out: Dict[str, torch.Tensor]) -> None:
-    if x is None:  # a Data field the engine does not fill
-        return
-    if isinstance(x, torch.Tensor):
-        out[prefix] = x
-    elif isinstance(x, dict):
-        for k, v in x.items():
-            _tensors(v, f"{prefix}/{k}", out)
-    else:
-        for f in dataclasses.fields(x):
-            _tensors(getattr(x, f.name), f"{prefix}/{f.name}", out)
 
 
 def _rebuild(template, prefix: str, arrays: Dict[str, np.ndarray]):
@@ -574,14 +719,14 @@ def full_state(training_state: TrainingState, env_state,
                 for (path, _), t in zip(named, tensors)}
 
     out = brax("training_state/params", [p.detach() for _, p in named])
-    _tensors(training_state.normalizer, "training_state/normalizer", out)
+    tree_leaves(training_state.normalizer, "training_state/normalizer", out)
     opt = training_state.opt_state
     out["training_state/opt_state/count"] = opt.count
     out.update(brax("training_state/opt_state/mu", opt.mu))
     out.update(brax("training_state/opt_state/nu", opt.nu))
     out["training_state/env_steps"] = training_state.env_steps
     env: Dict[str, torch.Tensor] = {}
-    _tensors(env_state, "env_state", env)
+    tree_leaves(env_state, "env_state", env)
     if shard is not None:
         env = {k: shard.all_gather_rows(v) for k, v in env.items()}
     out.update(env)
@@ -616,7 +761,7 @@ def restore_full_state(arrays: Dict[str, np.ndarray], training_state: TrainingSt
     interop.ppo_params_from_numpy(tree("training_state/params"), nw)
     optim.copy_state_(training_state.opt_state,
                       interop.adam_state_from_numpy(tree("training_state/opt_state"), nw, dev))
-    _copy_into(training_state.normalizer,
+    copy_into(training_state.normalizer,
                _rebuild(training_state.normalizer, "training_state/normalizer", arrays))
     env_steps = _rebuild(training_state.env_steps, "training_state/env_steps", arrays)
     env_state = _rebuild(env_state, "env_state", arrays)
@@ -701,6 +846,7 @@ def train(
     profile_breakdown: bool = False,
     device=None,
     shard: Optional[EnvShard] = None,
+    resume_shared_fs: bool = False,
 ):
     """Train PPO; returns (make_policy, (normalizer, params), metrics).
 
@@ -716,7 +862,15 @@ def train(
     the global batch (`parallel/dist.py`). Every rank calls train() with the
     same arguments; only rank 0 prints, calls `progress_fn` and
     `policy_params_fn` and writes the full-state checkpoints, while the
-    other ranks wait at a barrier.
+    other ranks wait at a barrier. With `auto_resume`, rank 0 finds the
+    latest full state and broadcasts its epoch; with `resume_shared_fs`
+    (a directory every rank reads alike), every rank finds it itself and
+    no collective runs.
+
+    On a CUDA device at world size 1 with physics="kernel", the rollout,
+    the eval step and the SGD step are each one CUDA graph, captured at
+    their first call (make_rollout, make_eval_step, make_sgd_step; each
+    logs which path runs).
     """
     if num_envs != batch_size * num_minibatches:
         raise ValueError("brax-PPO layout requires num_envs == batch_size * num_minibatches")
@@ -775,7 +929,7 @@ def train(
         for _ in range(num_training_steps_per_epoch):
             draws = draw_training_step(g_epoch, hp, action_size, dev)
             training_state, env_state, m = training_step(
-                training_state, train_env, env_state, draws, hp, shard, sgd)
+                training_state, train_env, env_state, draws, hp, shard, sgd, roll)
             step_metrics.append(m)
         metrics = {k: torch.stack([m[k] for m in step_metrics]).mean() for k in step_metrics[0]}
         return training_state, env_state, metrics
@@ -786,11 +940,11 @@ def train(
                                 episode_length=episode_length, action_repeat=action_repeat,
                                 randomization_fn=None)
 
-    def evaluate(full_params, generator):
+    def evaluate(full_params):
         normalizer, params = full_params
-        return run_eval(eval_wrapped, normalizer, params, generator,
+        return run_eval(eval_wrapped, normalizer, params, g_eval,
                         episode_length=episode_length, action_repeat=action_repeat,
-                        deterministic=deterministic_eval, shard=shard)
+                        deterministic=deterministic_eval, shard=shard, step=eval_fn)
 
     # ------------------------------------------------------------------
     # main loop
@@ -808,7 +962,7 @@ def train(
     def replicated():
         """What every rank holds alike, by group, for the per-epoch check."""
         opt, norm = training_state.opt_state, {}
-        _tensors(training_state.normalizer, "normalizer", norm)
+        tree_leaves(training_state.normalizer, "normalizer", norm)
         return {"params": list(training_state.params.parameters()),
                 "adam": [opt.count, *opt.mu, *opt.nu],
                 "normalizer": list(norm.values()),
@@ -817,10 +971,15 @@ def train(
 
     start_epoch = 0
     if auto_resume and save_full_state_dir is not None:
-        # rank 0 decides; every rank reads the same file and takes its rows
-        found = ckpt.latest_full(save_full_state_dir) if shard.is_main else None
-        resume_epoch = int(shard.broadcast(torch.tensor(-1 if found is None else found[0],
-                                                        device=shard.device)))
+        if resume_shared_fs:
+            # every rank reads the same directory and decides alike: no collective
+            found = ckpt.latest_full(save_full_state_dir)
+            resume_epoch = -1 if found is None else found[0]
+        else:
+            # rank 0 decides; every rank reads the same file and takes its rows
+            found = ckpt.latest_full(save_full_state_dir) if shard.is_main else None
+            resume_epoch = int(shard.broadcast(torch.tensor(-1 if found is None else found[0],
+                                                            device=shard.device)))
         if resume_epoch >= 0:
             resume_path = ckpt.full_path(save_full_state_dir, resume_epoch)
             training_state, env_state = restore_full_state(
@@ -829,8 +988,12 @@ def train(
             log(f"[ppo] resumed full train state from {resume_path} (epoch "
                 f"{resume_epoch}, env_steps {int(training_state.env_steps)})")
 
-    # after any restore: a captured step updates this state's own tensors
+    # after any restore: the captured programs read and update this
+    # state's own tensors
     sgd = make_sgd_step(training_state, hp, shard, log)
+    roll = make_rollout(train_env, training_state, hp, log)
+    eval_fn = (make_eval_step(eval_wrapped, training_state, g_eval, deterministic_eval, log)
+               if eval_wrapped is not None else None)
 
     def _save_full_state(epoch_i: int, directory: Optional[str] = save_full_state_dir):
         if directory is None:
@@ -854,7 +1017,7 @@ def train(
     def _eval_and_report(step_count: int):
         if eval_wrapped is not None:
             t0 = time.monotonic()
-            eval_metrics = evaluate((training_state.normalizer, training_state.params), g_eval)
+            eval_metrics = evaluate((training_state.normalizer, training_state.params))
             # merge, don't replace: the caller just wrote training/* metrics
             # (sps, losses) into `metrics` and progress_fn must see both
             metrics.update({k: float(v) for k, v in eval_metrics.items()})
@@ -868,14 +1031,17 @@ def train(
         shard.barrier()
 
     if profile_breakdown:
-        # Time the real rollout, SGD step (the one the loop runs: on the card
-        # at world 1, its graph, captured by the first of these calls),
-        # training step, eval and full-state save, each run twice and timed
-        # the second time. Training is left as it is: the rollouts and evals
-        # draw from throwaway generators and the envs' own generators are
-        # restored afterwards; the SGD steps update the learner's own
-        # tensors, which are restored from a snapshot; outputs are dropped.
-        # Every rank runs the same passes, so the collectives stay in step.
+        # Time the real rollout, SGD step and eval step (the ones the loop
+        # runs: on the card at world 1, their graphs, each captured by the
+        # first of these calls), training step, eval and full-state save,
+        # each run twice and timed the second time. Training is left as it
+        # is: the policy noise and SGD draws come from a throwaway generator;
+        # the generators the envs and the eval draw from (those the graphs
+        # registered) are restored afterwards, and so are the env state (a
+        # captured rollout steps its buffers in place: the loop resumes from
+        # a copy taken before) and the learner's tensors (the SGD steps
+        # update them in place); outputs are dropped. Every rank runs the
+        # same passes, so the collectives stay in step.
         def _timed(fn):
             fn()
             _sync(dev)
@@ -884,21 +1050,23 @@ def train(
             _sync(dev)
             return time.monotonic() - t, out
 
-        def throwaway():
-            return torch.Generator(device=dev).manual_seed(0xB0)
-
-        env_gens = {k: g.get_state() for k, g in generators.items() if k in ("env", "eval_env")}
-        draws0 = draw_training_step(throwaway(), hp, action_size, dev)
+        gen_states = {k: g.get_state() for k, g in generators.items()
+                      if k in ("env", "eval", "eval_env")}
+        saved_env = clone_tree(env_state)
+        draws0 = draw_training_step(torch.Generator(device=dev).manual_seed(0xB0), hp,
+                                    action_size, dev)
         bd: Dict[str, Any] = {"num_envs": num_envs, "unroll_length": unroll_length,
                               "env_steps_per_training_step": env_step_per_training_step}
         if shard.world > 1:
             bd.update(world=shard.world, rank=shard.rank, device=str(dev),
                       num_envs_per_rank=train_env.num_envs)
-        t_roll, (_, data0) = _timed(lambda: rollout(
+        t_roll, (_, data0) = _timed(lambda: roll(
             train_env, env_state, training_state.normalizer, training_state.params,
             shard.take(draws0[0], dim=1)))
         bd["rollout_s"] = round(t_roll, 4)
         bd["rollout_env_sps"] = round(num_envs * unroll_length / t_roll, 1)
+        if isinstance(roll, CapturedRollout):
+            bd["rollout_graph"] = roll.graph.info
         saved = snapshot_learner(training_state)
         t_sgd, _ = _timed(lambda: sgd(training_state, data0, draws0[1], draws0[2], hp, shard))
         bd["sgd_s"] = round(t_sgd, 4)
@@ -915,17 +1083,21 @@ def train(
             bd["sgd_collectives"] = shard.collectives - n0
             bd["sgd_collective_s"] = round(shard.collective_s, 4)
         t_step, _ = _timed(lambda: training_step(training_state, train_env, env_state, draws0,
-                                                 hp, shard, sgd))
+                                                 hp, shard, sgd, roll))
         bd["training_step_s"] = round(t_step, 4)
         bd["e2e_env_sps"] = round(env_step_per_training_step / t_step, 1)
         restore_learner(training_state, saved)
         del data0, draws0, saved
         if eval_wrapped is not None:
-            t_eval, _ = _timed(lambda: evaluate(
-                (training_state.normalizer, training_state.params), throwaway()))
+            t_eval, _ = _timed(lambda: evaluate((training_state.normalizer,
+                                                 training_state.params)))
             bd["eval_s"] = round(t_eval, 4)
-        for k, s in env_gens.items():
+            if isinstance(eval_fn, CapturedEvalStep):
+                bd["eval_graph"] = eval_fn.graph.info
+        for k, s in gen_states.items():
             generators[k].set_state(s)
+        env_state = saved_env
+        del saved_env
         if save_full_state_dir is not None:
             # into a scratch directory, deleted after: full_<n>.npz only ever
             # holds the state after epoch n, which auto_resume relies on
@@ -973,7 +1145,8 @@ def train(
                 f"after epoch {epoch_i}")
             break
 
-    if isinstance(sgd, CapturedSGDStep):
-        log(f"[ppo] SGD step: {sgd.replays} graph replays")
+    for name, fn in (("rollout", roll), ("eval step", eval_fn), ("SGD step", sgd)):
+        if isinstance(fn, (CapturedRollout, CapturedEvalStep, CapturedSGDStep)):
+            log(f"[ppo] {name}: {fn.replays} graph replays")
     full_params = (training_state.normalizer, training_state.params)
     return make_policy, full_params, metrics

@@ -1,0 +1,194 @@
+"""Bodies over fixed buffers, replayed as CUDA graphs.
+
+The JAX package jits its env step, its rollout (a ``lax.scan``), its eval
+episode and its SGD step: each is one device program. Their counterparts
+here are CUDA graphs. A graph replays fixed addresses, so each program is
+written as a *body*: a function of no arguments that reads fixed tensors
+and writes its results into fixed tensors (its buffers), in place. The
+body is what the CPU runs eagerly; on the card it is recorded once and
+replayed (`GraphedBody`).
+
+Tree helpers for the nested dicts and dataclasses of tensors the bodies
+work on: `tree_map`, `tree_leaves`, and `copy_into`, which copies one tree
+into the buffers of another of the same structure.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gc
+import json
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional
+
+import torch
+
+
+def tree_map(fn, x):
+    """`fn` over every tensor of nested dicts and dataclasses (None stays)."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, dict):
+        return {k: tree_map(fn, v) for k, v in x.items()}
+    return dataclasses.replace(x, **{f.name: tree_map(fn, getattr(x, f.name))
+                                     for f in dataclasses.fields(x)})
+
+
+def tree_leaves(x, prefix: str = "", out: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
+    """{path: tensor} of every tensor of nested dicts and dataclasses, in a
+    fixed order (a None field, one the engine does not fill, is left out)."""
+    out = {} if out is None else out
+    if x is None:
+        return out
+    if isinstance(x, torch.Tensor):
+        out[prefix] = x
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            tree_leaves(v, f"{prefix}/{k}", out)
+    else:
+        for f in dataclasses.fields(x):
+            tree_leaves(getattr(x, f.name), f"{prefix}/{f.name}", out)
+    return out
+
+
+@torch.no_grad()
+def copy_into(dst, src) -> None:
+    """Every tensor of `src` copied into the tensor at the same place of
+    `dst` (one structure, one shape per place). A tensor of `src` that is
+    its own place's tensor of `dst` is left alone; one that shares storage
+    with another tensor of `dst` is cloned before any copy runs. A step
+    hands some of its inputs on to other places (the last action becomes
+    the one before it), so copying in place must not read a buffer it has
+    already overwritten."""
+    a, b = tree_leaves(dst), tree_leaves(src)
+    if a.keys() != b.keys() or any(t.shape != b[k].shape for k, t in a.items()):
+        raise ValueError(f"cannot copy {({k: tuple(v.shape) for k, v in b.items()})} into "
+                         f"{({k: tuple(v.shape) for k, v in a.items()})}")
+    storages = {t.untyped_storage().data_ptr() for t in a.values()}
+    pending = []
+    for k, t in a.items():
+        s = b[k]
+        if s is t:
+            continue
+        if s.untyped_storage().data_ptr() in storages:
+            s = s.clone()
+        pending.append((t, s))
+    for t, s in pending:
+        t.copy_(s)
+
+
+def clone_tree(x):
+    """Distinct copies of every tensor of `x`, for buffers: a tensor that
+    appears at two places (reset puts the first state in the autoreset
+    cache) becomes two."""
+    return tree_map(torch.clone, x)
+
+
+class GraphedBody:
+    """`body` recorded once as a CUDA graph and replayed.
+
+    `buffers`: the tensors the body overwrites that outlive it (its state);
+    `generators`: every torch.Generator the body draws from; `physics`: the
+    FusedPhysics objects whose kernel the body launches. `log`, if given,
+    gets one line "<name> captured: {info}" (seconds of the warm-up, the
+    capture and the instantiation, the graph pool's bytes, the fused
+    launches per replay, and `extra`).
+
+    `capture()` (or the first `replay()`): the body runs once eagerly on a
+    side stream, as a warm-up (cuBLAS workspaces of that stream, the fused
+    kernel's tables, attributes and module), from snapshots of the buffers
+    and of the generators' states, which are restored after it; then the
+    body is captured on that stream with every generator registered with
+    the graph, and instantiated. Capture runs nothing. A replay then reads
+    each generator's state as it stands (a `set_state` is obeyed) and
+    advances it as the eager body would. The warm-up's kernel launches are
+    real and stay counted; the capture's are taken off each physics
+    object's `launches`, and each replay adds back the number of fused
+    launches its capture recorded. A capture or replay that fails raises:
+    nothing falls back to the eager body.
+
+    Python's cyclic collector is run before the capture and kept off during
+    it: a CUDA graph it frees while this one captures would invalidate the
+    capture (destroying a graph is not permitted while a stream captures).
+    For the same reason `body` should not reference the object that owns
+    this GraphedBody: the pair would be a cycle that only the collector
+    frees."""
+
+    def __init__(self, body: Callable[[], Any], buffers: Iterable[torch.Tensor],
+                 generators: Iterable[torch.Generator] = (), physics: Iterable[Any] = (),
+                 device=None, name: str = "body", log=None,
+                 extra: Optional[Dict[str, Any]] = None):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not {self.device}")
+        self.body, self.name, self.log = body, name, log
+        self.buffers: List[torch.Tensor] = list(buffers)
+        self.generators = list(generators)
+        self.physics = list(physics)
+        self.graph = None
+        self.replays = 0
+        self.launches_per_replay: List[int] = []
+        self.info: Dict[str, Any] = {}
+        self._extra = dict(extra or {})
+
+    def capture(self) -> None:
+        dev = self.device
+        with torch.no_grad():
+            saved = [t.clone() for t in self.buffers]
+        gen_states = [g.get_state() for g in self.generators]
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            self.body()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        with torch.no_grad():
+            for t, s in zip(self.buffers, saved):
+                t.copy_(s)
+        for g, s in zip(self.generators, gen_states):
+            g.set_state(s)
+        torch.cuda.synchronize(dev)
+        warmup_s = time.perf_counter() - t0
+        del saved
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for g in self.generators:
+            graph.register_generator_state(g)
+        counts = [p.launches for p in self.physics]
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                self.body()
+        finally:
+            if collecting:
+                gc.enable()
+        capture_s = time.perf_counter() - t0
+        self.launches_per_replay = [p.launches - n for p, n in zip(self.physics, counts)]
+        for p, n in zip(self.physics, counts):
+            p.launches = n  # the capture launched nothing
+        t0 = time.perf_counter()
+        graph.instantiate()
+        torch.cuda.synchronize(dev)
+        self.graph = graph
+        self.info = {"warmup_s": round(warmup_s, 4), "capture_s": round(capture_s, 4),
+                     "instantiate_s": round(time.perf_counter() - t0, 4),
+                     "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
+                     "fused_launches_per_replay": sum(self.launches_per_replay),
+                     **self._extra}
+        if self.log is not None:
+            self.log(f"{self.name} captured: {json.dumps(self.info)}")
+
+    def replay(self) -> None:
+        if self.graph is None:
+            self.capture()
+        self.graph.replay()
+        self.replays += 1
+        for p, n in zip(self.physics, self.launches_per_replay):
+            p.launches += n

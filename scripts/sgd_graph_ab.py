@@ -9,14 +9,15 @@ is a process of its own on one version, in turns: parent, new, new,
 parent. A run trains with chip_smoke's phase 4 configuration (the runner's
 recipe on `flat_terrain_backlash`: 8192 DR envs, batch 256 x 32
 minibatches, unroll 20, 4 updates, (512, 256, 128) networks, 2 epochs of 2
-training steps) through `ppo.train(..., profile_breakdown=True)`, with no
-eval env (training/sps counts rollout and SGD only), and then times the
-flat main path's env step untraced (`flat_terrain`, 4096 DR envs, 20 steps
-after 10). Prints each run's `profile_breakdown` (`rollout_s`, `sgd_s`,
-`training_step_s`), `training/sps` per epoch and ms per env step, the
-card's name and power limit and the host CPU, and writes them all to
-`build/sgd_graph_ab.json` of this checkout. Exits non-zero if CUDA is
-unavailable or a run fails.
+training steps, phase 4's eval env of 1024 envs; training/sps counts
+rollout and SGD only) through `ppo.train(..., profile_breakdown=True)`,
+and then times the flat main path's env step untraced (`flat_terrain`,
+4096 DR envs, 20 steps after 10), eagerly and, in a checkout that has it,
+through `wrapper.CapturedEnvStep`. Prints each run's `profile_breakdown`
+(`rollout_s`, `sgd_s`, `training_step_s`, `eval_s`), `training/sps` per
+epoch and ms per env step, the card's name and power limit and the host
+CPU, and writes them all to `build/sgd_graph_ab.json` of this checkout.
+Exits non-zero if CUDA is unavailable or a run fails.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def worker(root: str) -> int:
     import torch
 
     import chip_smoke as cs  # the checkout's own: its recipe and helpers
-    from open_duck_playground_tpu_torch.envs import randomize
+    from open_duck_playground_tpu_torch.envs import randomize, wrapper
     from open_duck_playground_tpu_torch.envs.joystick import Joystick
     from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
     from open_duck_playground_tpu_torch.train import ppo
@@ -60,7 +61,7 @@ def worker(root: str) -> int:
 
     kw["progress_fn"] = recorded
     t0 = time.perf_counter()
-    ppo.train(environment=runner.env, eval_env=None, **kw, profile_breakdown=True)
+    ppo.train(environment=runner.env, eval_env=runner.eval_env, **kw, profile_breakdown=True)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     bd = ppo.LAST_PROFILE_BREAKDOWN
@@ -77,12 +78,18 @@ def worker(root: str) -> int:
     state = te.reset(torch.Generator(device=dev).manual_seed(1))
     for i in range(n_warm):
         state = te.step(state, actions[i])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n_warm, n_warm + n):
-        state = te.step(state, actions[i])
-    torch.cuda.synchronize()
-    env_step_ms = (time.perf_counter() - t0) * 1e3 / n
+    steps = {"eager": te.step}
+    if hasattr(wrapper, "CapturedEnvStep"):
+        steps["graph"] = wrapper.CapturedEnvStep(te)
+        steps["graph"].capture(state, actions[0])
+    env_step_ms = {}
+    for name, step in steps.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_warm, n_warm + n):
+            state = step(state, actions[i])
+        torch.cuda.synchronize()
+        env_step_ms[name] = (time.perf_counter() - t0) * 1e3 / n
     print("AB_RESULT " + json.dumps({
         "root": root, "gpu": cs.gpu_line(), "host_cpu": cs.cpu_line(), "train_s": train_s,
         "training_sps": sps, "breakdown": bd, "env_step_ms": env_step_ms}), flush=True)
@@ -124,9 +131,9 @@ def main() -> int:
         runs.append(res)
         bd = res["breakdown"]
         print(f"[ab] {name}: sgd_s {bd['sgd_s']}, rollout_s {bd['rollout_s']}, training_step_s "
-              f"{bd['training_step_s']}, training/sps {res['training_sps']}, env step "
-              f"{res['env_step_ms']:.3f} ms (flat 4096, untraced); {res['gpu']}; "
-              f"{res['host_cpu']}", flush=True)
+              f"{bd['training_step_s']}, eval_s {bd['eval_s']}, training/sps "
+              f"{res['training_sps']}, env step ms (flat 4096, untraced) "
+              f"{json.dumps(res['env_step_ms'])}; {res['gpu']}; {res['host_cpu']}", flush=True)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "sgd_graph_ab.json"), "w") as f:
         json.dump(runs, f, indent=1)

@@ -208,7 +208,7 @@ def test_trainer_runs_through_the_kernel(card, root):
     minibatches = 1024 DR envs, unroll 20, 4 updates, (512, 256, 128)
     networks), one epoch of one training step and two evals of 128 envs
     over 100 steps: finite metrics, the counts, and one kernel launch per
-    reset and per env step."""
+    reset, per env step and per step of each capture's warm-up."""
     from open_duck_playground_tpu_torch.train import ppo
 
     env = Joystick("flat_terrain_backlash", device=card)
@@ -230,8 +230,11 @@ def test_trainer_runs_through_the_kernel(card, root):
     assert float(normalizer.count) == 1024 * 20
     assert params.policy.sizes == [101, 512, 256, 128, 28]
     assert params.value.sizes == [212, 512, 256, 128, 1]
-    assert env.physics.launches == 1 + 20
-    assert eval_env.physics.launches == 2 * (1 + 100)
+    # the reset and the rollout, replayed as a graph whose capture's warm-up
+    # stepped 20 times; each eval's reset and steps, and the eval capture's
+    # warm-up step
+    assert env.physics.launches == 1 + 20 + 20
+    assert eval_env.physics.launches == 2 * (1 + 100) + 1
 
 
 @pytest.mark.cuda
@@ -389,6 +392,166 @@ def test_profile_breakdown_leaves_captured_training_untouched(card, root):
             assert (norm_a[f][k] == norm_b[f][k]).all()
     assert norm_a["count"] == norm_b["count"] == 2 * 64 * 8
     assert all(torch.equal(a, b) for a, b in zip(params_a, params_b))
+
+
+def _bitwise(a, b) -> bool:
+    from open_duck_playground_tpu_torch.utils.graphs import tree_leaves
+
+    ta, tb = tree_leaves(a), tree_leaves(b)
+    bits = lambda x: x.reshape(-1).contiguous().view(torch.uint8)  # noqa: E731
+    return ta.keys() == tb.keys() and all(
+        x.dtype == tb[k].dtype and torch.equal(bits(x), bits(tb[k])) for k, x in ta.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["flat_terrain", "rough_terrain_backlash"])
+def test_captured_env_step_matches_eager(card, root, task):
+    """wrapper.CapturedEnvStep against TrainEnv.step on the card, 128 DR envs,
+    episode_length 4, 7 steps from one reset and one env generator state,
+    env 0 given a NaN action at step 1: every step's state bit for bit (NaN
+    for NaN), the env generator's state after the run, one fused launch per
+    replay. Then the generator and the state are set back and the replays
+    repeat the run: a replay obeys set_state."""
+    from open_duck_playground_tpu_torch.envs.wrapper import CapturedEnvStep
+    from open_duck_playground_tpu_torch.utils.graphs import clone_tree
+
+    B = 128
+    env = Joystick(task, device=card, seed=1)
+    te = TrainEnv(env, num_envs=B, episode_length=4, randomization_fn=randomize.domain_randomize,
+                  randomization_generator=torch.Generator(device=card).manual_seed(0))
+    actions = torch.rand((7, B, env.action_size), generator=torch.Generator(device=card)
+                         .manual_seed(2), device=card) * 2 - 1
+    actions[1, 0] = float("nan")
+    start = te.reset(torch.Generator(device=card).manual_seed(3))
+    g0 = env.generator.get_state()
+    eager, state = [], start
+    for a in actions:
+        state = te.step(state, a)
+        eager.append(state)
+    g_eager = env.generator.get_state()
+
+    cap = CapturedEnvStep(te)
+    cap.capture(start, actions[0])
+    for _ in range(2):
+        env.generator.set_state(g0)
+        n0 = env.physics.launches
+        state = start
+        for k, a in enumerate(actions):
+            state = cap(state, a)
+            assert _bitwise(state, eager[k]), k
+        assert torch.equal(env.generator.get_state(), g_eager)
+        assert env.physics.launches - n0 == len(actions)
+    assert cap.replays == 2 * len(actions) and cap.graph.info["fused_launches_per_replay"] == 1
+    assert bool(torch.isnan(eager[1].data.qpos[0]).any())
+    assert _bitwise(clone_tree(start), start)
+
+
+@pytest.mark.cuda
+def test_captured_rollout_matches_eager(card, root):
+    """ppo.CapturedRollout against ppo.rollout on the card (64 flat backlash
+    DR envs, unroll 8, (32, 16) networks): 2 consecutive rollouts from one
+    reset and one env generator state, the final states, the Transitions
+    and the generator's state bit for bit; then a captured SGD step updates
+    the policy in place and a third rollout of each still agrees."""
+    from open_duck_playground_tpu_torch.train import ppo
+    from open_duck_playground_tpu_torch.utils.graphs import clone_tree
+
+    hp, gens, env, te, init = _small_trainer_inputs(card)
+    ts = init()
+    sgd = ppo.CapturedSGDStep(ts, hp)
+    roll = ppo.CapturedRollout(te, ts.normalizer, ts.params)
+    start = te.reset(gens["reset"])
+    draws = [ppo.draw_training_step(gens["epoch"], hp, env.action_size, card) for _ in range(3)]
+    g0 = env.generator.get_state()
+    eager, state = [], start
+    for noise, _, _ in draws[:2]:
+        state, data = ppo.rollout(te, state, ts.normalizer, ts.params, noise)
+        eager.append((state, data))
+    g_eager = env.generator.get_state()
+    env.generator.set_state(g0)
+    state = start
+    for k, (noise, _, _) in enumerate(draws[:2]):
+        state, data = roll(te, state, ts.normalizer, ts.params, noise)
+        assert _bitwise(state, eager[k][0]) and _bitwise(data, eager[k][1]), k
+    assert torch.equal(env.generator.get_state(), g_eager)
+
+    _, perms, ent = draws[2]
+    sgd(ts, data, perms, ent, hp)
+    g1, before = env.generator.get_state(), clone_tree(state)
+    want = ppo.rollout(te, before, ts.normalizer, ts.params, draws[2][0])
+    env.generator.set_state(g1)
+    got = roll(te, state, ts.normalizer, ts.params, draws[2][0])
+    assert _bitwise(got[0], want[0]) and _bitwise(got[1], want[1])
+    assert roll.replays == 3 and roll.graph.info["fused_launches_per_replay"] == hp.unroll_length
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_captured_eval_matches_run_eval(card, root, deterministic):
+    """ppo.run_eval through a CapturedEvalStep against the eager eval_step on
+    the card (64 flat backlash envs, DR off, 50 steps, episode_length 20 so
+    that envs stop counting): every metric and both generators' states
+    equal."""
+    from open_duck_playground_tpu_torch.train import ppo
+
+    hp, gens, env, te, init = _small_trainer_inputs(card)
+    ts = init()
+    eval_env = Joystick("flat_terrain_backlash", device=card)
+    ete = TrainEnv(eval_env, num_envs=64, episode_length=20)
+    g = torch.Generator(device=card)
+    cap = ppo.CapturedEvalStep(ete, ts.normalizer, ts.params, g, deterministic)
+    runs = []
+    for step in (ppo.eval_step, cap, cap):
+        g.manual_seed(4)
+        eval_env.generator.manual_seed(5)
+        out = ppo.run_eval(ete, ts.normalizer, ts.params, g, episode_length=50,
+                           deterministic=deterministic, step=step)
+        runs.append(({k: float(v) for k, v in out.items()}, g.get_state(),
+                     eval_env.generator.get_state()))
+    for out, ga, gb in runs[1:]:
+        assert out == runs[0][0]
+        assert torch.equal(ga, runs[0][1]) and torch.equal(gb, runs[0][2])
+    assert runs[0][0]["eval/avg_episode_length"] <= 20
+    assert cap.replays == 100
+
+
+@pytest.mark.cuda
+def test_captured_programs_free_without_the_collector(card, root):
+    """Each captured program, once captured and dropped, frees itself and
+    its graph at once, with Python's cyclic collector off: a reference
+    cycle would leave the graph to the collector, which may run while
+    another graph captures, and destroying a graph then invalidates that
+    capture."""
+    import gc
+    import weakref
+
+    from open_duck_playground_tpu_torch.envs.wrapper import CapturedEnvStep
+    from open_duck_playground_tpu_torch.train import ppo
+
+    hp, gens, env, te, init = _small_trainer_inputs(card)
+    ts = init()
+    state = te.reset(gens["reset"])
+    noise, perms, ent = ppo.draw_training_step(gens["epoch"], hp, env.action_size, card)
+    ete = TrainEnv(Joystick("flat_terrain_backlash", device=card), num_envs=16,
+                   episode_length=10)
+    g = torch.Generator(device=card).manual_seed(0)
+    gc.collect()
+    gc.disable()
+    try:
+        roll = ppo.CapturedRollout(te, ts.normalizer, ts.params)
+        _, data = roll(te, state, ts.normalizer, ts.params, noise)
+        sgd = ppo.CapturedSGDStep(ts, hp)
+        sgd(ts, data, perms, ent, hp)
+        step = CapturedEnvStep(te)
+        step(state, torch.zeros(hp.num_envs, env.action_size, device=card))
+        ev = ppo.CapturedEvalStep(ete, ts.normalizer, ts.params, g, False)
+        ppo.run_eval(ete, ts.normalizer, ts.params, g, episode_length=2, step=ev)
+        objs = (roll, roll.graph, sgd, sgd._graphed, step, step.graph, ev, ev.graph)
+        refs = [weakref.ref(o) for o in objs]
+        del roll, sgd, step, ev, objs, data
+        assert [r() is None for r in refs] == [True] * len(refs)
+    finally:
+        gc.enable()
 
 
 @pytest.mark.cuda

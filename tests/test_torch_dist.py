@@ -236,16 +236,25 @@ def test_world_2_matches_world_1_on_the_toy_env(tmp_path):
 
 
 def test_kill_and_resume_at_world_2_reproduces_curve(tmp_path):
+    """Killed after 2 epochs and auto-resumed, the world-2 run reproduces the
+    uninterrupted curve and params exactly, both when rank 0 decides and
+    broadcasts the epoch to resume and with resume_shared_fs, where every
+    rank reads the shared directory itself and no broadcast runs."""
     r0, r1 = run_ranks("toy_kill_and_resume", tmp_path, str(tmp_path / "run"))
-    a, b, c = r0["a"], r0["b"], r0["c"]
-    assert len(a["evals"]) == 5 and len(b["evals"]) == 3 and len(c["evals"]) == 2
-    merged = b["evals"] + c["evals"]
-    assert [s for s, _ in merged] == [s for s, _ in a["evals"]]
-    np.testing.assert_array_equal(np.asarray([v for _, v in merged], np.float64),
-                                  np.asarray([v for _, v in a["evals"]], np.float64))
-    for x, y in ((a, c), (r0["c"], r1["c"])):
-        assert not _params_diff(x["params"], y["params"]).any()
-        assert not _params_diff(x["normalizer"], y["normalizer"]).any()
+    a, b = r0["a"], r0["b"]
+    assert len(a["evals"]) == 5 and len(b["evals"]) == 3
+    for resumed in ("c", "d"):
+        c = r0[resumed]
+        assert len(c["evals"]) == 2
+        merged = b["evals"] + c["evals"]
+        assert [s for s, _ in merged] == [s for s, _ in a["evals"]]
+        np.testing.assert_array_equal(np.asarray([v for _, v in merged], np.float64),
+                                      np.asarray([v for _, v in a["evals"]], np.float64))
+        for x, y in ((a, c), (r0[resumed], r1[resumed])):
+            assert not _params_diff(x["params"], y["params"]).any()
+            assert not _params_diff(x["normalizer"], y["normalizer"]).any()
+    assert [r["c"]["broadcasts"] for r in (r0, r1)] == [1, 1]
+    assert [r["d"]["broadcasts"] for r in (r0, r1)] == [0, 0]
     assert r1["a"]["evals"] == [] and r1["a"]["policy_calls"] == []  # only rank 0 reports
 
 

@@ -22,6 +22,7 @@ from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
 from open_duck_playground_tpu_torch.parallel.dist import EnvShard
 from open_duck_playground_tpu_torch.train import networks as nets
 from open_duck_playground_tpu_torch.train import optim, ppo
+from open_duck_playground_tpu_torch.utils.graphs import tree_map
 from tests.duck_standin import write_standin
 
 pytest_plugins = ["tests.torch_lock"]  # never beside tests/test_resume.py (see there)
@@ -48,7 +49,7 @@ def _clone(ts: ppo.TrainingState) -> ppo.TrainingState:
     params = nets.PPONetworks(OBS, ACT, **NF)
     params.load_state_dict(ts.params.state_dict())
     return ts.replace(params=params, opt_state=optim.clone_state(ts.opt_state),
-                      normalizer=ppo._map(torch.clone, ts.normalizer))
+                      normalizer=tree_map(torch.clone, ts.normalizer))
 
 
 def _inputs(ts: ppo.TrainingState, seed: int):
@@ -100,7 +101,7 @@ def _functional_sgd_step(training_state, data, perms, entropy_noise, hp):
     for e in range(hp.num_updates_per_batch):
         for j in range(hp.num_minibatches):
             idx, ent = perms[e, j * b:(j + 1) * b], entropy_noise[e, j]
-            mb = ppo._map(lambda x: x.index_select(1, idx), data)
+            mb = tree_map(lambda x: x.index_select(1, idx), data)
             total, mb_aux = ppo.loss_fn(networks, normalizer, mb, ent, hp)
             grads = torch.autograd.grad(total, params)
             if hp.max_grad_norm is not None:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import multiprocessing
 import os
 import pickle
+import shutil
 import time
 import traceback
 from typing import Any, Dict, List
@@ -27,6 +28,7 @@ from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
 from open_duck_playground_tpu_torch.parallel import dist as pdist
 from open_duck_playground_tpu_torch.train import checkpoint as ckpt
 from open_duck_playground_tpu_torch.train import optim, ppo
+from open_duck_playground_tpu_torch.utils.graphs import tree_map
 from tests.torch_helpers import TorchToyEnv
 
 
@@ -173,7 +175,7 @@ def toy_state(tree) -> State:
 def _rows(shard, state: State) -> State:
     if shard is None:
         return state
-    return ppo._map(lambda x: shard.take(x), state)
+    return tree_map(lambda x: shard.take(x), state)
 
 
 def toy_step_given(shard, params, normalizer, start, draws, hp_kw) -> Dict[str, Any]:
@@ -235,12 +237,17 @@ def toy_step_own(shard, hp_kw, seed: int) -> Dict[str, Any]:
 
 
 def toy_train(shard, directory=None, stop_after=None, auto_resume=False, num_evals=5,
-              policy_dir=None) -> Dict[str, Any]:
+              policy_dir=None, resume_shared_fs=False) -> Dict[str, Any]:
     """tests/test_torch_resume.py's recipe (8 envs, seed 7, the noisy
     ToyEnv) through ppo.train with this shard. Records what progress_fn
-    saw; with `policy_dir`, policy_params_fn writes a checkpoint there
-    named by rank."""
-    evals, calls = [], []
+    saw and how many broadcasts the shard made; with `policy_dir`,
+    policy_params_fn writes a checkpoint there named by rank."""
+    evals, calls, broadcasts = [], [], []
+    broadcast = shard.broadcast
+
+    def counted(*a, **k):
+        broadcasts.append(1)
+        return broadcast(*a, **k)
 
     def progress(step, metrics):
         if "eval/episode_reward" in metrics:
@@ -251,20 +258,33 @@ def toy_train(shard, directory=None, stop_after=None, auto_resume=False, num_eva
         if policy_dir is not None:
             ckpt.save(os.path.join(policy_dir, f"rank{shard.rank}_{step}"), params)
 
-    _, (normalizer, params), _ = ppo.train(
-        TorchToyEnv(noise=0.01), eval_env=TorchToyEnv(noise=0.01),
-        num_timesteps=2048, episode_length=16, num_envs=8, num_eval_envs=4,
-        unroll_length=4, num_minibatches=2, batch_size=4, num_updates_per_batch=1,
-        num_evals=num_evals, seed=7,
-        network_factory={"policy_hidden_layer_sizes": (16,), "value_hidden_layer_sizes": (16,)},
-        progress_fn=progress, policy_params_fn=policy_params, save_full_state_dir=directory,
-        auto_resume=auto_resume, stop_after_epochs=stop_after, shard=shard)
-    return {"evals": evals, "policy_calls": calls,
+    shard.broadcast = counted
+    try:
+        _, (normalizer, params), _ = ppo.train(
+            TorchToyEnv(noise=0.01), eval_env=TorchToyEnv(noise=0.01),
+            num_timesteps=2048, episode_length=16, num_envs=8, num_eval_envs=4,
+            unroll_length=4, num_minibatches=2, batch_size=4, num_updates_per_batch=1,
+            num_evals=num_evals, seed=7,
+            network_factory={"policy_hidden_layer_sizes": (16,),
+                             "value_hidden_layer_sizes": (16,)},
+            progress_fn=progress, policy_params_fn=policy_params, save_full_state_dir=directory,
+            auto_resume=auto_resume, stop_after_epochs=stop_after, shard=shard,
+            resume_shared_fs=resume_shared_fs)
+    finally:
+        del shard.broadcast
+    return {"evals": evals, "policy_calls": calls, "broadcasts": len(broadcasts),
             "normalizer": interop.normalizer_to_numpy(normalizer),
             "params": interop.ppo_params_to_numpy(params)}
 
 
 def toy_kill_and_resume(shard, directory: str) -> Dict[str, Any]:
-    """Uninterrupted, then killed after 2 epochs and auto-resumed."""
-    return {"a": toy_train(shard), "b": toy_train(shard, directory, stop_after=2),
-            "c": toy_train(shard, directory, auto_resume=True)}
+    """Uninterrupted, then killed after 2 epochs and auto-resumed: "c" as
+    rank 0 decides (a broadcast), "d" from a copy of the killed run's
+    directory with resume_shared_fs (every rank reads it alike)."""
+    out = {"a": toy_train(shard), "b": toy_train(shard, directory, stop_after=2)}
+    if shard.is_main:
+        shutil.copytree(directory, directory + "_shared")
+    shard.barrier()
+    out["c"] = toy_train(shard, directory, auto_resume=True)
+    out["d"] = toy_train(shard, directory + "_shared", auto_resume=True, resume_shared_fs=True)
+    return out
