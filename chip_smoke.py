@@ -87,11 +87,24 @@ Phases:
    DR on): a reset, then PIPELINE_STEPS timed steps of random actions,
    printing ms per control step, the kernel's launches on that env (must be
    0) and the peak of torch.cuda.max_memory_allocated, beside the same run
-   of the kernel's env (physics="kernel"); then the pipeline against the
-   kernel from settled states with one DR draw: forward.init against the
-   init variant on the kinematic outputs, forward.step_n(..., 10) against
-   the step variant on every output, within
-   duck_standin.PIPELINE_PARITY_LIMITS.
+   of the kernel's env (physics="kernel"); the pipeline run again from the
+   same reset and generator states as replays of a CapturedEnvStep (one
+   CUDA graph per control step): final states and env generator bit for
+   bit, 0 kernel launches, and both ways ms per control step, env-steps/s,
+   host calls, kernels and device ms per step (one traced step each way),
+   the card's idle share, the capture's seconds and pool bytes, peak
+   memory; then the pipeline against the kernel from settled states with
+   one DR draw: forward.init against the init variant on the kinematic
+   outputs, forward.step_n(..., 10) against the step variant on every
+   output, within duck_standin.PIPELINE_PARITY_LIMITS; then (b) the
+   trainer on the pipeline: ppo.train(Joystick(TRAINER_TASK,
+   physics="pipeline")) at phase 4's recipe widths (8192 DR envs, unroll
+   20, batch 256 x 32, 4 updates, (512, 256, 128) networks, 1024 eval
+   envs) with profile_breakdown=True, cut to one training step and 2 evals
+   of 20-step episodes (PIPELINE_TRAINER): its captured rollout (one graph
+   per env step) against the eager one bit for bit, finite metrics, every
+   rollout, SGD step and eval step a replay, no graph spanning more than
+   one control step, 0 kernel launches.
 
 9. profile and deploy tools (utils/profiling.py on torch.profiler, traces
    under build/profile/): (a) the flat main path's env, PROFILE_WARMUP
@@ -161,8 +174,11 @@ FLAT_MAIN, ROUGH_MAIN = ("flat_terrain", 4096), ("rough_terrain_backlash", 8192)
 N_STEPS = 100
 # phase 3: captured and eager steps traced for their host calls
 GRAPH_TRACE_STEPS = 5
-# phase 8: timed steps of each env (the pipeline takes ~1 s per step)
+# phase 8: timed steps of each env (the pipeline takes ~1 s per step); the
+# pipeline trainer's cuts of phase 4's recipe: one training step and 2 evals
+# of 20-step episodes (a 1000-step eval on the pipeline would take minutes)
 PIPELINE_STEPS = 20
+PIPELINE_TRAINER = {"episode_length": 20, "num_evals": 2, "num_timesteps": 8192 * 20}
 # phase 4: the recipe's widths (BASELINE.md:14), cut to 2 epochs of 2 training steps
 TRAINER_TASK = "flat_terrain_backlash"
 TRAINER_ARGS = ("--env", "joystick", "--task", TRAINER_TASK, "--num_envs", "8192",
@@ -547,7 +563,8 @@ def run_env(task: str, B: int, physics: str) -> dict:
     """TrainEnv(Joystick(task, physics=physics), B envs, DR on): a reset,
     then PIPELINE_STEPS steps of random actions, each timed window between
     torch.cuda.synchronize() calls, the kernel's launches set to 0 just
-    before and read just after, and the peak of max_memory_allocated."""
+    before and read just after, and the peak of max_memory_allocated; on
+    the pipeline, then the same run replayed (pipeline_graph_vs_eager)."""
     from open_duck_playground_tpu_torch.envs import randomize
     from open_duck_playground_tpu_torch.envs.joystick import Joystick
     from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
@@ -563,6 +580,7 @@ def run_env(task: str, B: int, physics: str) -> dict:
                   randomization_generator=torch.Generator(device=dev).manual_seed(0))
     g = torch.Generator(device=dev).manual_seed(2)
     actions = torch.rand((PIPELINE_STEPS, B, env.action_size), generator=g, device=dev) * 2 - 1
+    g_env = env.generator.get_state()
 
     env.physics.launches = 0
     torch.cuda.synchronize()
@@ -589,7 +607,88 @@ def run_env(task: str, B: int, physics: str) -> dict:
     want = 0 if physics == "pipeline" else 1 + PIPELINE_STEPS
     ok = passed(f"pipeline {task} B={B} physics={physics}", launches=launches == want,
                 finite=finite, shapes=shapes == {"state": (B, 101), "privileged_state": (B, 212)})
-    return dict(ok=ok, step_ms=step_ms)
+    out = dict(ok=ok, step_ms=step_ms, peak_bytes=peak)
+    if physics == "pipeline":
+        out["graph"] = pipeline_graph_vs_eager(task, te, actions, state, g_env, step_ms, peak)
+        out["ok"] = ok and out["graph"]["ok"]
+    return out
+
+
+def pipeline_graph_vs_eager(task: str, te, actions, eager, g_env, eager_ms: float,
+                            eager_peak: int) -> dict:
+    """run_env's pipeline run again from the same reset and the same env
+    generator state, each step one replay of a CapturedEnvStep (captured
+    beforehand from another reset, which the capture leaves as it found it):
+    the final state and the env generator's state must equal the eager
+    run's (`eager`, and the generator's state now) bit for bit, with 0
+    kernel launches. Then one eager step and one replay traced, each in a
+    window ending in a synchronize: kernels, device ms and host calls per
+    step, and the card's idle share of each window."""
+    from open_duck_playground_tpu_torch.envs.wrapper import CapturedEnvStep
+    from open_duck_playground_tpu_torch.utils import profiling
+
+    env, B, dev = te.env, te.num_envs, actions.device
+    g_eager = env.generator.get_state()
+
+    def reset():
+        return te.reset(torch.Generator(device=dev).manual_seed(1))
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cap = CapturedEnvStep(te, log=log)
+    cap.capture(reset(), actions[0])
+    env.generator.set_state(g_env)
+    env.physics.launches = 0
+    state = reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(PIPELINE_STEPS):
+        state = cap(state, actions[i])
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) * 1e3 / PIPELINE_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    launches = env.physics.launches
+    same = bitwise_equal(eager, state)
+    gens_same = bool(torch.equal(env.generator.get_state(), g_eager))
+    finite = all(bool(torch.isfinite(v).all()) for v in (*state.obs.values(), state.reward))
+
+    out_dir = os.path.join(ROOT, "build", "pipeline_trace", f"{task}_{B}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    with profiling.trace(out_dir, device=dev):
+        for name, step in (("graph", cap), ("eager", te.step)):
+            with profiling.annotate(f"{name}_window"):
+                with profiling.annotate(f"{name}_step"):
+                    state = step(state, actions[0])
+                torch.cuda.synchronize()
+    split = trace_split(read_trace(os.path.join(out_dir, "trace.json")),
+                        ("graph_window", "graph_step", "eager_window", "eager_step"))
+    ways = {}
+    for name, ms, pk in (("eager", eager_ms, eager_peak), ("graph", graph_ms, peak)):
+        st = split[f"{name}_step"]
+        ways[name] = {"ms_per_step": ms, "env_steps_per_s": B / ms * 1e3,
+                      "host_calls": st["host_calls"], "graph_launches": st["graph_launches"],
+                      "kernels": st["launches"], "device_ms": st["device_ms"],
+                      "traced_host_ms": split[f"{name}_window"]["host_ms"],
+                      "idle_share": split[f"{name}_window"]["idle_share"],
+                      "peak_bytes": pk}
+    ways["graph"]["peak_bytes_above_start"] = peak - base
+    log(f"[pipeline] {task} B={B}: {PIPELINE_STEPS} steps eager against replays of one CUDA "
+        f"graph per control step: {json.dumps(ways)}; capture {json.dumps(cap.graph.info)}; "
+        f"kernel launches {launches}; final state and env generator bit for bit {same} and "
+        f"{gens_same}; finite {finite}; gpu {gpu_line()}")
+    for name in ("eager", "graph"):
+        log_split(f"pipeline {task} {name}", {k: v for k, v in split.items()
+                                             if k.startswith(name)}, top_of=(f"{name}_step",))
+    ok = passed(f"pipeline {task} B={B} graph", graph_equals_eager=same,
+                generators_equal=gens_same, launches=launches == 0, finite=finite,
+                one_graph_launch_per_step=split["graph_step"]["graph_launches"] == 1,
+                no_fused_launch_recorded=cap.graph.info["fused_launches_per_replay"] == 0)
+    res = dict(ok=ok, ways=ways, capture=cap.graph.info, equal=same, generators_equal=gens_same)
+    del cap, state
+    torch.cuda.empty_cache()
+    return res
 
 
 def pipeline_vs_kernel(task: str, B: int, report: dict) -> bool:
@@ -634,19 +733,100 @@ def pipeline_vs_kernel(task: str, B: int, report: dict) -> bool:
     return ok
 
 
+def pipeline_trainer() -> dict:
+    """Phase 8 (b): ppo.train on Joystick(TRAINER_TASK, physics="pipeline")
+    (train and eval env) at phase 4's recipe widths (the runner's: 8192 DR
+    envs, unroll 20, batch 256 x 32, 4 updates per batch, (512, 256, 128)
+    networks, 1024 eval envs), cut by PIPELINE_TRAINER to one training step
+    and 2 evals of 20-step episodes (a 1000-step eval on the pipeline would
+    take minutes), with profile_breakdown=True, the runner's callbacks and
+    checkpoints left out. First the captured rollout against the eager one
+    (rollout_graph_vs_eager, one replay per env step). Checks finite
+    metrics; every rollout, SGD step and eval step a replay of train()'s
+    captured programs (unroll_length replays of a one-step graph per
+    rollout, one per SGD step, one per eval step; the counts the code
+    gives); no graph spanning more than one control step; 0 kernel
+    launches on both envs."""
+    from types import SimpleNamespace
+
+    from open_duck_playground_tpu_torch.envs.joystick import Joystick
+    from open_duck_playground_tpu_torch.train import ppo
+    from open_duck_playground_tpu_torch.train import runner as rn
+
+    out_dir = os.path.join(ROOT, "build", "pipeline_trainer_run")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    runner = rn.OpenDuckMiniV2Runner(rn.build_parser().parse_args(
+        ["--output_dir", out_dir, *TRAINER_ARGS]))
+    dev = runner.device
+    kw = {**runner.train_kwargs(), **PIPELINE_TRAINER, "progress_fn": None,
+          "policy_params_fn": None, "save_full_state_dir": None}
+    nf = kw["network_factory"]
+    recipe_ok = ((kw["num_envs"], kw["batch_size"], kw["num_minibatches"], kw["unroll_length"],
+                  kw["num_updates_per_batch"], kw["num_eval_envs"]) == (8192, 256, 32, 20, 4, 1024)
+                 and nf["policy_hidden_layer_sizes"] == nf["value_hidden_layer_sizes"] == (512, 256, 128)
+                 and kw["randomization_fn"] is not None)
+    env = Joystick(TRAINER_TASK, device=dev, physics="pipeline")
+    eval_env = Joystick(TRAINER_TASK, device=dev, physics="pipeline")
+    del runner
+    roll = rollout_graph_vs_eager(SimpleNamespace(env=env, device=dev), kw, "pipeline trainer")
+
+    T = kw["unroll_length"]
+    epochs = kw["num_evals"] - 1
+    steps = epochs * math.ceil(kw["num_timesteps"] / (epochs * kw["num_envs"] * T))
+    # the breakdown's rollout and training step (each run twice), then the loop's
+    rollouts = 2 + 2 + steps
+    n_evals = 1 + epochs + 2  # at 0, after each epoch, two in the breakdown
+    want = {"rollout": [rollouts * T], "SGD step": [rollouts],
+            "eval step": [n_evals * kw["episode_length"]]}
+    env.physics.launches = eval_env.physics.launches = 0
+    t0 = time.perf_counter()
+    with captured_programs() as made:
+        _, _, metrics = ppo.train(environment=env, eval_env=eval_env, **kw,
+                                  profile_breakdown=True)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    bd = ppo.LAST_PROFILE_BREAKDOWN
+    replays = {name: [c.replays for c in made.get(name, [])] for name in want}
+    spans = {"rollout": [c.graph.info.get("env_steps_per_replay") for c in made["rollout"]]}
+    launches = {"train_env": env.physics.launches, "eval_env": eval_env.physics.launches}
+    finite = (all(math.isfinite(v) for v in metrics.values())
+              and "training/sps" in metrics and "eval/episode_reward" in metrics)
+    log(f"[pipeline trainer] ppo.train {t_train:.1f} s at {kw['num_envs']} DR envs, "
+        f"{kw['num_eval_envs']} eval envs, episode_length {kw['episode_length']}, {steps} "
+        f"training step(s), {kw['num_evals']} evals; graph replays {json.dumps(replays)} (want "
+        f"{json.dumps(want)}); env steps per rollout graph {spans['rollout']}; kernel launches "
+        f"{launches}; training/sps {metrics.get('training/sps')}; metrics finite {finite}")
+    log(f"[pipeline trainer] profile_breakdown {json.dumps(bd)}")
+    log(f"[pipeline trainer] metrics {json.dumps(metrics)}; gpu {gpu_line()}")
+    ok = passed("pipeline trainer", recipe=recipe_ok, metrics_finite=finite,
+                rollout_graph_vs_eager=roll["ok"], graph_replays=replays == want,
+                one_control_step_per_graph=spans["rollout"] == [1],
+                launches=launches == {"train_env": 0, "eval_env": 0})
+    log(f"[pipeline trainer] {'OK' if ok else 'FAIL'}")
+    del env, eval_env, made
+    torch.cuda.empty_cache()
+    return dict(ok=ok, seconds=t_train, breakdown=bd, replays=replays, rollout_graph=roll,
+                sps=metrics.get("training/sps"))
+
+
 def phase_pipeline(report: dict) -> dict:
-    """Phase 8: each main path's env on the pipeline and on the kernel, then
-    the pipeline against the kernel at that shape."""
+    """Phase 8: each main path's env on the pipeline (eager, then replayed)
+    and on the kernel, then the pipeline against the kernel at that shape;
+    then the trainer on the pipeline (pipeline_trainer)."""
     runs, ok = {}, True
     for task, B in (FLAT_MAIN, ROUGH_MAIN):
         runs[task] = {physics: run_env(task, B, physics) for physics in ("pipeline", "kernel")}
-        ratio = runs[task]["pipeline"]["step_ms"] / runs[task]["kernel"]["step_ms"]
-        log(f"[pipeline] {task} B={B}: pipeline / kernel ms per control step {ratio:.1f}x")
+        pipe, kernel_ms = runs[task]["pipeline"], runs[task]["kernel"]["step_ms"]
+        log(f"[pipeline] {task} B={B}: pipeline / kernel ms per control step "
+            f"{pipe['step_ms'] / kernel_ms:.1f}x eagerly, "
+            f"{pipe['graph']['ways']['graph']['ms_per_step'] / kernel_ms:.1f}x replayed")
         ok &= all(r["ok"] for r in runs[task].values())
         ok &= pipeline_vs_kernel(task, B, report)
+    trainer = pipeline_trainer()
+    ok &= trainer["ok"]
     log(f"[pipeline] gpu {gpu_line()}")
     log(f"[pipeline] {'OK' if ok else 'FAILED'}")
-    return dict(ok=ok, runs=runs)
+    return dict(ok=ok, runs=runs, trainer=trainer)
 
 
 def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> dict:
@@ -701,36 +881,19 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
     graph = sgd_graph_vs_eager(runner, kw, label) if label == "trainer" else {"ok": True}
     roll_graph = rollout_graph_vs_eager(runner, kw, label) if label == "trainer" else {"ok": True}
 
-    # every captured program train() makes (its replays are the object's own)
-    made = {}
-    inits = {"rollout": ppo.CapturedRollout, "SGD step": ppo.CapturedSGDStep,
-             "eval step": ppo.CapturedEvalStep}
-
-    def recorder(name, init):
-        def recorded(self, *a, **k):
-            init(self, *a, **k)
-            made.setdefault(name, []).append(self)
-        return recorded
-
-    saved_inits = {name: cls.__init__ for name, cls in inits.items()}
     runner.env.physics.launches = 0
     runner.eval_env.physics.launches = 0
-    for name, cls in inits.items():
-        cls.__init__ = recorder(name, saved_inits[name])
     t0 = time.perf_counter()
-    try:
+    with captured_programs() as made:
         make_policy, (normalizer, params), metrics = ppo.train(
             environment=runner.env, eval_env=runner.eval_env, **kw, profile_breakdown=True)
-    finally:
-        for name, cls in inits.items():
-            cls.__init__ = saved_inits[name]
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     launches = {"train_env": runner.env.physics.launches,
                 "eval_env": runner.eval_env.physics.launches}
     bd = ppo.LAST_PROFILE_BREAKDOWN
-    replays = {name: [c.replays for c in made.get(name, [])] for name in inits}
+    replays = {name: [c.replays for c in made.get(name, [])] for name in want_replays}
     graph_ok = replays == {name: [n] for name, n in want_replays.items()}
     log(f"[{label}] ppo.train {t_train:.1f} s; launches {launches} (want train_env "
         f"{want_train}, eval_env {want_eval}); graph replays {json.dumps(replays)} (want "
@@ -826,6 +989,33 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
     return dict(ok=ok, launches=launches, breakdown=bd, onnx=onnx_path, sgd_graph=graph,
                 rollout_graph=roll_graph, eval_graph=evals,
                 sps=[line["training/sps"] for line in lines if "training/sps" in line])
+
+
+@contextlib.contextmanager
+def captured_programs():
+    """{name: [object]} of every CapturedRollout ("rollout"), CapturedSGDStep
+    ("SGD step") and CapturedEvalStep ("eval step") made inside (their
+    replays are the objects' own)."""
+    from open_duck_playground_tpu_torch.train import ppo
+
+    made = {}
+    inits = {"rollout": ppo.CapturedRollout, "SGD step": ppo.CapturedSGDStep,
+             "eval step": ppo.CapturedEvalStep}
+
+    def recorder(name, init):
+        def recorded(self, *a, **k):
+            init(self, *a, **k)
+            made.setdefault(name, []).append(self)
+        return recorded
+
+    saved_inits = {name: cls.__init__ for name, cls in inits.items()}
+    for name, cls in inits.items():
+        cls.__init__ = recorder(name, saved_inits[name])
+    try:
+        yield made
+    finally:
+        for name, cls in inits.items():
+            cls.__init__ = saved_inits[name]
 
 
 def sgd_graph_vs_eager(runner, kw, label: str) -> dict:
@@ -928,10 +1118,12 @@ def _trainer_hyper(kw):
 
 
 def rollout_graph_vs_eager(runner, kw, label: str) -> dict:
-    """Phase 4, before ppo.train: the captured rollout against the eager one
-    at the recipe's widths (8192 DR envs on the train env, unroll 20, the
-    policy of train()'s init). From one reset and one state of the env's
-    generator, ROLLOUT_GRAPH_ROLLOUTS consecutive rollouts run by
+    """Phase 4, before ppo.train (and phase 8's pipeline trainer): the
+    captured rollout against the eager one at the recipe's widths (8192 DR
+    envs on the train env, unroll 20, the policy of train()'s init; on the
+    pipeline one replay per env step, CapturedRollout.span). From one
+    reset and one state of the env's generator, ROLLOUT_GRAPH_ROLLOUTS
+    consecutive rollouts run by
     ppo.rollout, then as many by a CapturedRollout (the first call
     captures), on the same policy noise: every rollout's final env state and
     Transition, and the env generator's state after the last, equal bit for
@@ -973,8 +1165,10 @@ def rollout_graph_vs_eager(runner, kw, label: str) -> dict:
     (eager, g_eager), (graph, g_graph) = out["eager"], out["graph"]
     same = [bitwise_equal(a[1], b[1]) for a, b in zip(eager, graph)]
     gens_same = bool(torch.equal(g_eager, g_graph))
+    per_rollout = hp.unroll_length // (cap.span or hp.unroll_length)
     ok = passed(f"{label} rollout captured vs eager", states_and_transitions_equal=all(same),
-                generators_equal=gens_same, replays=cap.replays == ROLLOUT_GRAPH_ROLLOUTS)
+                generators_equal=gens_same,
+                replays=cap.replays == ROLLOUT_GRAPH_ROLLOUTS * per_rollout)
     res = {"eager_s": [round(r[0], 4) for r in eager], "graph_s": [round(r[0], 4) for r in graph],
            "equal": same, "generators_equal": gens_same, "capture": cap.graph.info,
            "replays": cap.replays}

@@ -12,7 +12,9 @@ Counterpart of the JAX package's ``envs/wrapper.py``, in the same order:
 The JAX package jits ``TrainEnv.step``. Its counterpart on the card is
 ``CapturedEnvStep``: the step over fixed buffers (``step_into``, which the
 CPU runs eagerly), replayed as one CUDA graph where it can run (a CUDA
-device, world size 1, ``physics="kernel"``; ``eager_reason`` says why not).
+device at world size 1, on either engine: the fused kernel, or the general
+pipeline's ``forward.step_n`` that XLA compiles into the JAX package's
+jitted step off the TPU; ``eager_reason`` says why not).
 """
 
 from __future__ import annotations
@@ -148,14 +150,12 @@ def wrap_for_training(env, num_envs: int, episode_length: int, action_repeat: in
 
 def eager_reason(env) -> Optional[str]:
     """Why the steps of `env` run eagerly, or None where they can be
-    captured as a CUDA graph: on a CUDA device, at world size 1, on the
-    fused kernel."""
+    captured as a CUDA graph: on a CUDA device at world size 1, with either
+    physics engine."""
     shard = getattr(env, "shard", None)
     if shard is not None and shard.world > 1:
         return (f"eager at world {shard.world} (the env-sharded trainer runs its steps "
                 "eagerly, as its SGD step)")
-    if getattr(env, "physics_mode", None) == "pipeline":
-        return "eager with physics='pipeline' (the general pipeline is a second engine)"
     if env.device.type != "cuda":
         return f"eager on {env.device} (no CUDA graph on the CPU)"
     return None
@@ -166,8 +166,8 @@ def capture_parts(env):
     physics whose launches it counts; raises where the step runs eagerly."""
     why = eager_reason(env)
     if why is not None:
-        raise ValueError(f"a CUDA graph of the env step needs a CUDA device, world size 1 and "
-                         f"physics='kernel': this env steps {why}")
+        raise ValueError(f"a CUDA graph of the env step needs a CUDA device and world size 1: "
+                         f"this env steps {why}")
     physics = [env.physics] if getattr(env, "physics_mode", None) == "kernel" else []
     return [env.generator], physics
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from open_duck_playground_tpu_torch.ops import lane as ln
@@ -88,8 +89,11 @@ def make_efc(m: Model, qvel: torch.Tensor, qpos: torch.Tensor, contact: Contact,
     n_fri = len(fri_dofs)
     if n_fri:
         fi = smooth.index(fri_dofs, dev)
-        J = torch.zeros(n_fri, m.nv, dtype=dtype, device=dev)
-        J[torch.arange(n_fri, device=dev), fi] = 1.0
+        # one-hot rows, made once: writing 1.0 through a device index would
+        # copy a host scalar to the card at every step
+        onehot = np.zeros((n_fri, m.nv), np.float32)
+        onehot[np.arange(n_fri), fri_dofs] = 1.0
+        J = smooth.constant(onehot, ("friction rows", tuple(fri_dofs)), dev, dtype)
         k, b, imp = kbi(m.dof_solref[fi], m.dof_solimp[fi], torch.zeros(n_fri, dtype=dtype,
                                                                          device=dev))
         R = torch.clamp((1.0 - imp) / imp * m.dof_invweight0[fi], min=_MINVAL)

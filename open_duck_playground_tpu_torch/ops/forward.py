@@ -11,7 +11,14 @@ device of its inputs; the model's DR fields may be shared or ``(B, ...)``.
 ``step_n`` is a python loop of ``step`` (the JAX package's ``lax.scan``).
 This is the plain, stage-by-stage engine the env runs with
 ``physics="pipeline"``: thousands of small batched operations per substep,
-no fused kernel (the kernel is ``ops/cuda_step.py``).
+no fused kernel (the kernel is ``ops/cuda_step.py``). After its first call
+a step makes no tensor from host memory and reads nothing back (the
+index and constant tables are made once, ``smooth.index`` and
+``smooth.constant``), so on the card a
+control step can be recorded as one CUDA graph and replayed
+(``envs/wrapper.CapturedEnvStep``, ``train/ppo.CapturedRollout``): the
+counterpart of the JAX package's ``step_n`` compiled by XLA inside its
+jitted programs.
 """
 
 from __future__ import annotations

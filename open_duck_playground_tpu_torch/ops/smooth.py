@@ -47,9 +47,10 @@ def index(ids, device) -> torch.Tensor:
     return t
 
 
-def _mask(a: np.ndarray, key: tuple, device, dtype) -> torch.Tensor:
-    """A host mask as a `dtype` tensor on `device`, made once per key."""
-    k = ("mask",) + key + (str(device), dtype)
+def constant(a: np.ndarray, key: tuple, device, dtype) -> torch.Tensor:
+    """A host table (a mask, one-hot rows) as a `dtype` tensor on `device`,
+    made once per key."""
+    k = ("constant",) + key + (str(device), dtype)
     t = _INDEX_CACHE.get(k)
     if t is None:
         t = _INDEX_CACHE[k] = torch.as_tensor(a, device=device, dtype=dtype)
@@ -198,7 +199,7 @@ def crb(m: Model, cinert, cdof) -> torch.Tensor:
     F = torch.einsum("bvij,bvj->bvi", crb_stack, cdof)
 
     # dense M with kinematic-tree sparsity mask (j ancestor-or-self of i)
-    mask = _mask(_ancestor_mask(m), ("anc", m.dof_parentid, m.nv), cdof.device, cdof.dtype)
+    mask = constant(_ancestor_mask(m), ("anc", m.dof_parentid, m.nv), cdof.device, cdof.dtype)
     L = (F @ cdof.transpose(-1, -2)) * mask
     M = L + L.transpose(-1, -2) - torch.diag_embed(torch.diagonal(L, dim1=-2, dim2=-1))
     M = M + torch.diag_embed(m.dof_armature)
@@ -329,8 +330,8 @@ def jac_point(m: Model, cdof, subtree_com, point: torch.Tensor, body: int):
     c = cdof.reshape((cdof.shape[0],) + (1,) * len(lead) + cdof.shape[1:])
     jacp = c[..., 3:] + m3.cross(c[..., :3], offset[..., None, :])
     jacr = c[..., :3]
-    mask = _mask(_body_dof_mask(m, body), ("body", m.dof_parentid, m.body_dofadr, body),
-                 cdof.device, cdof.dtype)
+    mask = constant(_body_dof_mask(m, body), ("body", m.dof_parentid, m.body_dofadr, body),
+                    cdof.device, cdof.dtype)
     return jacp * mask[:, None], jacr * mask[:, None]
 
 

@@ -13,17 +13,18 @@ per-minibatch entropy noise, as tensors. ``train`` makes them from its own
 (``draw_training_step``), and reseeds the envs' own generators from it too.
 
 The learner's products, its Adam and its GAE are plain PyTorch; every env
-step goes through the env's physics (the fused CUDA kernel on the card).
-The JAX package jits its rollout scan, its eval scan and its SGD step. On
-the card at world size 1 with physics="kernel" each is a CUDA graph here:
-a training step is one replay of ``CapturedRollout`` (the unroll_length
-env steps and the policy) and one of ``CapturedSGDStep`` (the normalizer
-update and every minibatch step), and an eval step one replay of
+step goes through the env's physics (the fused CUDA kernel on the card, or
+the general pipeline with physics="pipeline"). The JAX package jits its
+rollout scan, its eval scan and its SGD step. On the card at world size 1
+each is a CUDA graph here: a training step is the replays of
+``CapturedRollout`` (one of the unroll_length env steps and the policy on
+the kernel; one per env step on the general pipeline, whose control step
+is ~50,000 kernels) and one of ``CapturedSGDStep`` (the normalizer update
+and every minibatch step), and an eval step one replay of
 ``CapturedEvalStep``. Each records a body over fixed buffers
 (``rollout_into``, ``sgd_step``, ``eval_step``; utils/graphs.py), which is
-what runs eagerly on the CPU, in env-sharded runs and on the general
-pipeline (``make_rollout``, ``make_sgd_step`` and ``make_eval_step`` pick,
-and train() logs which).
+what runs eagerly on the CPU and in env-sharded runs (``make_rollout``,
+``make_sgd_step`` and ``make_eval_step`` pick, and train() logs which).
 
 Env-sharded runs (``shard``, ``parallel/dist.py``) keep the JAX package's
 global view: every draw is made at the global shape on every rank, each
@@ -238,31 +239,38 @@ def rollout_into(train_env: TrainEnv, buffers: State, normalizer, networks: nets
 
 
 class CapturedRollout:
-    """`rollout` replayed as one CUDA graph per training step, on a CUDA
-    device at world size 1 with physics="kernel": the JAX package's
-    `lax.scan` of the policy and `train_env.step` (ppo.py rollout), here
-    unroll_length steps of `nets.sample_actions` and `TrainEnv.step` and the
-    stacked Transition in one graph. Called as `rollout` is.
+    """`rollout` replayed as a CUDA graph, on a CUDA device at world size 1:
+    the JAX package's `lax.scan` of the policy and `train_env.step` (ppo.py
+    rollout). The graph records `span` steps of `nets.sample_actions` and
+    `TrainEnv.step` and their stacked Transition (`rollout_into`), and a
+    call replays it unroll_length / span times. On the fused kernel `span`
+    is the whole unroll (None): one replay per training step. On the
+    general pipeline it is one control step, each replay's Transition
+    copied into stacked buffers: a pipeline control step is ~43,000-56,000
+    small kernels, and a graph of a 20-step unroll would hold ~1M nodes.
+    Called as `rollout` is.
 
     The graph reads fixed addresses: the params and the normalizer it was
     made for (those CapturedSGDStep updates in place; every call must hand
-    them, a restore copies into them), a static policy noise [T, N, A]
-    into which each call copies its `noise` (drawn outside, by
-    draw_training_step), and the env state buffers, made at the first call
-    as distinct copies of the state given. A call copies its env state in
-    unless it is the state the last call returned. It returns (the
-    buffers, the Transition): both are the graph's own tensors, which the
-    next call overwrites. The env's draws come from its generator,
-    registered with the graph (utils.graphs.GraphedBody, which also
-    captures at the first call and keeps the kernel's launch count)."""
+    them, a restore copies into them), a static policy noise [span, N, A]
+    into which each replay copies its slice of the call's `noise` (drawn
+    outside, by draw_training_step), and the env state buffers, made at the
+    first call as distinct copies of the state given. A call copies its env
+    state in unless it is the state the last call returned. It returns (the
+    buffers, the Transition): both are the captured program's own tensors,
+    which the next call overwrites. The env's draws come from its
+    generator, registered with the graph (utils.graphs.GraphedBody, which
+    also captures at the first call and keeps the kernel's launch count)."""
 
     def __init__(self, train_env: TrainEnv, normalizer, networks: nets.PPONetworks, log=None):
         self.generators, self.physics = capture_parts(train_env.env)
         self.train_env, self.log = train_env, log
+        self.span = 1 if getattr(train_env.env, "physics_mode", None) == "pipeline" else None
         self.normalizer, self.networks = normalizer, networks
         self._policy = _policy_tensors(self.normalizer, self.networks)
         self.graph: Optional[GraphedBody] = None
         self.state: Optional[State] = None
+        self.data: Optional[Transition] = None  # the stacked Transition where span < unroll
 
     def __call__(self, train_env: TrainEnv, env_state: State, normalizer,
                  networks: nets.PPONetworks, noise: torch.Tensor):
@@ -271,22 +279,34 @@ class CapturedRollout:
         if not _same_tensors(_policy_tensors(normalizer, networks), self._policy):
             raise ValueError("the captured rollout reads the params and normalizer it was made "
                              "for: restore into them, do not rebind")
+        T = noise.shape[0]
+        span = self.span or T
         if self.graph is None:
-            state, static_noise, out = clone_tree(env_state), noise.clone(), {}
-            self.state, self.noise, self._out = state, static_noise, out
+            state, static_noise, out = clone_tree(env_state), noise[:span].clone(), {}
+            self.state, self.noise, self._out, self.unroll = state, static_noise, out, T
             te, norm, nw = self.train_env, self.normalizer, self.networks
 
             def body():  # references no `self` (see GraphedBody)
                 out["data"] = rollout_into(te, state, norm, nw, static_noise)[1]
 
             self.graph = GraphedBody(body, tree_leaves(state).values(), self.generators,
-                                     self.physics, noise.device, "[ppo] rollout", self.log)
-        else:
-            if env_state is not self.state:
-                copy_into(self.state, env_state)
-            self.noise.copy_(noise)
-        self.graph.replay()
-        return self.state, self._out["data"]
+                                     self.physics, noise.device, "[ppo] rollout", self.log,
+                                     extra={"env_steps_per_replay": span})
+        elif T != self.unroll:
+            raise ValueError(f"the captured rollout unrolls {self.unroll} steps, not {T}")
+        elif env_state is not self.state:
+            copy_into(self.state, env_state)
+        for t in range(0, T, span):
+            self.noise.copy_(noise[t:t + span])
+            self.graph.replay()
+            if span < T:
+                if self.data is None:
+                    self.data = tree_map(lambda x: x.new_empty((T,) + x.shape[1:]),
+                                         self._out["data"])
+                for buf, x in zip(tree_leaves(self.data).values(),
+                                  tree_leaves(self._out["data"]).values()):
+                    buf[t:t + span].copy_(x)
+        return self.state, self._out["data"] if span == T else self.data
 
     @property
     def replays(self) -> int:
@@ -295,15 +315,19 @@ class CapturedRollout:
 
 def make_rollout(train_env: TrainEnv, training_state: TrainingState, hp: Hyper, log=None):
     """The rollout train() runs, and the log line that says which: a
-    CapturedRollout on a CUDA device at world size 1 with
-    physics="kernel", else `rollout` (wrapper.eager_reason)."""
+    CapturedRollout on a CUDA device at world size 1, else `rollout`
+    (wrapper.eager_reason)."""
     why = eager_reason(train_env.env)
     fn = (rollout if why is not None else
           CapturedRollout(train_env, training_state.normalizer, training_state.params, log))
     if log is not None:
-        how = (f"one CUDA graph replay per training step ({hp.unroll_length} env steps), "
-               "captured at its first call")
-        log(f"[ppo] rollout: {why or how}")
+        if why is None and fn.span is not None:
+            how = (f"{hp.unroll_length // fn.span} CUDA graph replays per training step, each "
+                   f"{fn.span} env step of the policy and TrainEnv.step (physics='pipeline': "
+                   f"~50,000 kernels per control step, a graph per control step at most)")
+        else:
+            how = f"one CUDA graph replay per training step ({hp.unroll_length} env steps)"
+        log(f"[ppo] rollout: {why or how + ', captured at its first call'}")
     return fn
 
 
@@ -581,7 +605,7 @@ def eval_step(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
 
 class CapturedEvalStep:
     """`eval_step` replayed as one CUDA graph, on a CUDA device at world size
-    1 with physics="kernel": the step of the JAX package's jitted eval scan
+    1 (either physics engine): the step of the JAX package's jitted eval scan
     (ppo.py run_eval). Called as `eval_step` is; `run_eval` replays it
     episode_length // action_repeat times after its eager reset.
 
@@ -638,8 +662,8 @@ class CapturedEvalStep:
 def make_eval_step(eval_env: TrainEnv, training_state: TrainingState, generator: torch.Generator,
                    deterministic: bool, log=None):
     """The eval step train() runs, and the log line that says which: a
-    CapturedEvalStep on a CUDA device at world size 1 with
-    physics="kernel", else `eval_step` (wrapper.eager_reason)."""
+    CapturedEvalStep on a CUDA device at world size 1, else `eval_step`
+    (wrapper.eager_reason)."""
     why = eager_reason(eval_env.env)
     fn = (eval_step if why is not None else
           CapturedEvalStep(eval_env, training_state.normalizer, training_state.params, generator,
@@ -867,10 +891,11 @@ def train(
     (a directory every rank reads alike), every rank finds it itself and
     no collective runs.
 
-    On a CUDA device at world size 1 with physics="kernel", the rollout,
-    the eval step and the SGD step are each one CUDA graph, captured at
-    their first call (make_rollout, make_eval_step, make_sgd_step; each
-    logs which path runs).
+    On a CUDA device at world size 1, the rollout, the eval step and the
+    SGD step are each a CUDA graph, captured at their first call
+    (make_rollout, make_eval_step, make_sgd_step; each logs which path
+    runs); on the general pipeline no graph spans more than one control
+    step (CapturedRollout.span).
     """
     if num_envs != batch_size * num_minibatches:
         raise ValueError("brax-PPO layout requires num_envs == batch_size * num_minibatches")

@@ -300,10 +300,10 @@ def test_trace_sees_one_fused_launch_per_env_step(card, root, tmp_path):
     assert split["env_step"]["waits"] == 0  # no host value made into a tensor per step
 
 
-def _small_trainer_inputs(card):
-    """A 64-env flat backlash DR env through the kernel and train()'s init
-    at (32, 16) networks, with hyperparameters for 4 minibatches of 16, 2
-    updates, unroll 8."""
+def _small_trainer_inputs(card, physics="kernel"):
+    """A 64-env flat backlash DR env through the kernel (or `physics`) and
+    train()'s init at (32, 16) networks, with hyperparameters for 4
+    minibatches of 16, 2 updates, unroll 8."""
     import dataclasses
     import inspect
 
@@ -316,7 +316,7 @@ def _small_trainer_inputs(card):
     hp = ppo.Hyper(**{f.name: kw.get(f.name, defaults[f.name].default)
                       for f in dataclasses.fields(ppo.Hyper)})
     gens = ppo.seeded_generators(0, card)
-    env = Joystick("flat_terrain_backlash", device=card)
+    env = Joystick("flat_terrain_backlash", device=card, physics=physics)
     te = TrainEnv(env, num_envs=num_envs, episode_length=1000,
                   randomization_fn=randomize.domain_randomize,
                   randomization_generator=gens["randomization"])
@@ -483,6 +483,75 @@ def test_captured_rollout_matches_eager(card, root):
     got = roll(te, state, ts.normalizer, ts.params, draws[2][0])
     assert _bitwise(got[0], want[0]) and _bitwise(got[1], want[1])
     assert roll.replays == 3 and roll.graph.info["fused_launches_per_replay"] == hp.unroll_length
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["flat_terrain", "rough_terrain_backlash"])
+def test_captured_pipeline_env_step_matches_eager(card, root, task):
+    """wrapper.CapturedEnvStep on physics="pipeline" against TrainEnv.step on
+    the card, 64 DR envs, episode_length 2, 3 steps from one reset and one
+    env generator state (every env autoresets at step 2): every step's
+    state bit for bit, the pipeline's Data and Contact fields included, the
+    env generator's state after the run; the kernel is never launched."""
+    from open_duck_playground_tpu_torch.envs.wrapper import CapturedEnvStep
+
+    B = 64
+    env = Joystick(task, device=card, seed=1, physics="pipeline")
+    te = TrainEnv(env, num_envs=B, episode_length=2, randomization_fn=randomize.domain_randomize,
+                  randomization_generator=torch.Generator(device=card).manual_seed(0))
+    actions = torch.rand((3, B, env.action_size), generator=torch.Generator(device=card)
+                         .manual_seed(2), device=card) * 2 - 1
+    start = te.reset(torch.Generator(device=card).manual_seed(3))
+    g0 = env.generator.get_state()
+    eager, state = [], start
+    for a in actions:
+        state = te.step(state, a)
+        eager.append(state)
+    g_eager = env.generator.get_state()
+
+    cap = CapturedEnvStep(te)
+    cap.capture(start, actions[0])
+    env.generator.set_state(g0)
+    state = start
+    for k, a in enumerate(actions):
+        state = cap(state, a)
+        assert _bitwise(state, eager[k]), k
+    assert torch.equal(env.generator.get_state(), g_eager)
+    assert state.data.contact.efc_valid is not None and bool((state.info["steps"] == 1).all())
+    assert env.physics.launches == 0 and cap.replays == len(actions)
+    assert cap.graph.info["fused_launches_per_replay"] == 0
+
+
+@pytest.mark.cuda
+def test_captured_pipeline_rollout_matches_eager(card, root):
+    """ppo.CapturedRollout on physics="pipeline" (one env step per graph,
+    replayed unroll_length times a call) against ppo.rollout on the card
+    (64 flat backlash DR envs, unroll 8, (32, 16) networks): 2 consecutive
+    rollouts from one reset and one env generator state, the final states,
+    the Transitions and the generator's state bit for bit."""
+    from open_duck_playground_tpu_torch.train import ppo
+
+    hp, gens, env, te, init = _small_trainer_inputs(card, physics="pipeline")
+    ts = init()
+    roll = ppo.make_rollout(te, ts, hp)
+    assert isinstance(roll, ppo.CapturedRollout) and roll.span == 1
+    start = te.reset(gens["reset"])
+    noises = [ppo.draw_training_step(gens["epoch"], hp, env.action_size, card)[0]
+              for _ in range(2)]
+    g0 = env.generator.get_state()
+    eager, state = [], start
+    for noise in noises:
+        state, data = ppo.rollout(te, state, ts.normalizer, ts.params, noise)
+        eager.append((state, data))
+    g_eager = env.generator.get_state()
+    env.generator.set_state(g0)
+    state = start
+    for k, noise in enumerate(noises):
+        state, data = roll(te, state, ts.normalizer, ts.params, noise)
+        assert _bitwise(state, eager[k][0]) and _bitwise(data, eager[k][1]), k
+    assert torch.equal(env.generator.get_state(), g_eager)
+    assert roll.replays == 2 * hp.unroll_length and env.physics.launches == 0
+    assert roll.graph.info["env_steps_per_replay"] == 1
 
 
 @pytest.mark.cuda

@@ -26,7 +26,9 @@ many substeps are needed (the settled 10-substep comparison).
   pipeline.
 - the slice: Joystick("flat_terrain", physics="pipeline", device="cpu") at
   4 DR envs, one control step against the JAX Joystick on its CPU default
-  (its pipeline), from JAX's reset state carried across."""
+  (its pipeline), from JAX's reset state carried across: TrainEnv.step,
+  and the body a CUDA graph of the step records (wrapper.step_into over
+  buffers)."""
 
 import fcntl
 import functools
@@ -626,13 +628,9 @@ def jax_slice(root):
                 model=jax_model_fields(te._model_v))
 
 
-def test_slice_on_the_pipeline_matches_jax(jax_slice):
-    """One control step from JAX's reset state (feet landing from the
-    keyframe with the reset's joint scaling: not a settled state), both on
-    their pipelines; test_torch_env.py's slice bounds on obs and reward, done
-    identical. Readings: qpos |err| q50 2.3e-5 / max 6.0e-4, qvel q50
-    1.5e-3 / max 3.9e-2; obs q50 0, q90 1.5e-3, max 1.54 (the accelerometer);
-    reward max 7.6e-3."""
+def _pipeline_slice(jax_slice):
+    """The port's TrainEnv of Joystick("flat_terrain", physics="pipeline") on
+    the CPU with JAX's DR model, and JAX's reset state carried across."""
     from open_duck_playground_tpu_torch.envs.joystick import Joystick
     from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
 
@@ -640,8 +638,12 @@ def test_slice_on_the_pipeline_matches_jax(jax_slice):
     model_v = interop.model_from_numpy(jax_slice["model"])
     te = TrainEnv(env, num_envs=N_ENVS, episode_length=1000,
                   randomization_fn=lambda model, n, g: model_v)
-    first, ref = jax_slice["states"]
-    out = te.step(interop.state_from_numpy(first), torch.from_numpy(jax_slice["action"]))
+    return env, te, interop.state_from_numpy(jax_slice["states"][0])
+
+
+def _check_slice(env, out, ref):
+    """test_torch_env.py's slice bounds on obs and reward, done identical,
+    qpos and qvel by quantiles; the kernel never launched."""
     assert env.physics.launches == 0
     assert isinstance(out.data, Data) and out.data.qacc is not None
     np.testing.assert_array_equal(_n(out.done), ref["done"])
@@ -656,6 +658,38 @@ def test_slice_on_the_pipeline_matches_jax(jax_slice):
     assert np.quantile(err, 0.9) < 1e-2, np.quantile(err, 0.9)
     assert err.max() < 2.0, err.max()
     np.testing.assert_allclose(_n(out.reward), ref["reward"], atol=0.05)
+
+
+def test_slice_on_the_pipeline_matches_jax(jax_slice):
+    """One control step from JAX's reset state (feet landing from the
+    keyframe with the reset's joint scaling: not a settled state), both on
+    their pipelines; test_torch_env.py's slice bounds on obs and reward, done
+    identical. Readings: qpos |err| q50 2.3e-5 / max 6.0e-4, qvel q50
+    1.5e-3 / max 3.9e-2; obs q50 0, q90 1.5e-3, max 1.54 (the accelerometer);
+    reward max 7.6e-3."""
+    env, te, first = _pipeline_slice(jax_slice)
+    out = te.step(first, torch.from_numpy(jax_slice["action"]))
+    _check_slice(env, out, jax_slice["states"][1])
+
+
+def test_captured_body_on_the_pipeline_matches_jax(jax_slice):
+    """The body a CUDA graph of the pipeline's env step records
+    (wrapper.step_into over buffers cloned from JAX's reset state, every
+    field of the pipeline's Data and Contact included) against the JAX
+    TrainEnv's jitted step on its CPU pipeline, at
+    test_slice_on_the_pipeline_matches_jax's bounds; the buffers hold the
+    port's dtypes."""
+    from open_duck_playground_tpu_torch.envs.wrapper import step_into
+    from open_duck_playground_tpu_torch.utils.graphs import clone_tree, tree_leaves
+
+    env, te, first = _pipeline_slice(jax_slice)
+    buffers = clone_tree(first)
+    leaves = tree_leaves(buffers)
+    assert leaves["/data/contact/geom1"].dtype == torch.int32
+    assert leaves["/data/contact/efc_valid"].dtype == torch.bool
+    assert step_into(te, buffers, torch.from_numpy(jax_slice["action"])) is buffers
+    assert all(t is leaves[k] for k, t in tree_leaves(buffers).items())
+    _check_slice(env, buffers, jax_slice["states"][1])
 
 
 def test_physics_choice_is_explicit(root):

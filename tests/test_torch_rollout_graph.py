@@ -23,9 +23,9 @@ runs; here they must give what the functional code gives, bit for bit
 - the env-step body against the JAX package's TrainEnv.step on
   tests/test_torch_env.py's run (8 envs, 5 steps, DR on), to that module's
   test_slice_matches_jax bounds;
-- the choice of path off the card: the CPU, world 2 and
-  physics="pipeline" run the eager bodies and log why; the captured
-  classes refuse an env that cannot be captured.
+- the choice of path off the card: the CPU (either physics engine) and
+  world 2 run the eager bodies and log why; the captured classes refuse
+  an env that cannot be captured.
 
 The replays against the eager bodies on the card are tests/test_torch_cuda.py
 (test_captured_env_step_matches_eager, test_captured_rollout_matches_eager)
@@ -327,9 +327,9 @@ def test_env_step_body_matches_jax(jax_run):
 
 
 def test_eager_path_off_the_card(root):
-    """The CPU, world 2 and physics="pipeline" each run the eager rollout
-    and eval step and log why; the captured classes refuse such an env,
-    and a graph refuses the CPU."""
+    """The CPU, on either physics engine, and world 2 each run the eager
+    rollout and eval step and log why; the captured classes refuse such an
+    env, and a graph refuses the CPU."""
     env, te = _tipping_duck(2, 10)
     ts = _training_state(env)
     hp = ppo.Hyper(num_envs=2, unroll_length=4, num_minibatches=1, batch_size=2,
@@ -349,15 +349,14 @@ def test_eager_path_off_the_card(root):
 
     cpu = "eager on cpu (no CUDA graph on the CPU)"
     world = "eager at world 2 (the env-sharded trainer runs its steps eagerly, as its SGD step)"
-    engine = "eager with physics='pipeline' (the general pipeline is a second engine)"
     assert choices(te) == ((ppo.rollout, ppo.eval_step),
                            [f"[ppo] rollout: {cpu}", f"[ppo] eval step: {cpu}"])
     env.shard = EnvShard(1, 2)
     assert choices(te) == ((ppo.rollout, ppo.eval_step),
                            [f"[ppo] rollout: {world}", f"[ppo] eval step: {world}"])
     assert choices(pipeline) == ((ppo.rollout, ppo.eval_step),
-                                 [f"[ppo] rollout: {engine}", f"[ppo] eval step: {engine}"])
-    assert wrapper.eager_reason(env) == world and wrapper.eager_reason(pipeline.env) == engine
+                                 [f"[ppo] rollout: {cpu}", f"[ppo] eval step: {cpu}"])
+    assert wrapper.eager_reason(env) == world and wrapper.eager_reason(pipeline.env) == cpu
 
     env.shard = None
     for make in (lambda: wrapper.CapturedEnvStep(te),
