@@ -63,24 +63,38 @@ Phases:
    eval_s, each graph's capture seconds and pool bytes).
 5. the env-sharded trainer: the same runner and recipe under
    `python -m torch.distributed.run`, 8192 DR envs split over the ranks:
-   world 2 sharing the one card over gloo and, where the machine has two
+   world 2 sharing the one card over gloo, as train() runs it (every
+   rollout and eval step one graph replay, every SGD step a chain of
+   graph segments with the collectives between them) and once more with
+   the eager bodies asked for by name (eager_bodies: the parent's path,
+   for its numbers in the same call), and, where the machine has two
    cards or more, world min(cards, 4) over NCCL. Each rank (this script
    with --rank-worker) checks and reports: (a) its train env's and eval
-   env's kernel launches against the count the code gives, each on its own
-   8192/world (1024/world) rows on its own device, with the launch geometry;
-   (b) the params identical on every rank (train() checks params, Adam
-   state, normalizer and generators after every epoch); (c) one training
-   step at this world size against the same step at world size 1 from the
-   same init and global draws (world 1 through the captured SGD step,
-   world > 1 through the eager body, as train() runs them): the
-   normalizer count and env_steps exactly,
-   the first rollout's transitions and the params after the step within
-   SHARDED_LIMITS; (d) on rank 0, the kernel against its twin on its rows
-   of the trained state (step variant, DR on; TRAINER_PARITY_LIMITS, 0);
-   (e) the full state rank 0 wrote holds all 8192 rows, and each rank's rows
-   of a gathered full state equal its live state; (f) training/sps per
-   epoch, profile_breakdown per rank (collectives per SGD step and their
-   time), and each rank's kernel time at its rows, ranks timed in turn.
+   env's kernel launches against the count the code gives, with each
+   replay's fused launches (launches_per_replay: 20 per rollout, 1 per
+   eval step), the launches the host makes itself, each on its own
+   8192/world (1024/world) rows on its own device, the graph replays, the
+   collectives per SGD step, with the launch geometry; (b) the params
+   identical on every rank (train() checks params, Adam state,
+   normalizer and generators after every epoch); (c) one training step
+   from the same init and global draws at world 1 (eager rollout, captured
+   SGD step) and at this world size through the eager bodies and through
+   the graphs: the graphs against the eager bodies bit for bit
+   (transitions, env state, params, Adam state, normalizer, loss terms,
+   generators), and against world 1 the normalizer count and env_steps
+   exactly, the first rollout's transitions and the params after the step
+   within SHARDED_LIMITS; (d) on rank 0, the kernel against its twin on
+   its rows of the trained state (step variant, DR on;
+   TRAINER_PARITY_LIMITS, 0); (e) the full state rank 0 wrote holds all
+   8192 rows, and each rank's rows of a gathered full state equal its live
+   state; (f) training/sps per epoch, profile_breakdown per rank (rollout_s,
+   sgd_s, eval_s, collectives per SGD step and their time), each SGD
+   segment's capture seconds and the shared pool's bytes, one more
+   training step traced on each rank (host calls, graph replays and
+   collectives per SGD step, device ms, the fused kernel's ms inside the
+   rollout replay, the card's idle share as this rank's trace sees it),
+   and each rank's kernel time at its rows, ranks timed in turn. The eager
+   run reports (a), (b) and the traced step.
 
 8. the general pipeline (ops/forward.py): TrainEnv(Joystick(task,
    physics="pipeline")) at the main paths' shapes (flat 4096, rough 8192,
@@ -1261,24 +1275,28 @@ def trainer_vs_twin(runner, kw, trained, policy, report, label: str = "trainer",
 
 def phase_sharded() -> list:
     """Phase 5: the env-sharded trainer under torch.distributed.run, world 2
-    sharing the one card over gloo and, where there are two cards or more,
-    world min(cards, 4) over NCCL. Returns one result per run."""
+    sharing the one card over gloo, first as train() runs it (the graphs),
+    then with the eager bodies asked for by name (the parent's path, timed
+    in the same call) and, where there are two cards or more, world
+    min(cards, 4) over NCCL. Returns one result per run."""
     cards = torch.cuda.device_count()
-    return [run_sharded(backend, world)
-            for backend, world in [("gloo", 2)] + ([("nccl", min(cards, 4))] if cards >= 2 else [])]
+    runs = [("gloo", 2, "graph"), ("gloo", 2, "eager")]
+    runs += [("nccl", min(cards, 4), "graph")] if cards >= 2 else []
+    return [run_sharded(backend, world, bodies) for backend, world, bodies in runs]
 
 
-def run_sharded(backend: str, world: int) -> dict:
+def run_sharded(backend: str, world: int, bodies: str = "graph") -> dict:
     """One sharded run: each rank runs rank_worker and leaves its report in
-    build/sharded_<backend>_<world>/rank<r>.json; the checks across ranks
-    are made here."""
-    out = os.path.join(ROOT, "build", f"sharded_{backend}_{world}")
+    build/sharded_<backend>_<world>_<bodies>/rank<r>.json; the checks across
+    ranks are made here."""
+    out = os.path.join(ROOT, "build", f"sharded_{backend}_{world}_{bodies}")
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={world}", os.path.join(ROOT, "chip_smoke.py"),
-           "--rank-worker", out, backend]
-    log(f"[sharded] {backend} world {world}: {' '.join(cmd[1:])}")
+           "--rank-worker", out, backend, bodies]
+    tag = f"{backend} world {world} {bodies}"
+    log(f"[sharded] {tag}: {' '.join(cmd[1:])}")
     t0 = time.perf_counter()
     # a session of its own, so that a timeout stops torchrun and its ranks
     proc = subprocess.Popen(cmd, start_new_session=True)
@@ -1295,33 +1313,45 @@ def run_sharded(backend: str, world: int) -> dict:
         if os.path.exists(path):
             with open(path) as f:
                 reps.append(json.load(f))
-    ok = passed(f"sharded {backend} world {world}", exit=rc == 0, reports=len(reps) == world)
-    log(f"[sharded] {backend} world {world}: exit {rc} after {wall:.1f} s; "
-        f"{len(reps)} of {world} rank reports")
+    ok = passed(f"sharded {tag}", exit=rc == 0, reports=len(reps) == world)
+    log(f"[sharded] {tag}: exit {rc} after {wall:.1f} s; {len(reps)} of {world} rank reports")
     if ok:
-        ok = check_sharded(backend, world, torch.cuda.device_count(), reps, out)
-    return dict(ok=ok, backend=backend, world=world, reps=reps, wall_s=wall)
+        ok = check_sharded(tag, backend, world, torch.cuda.device_count(), reps, out)
+    return dict(ok=ok, backend=backend, world=world, bodies=bodies, reps=reps, wall_s=wall)
 
 
-def check_sharded(backend: str, world: int, cards: int, reps: list, out: str) -> bool:
+def check_sharded(tag: str, backend: str, world: int, cards: int, reps: list, out: str) -> bool:
     """Print each rank's report and check what spans the ranks: every rank's
     own checks, the same params everywhere, each rank on its card (ranks
     share cards only over gloo), finite metrics and the global counts."""
     ok = True
     for rep in reps:
-        ok &= passed(f"sharded {backend} world {world} rank {rep['rank']}", **rep["checks"])
-        log(f"[sharded] rank {rep['rank']} on {rep['device']}: {rep['rows']} train rows; "
-            f"geometry {rep['geometry']}; launches {rep['launches']} (want {rep['want']}) "
-            f"as {rep['launch_rows']}; kernel {rep['kernel_ms']:.3f} ms per control step at "
-            f"{rep['rows']} rows; train {rep['t_train']:.1f} s")
-        log(f"[sharded] rank {rep['rank']} profile_breakdown {json.dumps(rep['breakdown'])}")
-        log(f"[sharded] rank {rep['rank']} world {world} vs world 1, one training step: "
-            f"{json.dumps(rep['invariance'])}")
-        log(f"[sharded] rank {rep['rank']} checks {json.dumps(rep['checks'])}")
+        r = rep["rank"]
+        ok &= passed(f"sharded {tag} rank {r}", **rep["checks"])
+        log(f"[sharded] {tag} rank {r} on {rep['device']}: {rep['rows']} train rows; geometry "
+            f"{rep['geometry']}; launches {rep['launches']} (want {rep['want']}), launches seen "
+            f"by the host {rep['launch_rows']} (want {rep['want_seen']}); graph replays "
+            f"{json.dumps(rep['replays'])} (want {json.dumps(rep['want_replays'])}); kernel "
+            f"{rep['kernel_ms']} ms per control step at {rep['rows']} rows; train "
+            f"{rep['t_train']:.1f} s")
+        log(f"[sharded] {tag} rank {r} profile_breakdown {json.dumps(rep['breakdown'])}")
+        if rep.get("sgd_segments"):
+            seg = rep["sgd_segments"]
+            log(f"[sharded] {tag} rank {r} SGD segments: {seg['segments']} graphs, capture s "
+                f"min {min(seg['capture_s']):.6f} median {seg['capture_s_median']:.6f} max "
+                f"{max(seg['capture_s']):.6f} sum {sum(seg['capture_s']):.4f} (each in "
+                f"{out}/rank{r}.json), pool {seg['pool_bytes']} bytes")
+        if "invariance" in rep:
+            log(f"[sharded] {tag} rank {r} world {world} vs world 1, one training step: "
+                f"{json.dumps(rep['invariance'])}")
+            log(f"[sharded] {tag} rank {r} world {world} replays vs eager bodies, one training "
+                f"step: {json.dumps(rep['graph_vs_eager'])}")
+        log(f"[sharded] {tag} rank {r} traced training step: {json.dumps(rep['traced'])}")
+        log(f"[sharded] {tag} rank {r} checks {json.dumps(rep['checks'])}")
     devices = [rep["device"] for rep in reps]
     own_cards = [f"cuda:{r % cards}" for r in range(world)]
     same_params = len({rep["params_digest"] for rep in reps}) == 1
-    ok &= passed(f"sharded {backend} world {world}", same_params=same_params,
+    ok &= passed(f"sharded {tag}", same_params=same_params,
                  devices=devices == own_cards and (backend == "gloo" or len(set(devices)) == world))
     with open(os.path.join(out, "run", "metrics.jsonl")) as f:
         lines = [json.loads(line) for line in f]
@@ -1329,18 +1359,18 @@ def check_sharded(backend: str, world: int, cards: int, reps: list, out: str) ->
         math.isfinite(v) for line in lines for k, v in line.items()
         if k.startswith(("training/", "eval/")))
     for line in lines[1:]:
-        log(f"[sharded] epoch at step {line['step']}: training/sps {line['training/sps']:.1f}, "
-            f"eval/episode_reward {line['eval/episode_reward']:.4f}")
-    ok &= passed(f"sharded {backend} world {world}", metrics_finite=finite,
-                 env_steps=lines[-1]["step"] == 655360)
-    log(f"[sharded] {backend} world {world}: devices {devices}; params identical on every "
-        f"rank {same_params}; metrics finite {finite}; {'OK' if ok else 'FAIL'}")
+        log(f"[sharded] {tag} epoch at step {line['step']}: training/sps "
+            f"{line['training/sps']:.1f}, eval/episode_reward {line['eval/episode_reward']:.4f}")
+    ok &= passed(f"sharded {tag}", metrics_finite=finite, env_steps=lines[-1]["step"] == 655360)
+    log(f"[sharded] {tag}: devices {devices}; params identical on every rank {same_params}; "
+        f"metrics finite {finite}; gpu {gpu_line()}; {'OK' if ok else 'FAIL'}")
     return ok
 
 
-def rank_worker(out: str, backend: str) -> int:
+def rank_worker(out: str, backend: str, bodies: str = "graph") -> int:
     """One rank of phase 5 (run by torch.distributed.run): joins the group
-    as the runner does, trains, checks, and writes rank<r>.json into `out`."""
+    as the runner does, trains, checks, and writes rank<r>.json into `out`.
+    `bodies` "eager" asks for the eager bodies (sharded_rank)."""
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1352,7 +1382,8 @@ def rank_worker(out: str, backend: str) -> int:
         ["--output_dir", os.path.join(out, "run"), *TRAINER_ARGS, "--dist_backend", backend])
     shard = rn.init_distributed(args)
     try:
-        rep = sharded_rank(rn.OpenDuckMiniV2Runner(args, shard), shard, out)
+        rep = sharded_rank(rn.OpenDuckMiniV2Runner(args, shard), shard, out,
+                           eager={"graph": False, "eager": True}[bodies])
     finally:
         pdist.destroy()
     with open(os.path.join(out, f"rank{shard.rank}.json"), "w") as f:
@@ -1361,8 +1392,10 @@ def rank_worker(out: str, backend: str) -> int:
 
 
 def _spy_launches(fp, seen: dict):
-    """Record the rows and device of each launch of `fp`'s kernel (the
-    launch itself, and its count, are fp's own)."""
+    """Record the rows and device of each launch of `fp`'s kernel the host
+    makes (eagerly, at a warm-up or while a graph captures; a replay
+    launches from the graph, not through here; the launch itself, and its
+    count, are fp's own)."""
     launch = fp._launch
 
     def counted(qpos, *args):
@@ -1373,10 +1406,30 @@ def _spy_launches(fp, seen: dict):
     fp._launch = counted
 
 
-def sharded_rank(runner, shard, out: str) -> dict:
+@contextlib.contextmanager
+def eager_bodies():
+    """ppo.train's rollout, eval step and SGD step as the eager bodies on
+    the card too: what the trainer ran at world > 1 before its graphs,
+    asked for by phase 5's eager run to time it beside the graphs in one
+    call. A choice of this check: the trainer itself never falls back."""
+    from open_duck_playground_tpu_torch.train import ppo
+
+    saved = ppo.make_rollout, ppo.make_eval_step, ppo.make_sgd_step
+    ppo.make_rollout = lambda *a, **k: ppo.rollout
+    ppo.make_eval_step = lambda *a, **k: ppo.eval_step
+    ppo.make_sgd_step = lambda *a, **k: ppo.sgd_step
+    try:
+        yield {}
+    finally:
+        ppo.make_rollout, ppo.make_eval_step, ppo.make_sgd_step = saved
+
+
+def sharded_rank(runner, shard, out: str, eager: bool = False) -> dict:
     """Phase 5's work on one rank: the main path (ppo.train through the
     runner's recipe) with its launches counted from 0, then checks (a)-(f)
-    of the module docstring. Every rank makes the same collectives."""
+    of the module docstring. Every rank makes the same collectives. With
+    `eager`, train() runs the eager bodies (eager_bodies), and only (a),
+    (b) and the traced step of (f) run: the parent's numbers."""
     import hashlib
 
     from open_duck_playground_tpu_torch import interop
@@ -1385,7 +1438,8 @@ def sharded_rank(runner, shard, out: str) -> dict:
     from open_duck_playground_tpu_torch.ops.cuda_step import flatten_dr_fields
     from open_duck_playground_tpu_torch.train import checkpoint as ckpt
     from open_duck_playground_tpu_torch.train import ppo
-    from open_duck_playground_tpu_torch.utils.graphs import tree_leaves
+    from open_duck_playground_tpu_torch.utils import profiling
+    from open_duck_playground_tpu_torch.utils.graphs import tree_leaves, tree_map
 
     dev = shard.device
     kw = runner.train_kwargs()
@@ -1395,8 +1449,25 @@ def sharded_rank(runner, shard, out: str) -> dict:
     epochs = kw["num_evals"] - 1
     steps_per_epoch = math.ceil(kw["num_timesteps"] / (epochs * B * T))
     ep_len = kw["episode_length"] // kw["action_repeat"]
-    want = {"train_env": 1 + T * (2 + 2 + epochs * steps_per_epoch),
-            "eval_env": (1 + epochs + 2) * (1 + ep_len)}
+    hp = _trainer_hyper(kw)
+    # rollouts, SGD steps and eval steps the code gives (as phase 4):
+    # profile_breakdown's rollout and training step twice each, every
+    # training step's; episode_length eval steps per eval (one at 0, one
+    # after each epoch, two in the breakdown). Captured, each is one replay
+    # (the SGD step one chain), and the rollout's and the eval's captures
+    # each add one real warm-up (T env steps, one eval step); the host
+    # itself calls the kernel at the resets, the warm-ups and the captures;
+    # at world > 1 profile_breakdown runs the SGD step once more,
+    # its collectives timed
+    n_evals = 1 + epochs + 2
+    rollouts = 2 + 2 + epochs * steps_per_epoch
+    want_replays = ({} if eager else
+                    {"rollout": [rollouts], "SGD step": [rollouts + 1],
+                     "eval step": [n_evals * ep_len]})
+    warm = 0 if eager else 1
+    want = {"train_env": 1 + T * (warm + rollouts),
+            "eval_env": n_evals * (1 + ep_len) + warm}
+    want_seen = want if eager else {"train_env": 1 + 2 * T, "eval_env": n_evals + 2}
     envs = {"train_env": runner.env, "eval_env": runner.eval_env}
     seen = {name: {} for name in envs}
 
@@ -1405,8 +1476,9 @@ def sharded_rank(runner, shard, out: str) -> dict:
         _spy_launches(env.physics, seen[name])
         env.physics.launches = 0
     t0 = time.perf_counter()
-    _, (normalizer, params), _ = ppo.train(environment=runner.env, eval_env=runner.eval_env,
-                                           **kw, profile_breakdown=True)
+    with (eager_bodies() if eager else captured_programs()) as made:
+        _, (normalizer, params), _ = ppo.train(environment=runner.env, eval_env=runner.eval_env,
+                                               **kw, profile_breakdown=True)
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     launches = {name: env.physics.launches for name, env in envs.items()}
@@ -1414,10 +1486,25 @@ def sharded_rank(runner, shard, out: str) -> dict:
         del env.physics._launch
     bd = ppo.LAST_PROFILE_BREAKDOWN
     fp = runner.env.physics
+    replays = {name: [c.replays for c in objs] for name, objs in made.items()}
+    n_collectives = ppo.sgd_collectives(hp, len(normalizer.mean))
+    per_replay = {"rollout": bd.get("rollout_graph", {}).get("fused_launches_per_replay"),
+                  "eval_step": bd.get("eval_graph", {}).get("fused_launches_per_replay")}
     checks = {"launches": launches == want,
-              "launch_rows": seen == {"train_env": {f"{rows} rows on {dev}": want["train_env"]},
-                                      "eval_env": {f"{eval_rows} rows on {dev}": want["eval_env"]}},
-              "count": float(normalizer.count) == kw["num_timesteps"]}
+              "launch_rows": seen == {name: {f"{n} rows on {dev}": want_seen[name]}
+                                      for name, n in (("train_env", rows),
+                                                      ("eval_env", eval_rows))},
+              "replays": replays == want_replays,
+              "count": float(normalizer.count) == kw["num_timesteps"],
+              "sgd_collectives": bd["sgd_collectives"] == n_collectives}
+    if not eager:
+        checks["launches_per_replay"] = per_replay == {"rollout": T, "eval_step": 1}
+        checks["sgd_segments"] = bd["sgd_graph"].get("segments") == n_collectives + 1
+    sgd_graph = made.get("SGD step", [None])[0]
+    segments = None if sgd_graph is None else {
+        "segments": len(sgd_graph.segment_capture_s), "capture_s": sgd_graph.segment_capture_s,
+        "capture_s_median": float(np.median(sgd_graph.segment_capture_s)),
+        "pool_bytes": sgd_graph.info["pool_bytes"]}
 
     # (b) the params every rank ends with (train() checked the replicated
     # state after every epoch)
@@ -1426,13 +1513,10 @@ def sharded_rank(runner, shard, out: str) -> dict:
         for _, v in sorted(ckpt.flatten(a).items()):
             h.update(np.ascontiguousarray(v).tobytes())
 
-    # (c) one training step at this world size against world size 1, from
-    # train()'s init and the same global draws
-    hp = _trainer_hyper(kw)
-
-    kinds = []  # the SGD step each one_step ran
-
-    def one_step(env_shard):
+    # (c) one training step from train()'s init and the same global draws:
+    # at world 1 (eager rollout, captured SGD step, as before), and at this
+    # world size through the eager bodies and through the graphs
+    def one_step(env_shard, graphs: bool):
         gens = ppo.seeded_generators(kw["seed"], dev)
         env = Joystick(TRAINER_TASK, device=dev)
         env.shard = env_shard
@@ -1446,19 +1530,102 @@ def sharded_rank(runner, shard, out: str) -> dict:
         noise, perms, ent = ppo.draw_training_step(gens["epoch"], hp, env.action_size, dev)
         if env_shard is not None:
             noise = env_shard.take(noise, dim=1)
-        state, data = ppo.rollout(te, state, ts.normalizer, ts.params, noise)
-        # as train() runs it: world 1 captured, world > 1 eager
-        sgd = ppo.make_sgd_step(ts, hp, env_shard)
-        ts, _ = sgd(ts, data, perms, ent, hp, env_shard)
+        roll = ppo.make_rollout(te, ts, hp) if graphs and env_shard is not None else ppo.rollout
+        sgd = ppo.make_sgd_step(ts, hp, env_shard) if graphs else ppo.sgd_step
+        state, data = roll(te, state, ts.normalizer, ts.params, noise)
+        data, state = tree_map(torch.clone, data), tree_map(torch.clone, state)
+        ts, losses = sgd(ts, data, perms, ent, hp, env_shard)
         ts = ts.replace(env_steps=ts.env_steps + hp.env_steps_per_training_step)
-        kinds.append(type(sgd).__name__ if isinstance(sgd, ppo.CapturedSGDStep) else sgd.__name__)
-        return ts, state, data, te, {"epoch": gens["epoch"], "env": env.generator}
+        kinds = [type(f).__name__ if isinstance(f, (ppo.CapturedRollout, ppo.CapturedSGDStep))
+                 else f.__name__ for f in (roll, sgd)]
+        return dict(ts=ts, state=state, data=data, te=te, losses=losses, kinds=kinds, roll=roll,
+                    sgd=sgd, gens={"epoch": gens["epoch"], "env": env.generator})
+
+    def traced_step(step, label: str) -> dict:
+        """One more training step of `step`'s programs, traced on this rank
+        (its own device work: the other ranks' kernels on a shared card are
+        not in this process's trace)."""
+        trace_dir = os.path.join(out, f"trace_{label}_rank{shard.rank}")
+
+        def annotated(name, fn):
+            def call(*a, **k):
+                with profiling.annotate(name):
+                    return fn(*a, **k)
+            return call
+
+        draws = ppo.draw_training_step(step["gens"]["epoch"], hp, runner.env.action_size, dev)
+        torch.cuda.synchronize()
+        n0 = shard.collectives
+        with profiling.trace(trace_dir, device=dev):
+            with profiling.annotate("training_step"):
+                ts, state, _ = ppo.training_step(
+                    step["ts"], step["te"], step["state"], draws, hp, shard,
+                    sgd=annotated("sgd_step", step["sgd"]), roll=annotated("rollout", step["roll"]))
+                torch.cuda.synchronize()
+        collectives = shard.collectives - n0
+        split = trace_split(read_trace(os.path.join(trace_dir, "trace.json")),
+                            ("training_step", "rollout", "sgd_step"))
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        step.update(ts=ts, state=state)
+        roll_s, sgd_s = split["rollout"], split["sgd_step"]
+        fused = roll_s["fused_per_instance"][0]
+        return {"host_calls_per_sgd_step": sgd_s["host_calls"],
+                "graph_replays_per_sgd_step": sgd_s["graph_launches"],
+                "collectives_per_sgd_step": collectives,
+                "host_waits_per_sgd_step": sgd_s["waits"],
+                "sgd_device_ms": sgd_s["device_ms"], "sgd_host_ms": sgd_s["host_ms"],
+                "sgd_kernels": sgd_s["launches"], "sgd_idle_share": sgd_s["idle_share"],
+                "rollout_host_calls": roll_s["host_calls"],
+                "rollout_graph_replays": roll_s["graph_launches"],
+                "rollout_device_ms": roll_s["device_ms"], "rollout_fused_launches": fused,
+                "fused_ms_per_launch_in_rollout": (roll_s["fused_share"] * roll_s["device_ms"]
+                                                   / fused if fused else None),
+                "training_step_host_ms": split["training_step"]["host_ms"],
+                "training_step_device_ms": split["training_step"]["device_ms"],
+                "idle_share": split["training_step"]["idle_share"]}
+
+    rep = {"rank": shard.rank, "world": shard.world, "device": str(dev), "rows": rows,
+           "bodies": "eager" if eager else "graph", "geometry": fp.geometry(rows, dev),
+           "launches": launches, "want": want, "launch_rows": seen, "want_seen": want_seen,
+           "replays": replays, "want_replays": want_replays, "launches_per_replay": per_replay,
+           "t_train": t_train, "breakdown": bd, "params_digest": h.hexdigest(),
+           "sgd_segments": segments, "kernel_ms": None}
+    if eager:
+        step = one_step(shard, graphs=False)
+        rep["traced"] = traced_step(step, "eager")
+        checks["traced_collectives"] = rep["traced"]["collectives_per_sgd_step"] == n_collectives
+        del step
+        torch.cuda.empty_cache()
+        rep["checks"] = checks
+        rep["ok"] = all(checks.values())
+        return rep
 
     p0 = torch.cat([p.detach().reshape(-1) for p in ppo.init_training_state(
         params.obs_sizes, params.action_size, nf,
         ppo.seeded_generators(kw["seed"], dev)["net"], dev).params.parameters()]).double()
-    ts1, _, data1, _, _ = one_step(None)
-    ts2, state2, data2, te2, gens2 = one_step(shard)
+    one = one_step(None, graphs=True)
+    ts1, data1 = one["ts"], one["data"]
+    eager_w = one_step(shard, graphs=False)
+    graph_w = one_step(shard, graphs=True)
+
+    # replays against the eager bodies at this world size: bit for bit
+    same = {"transitions": bitwise_equal(eager_w["data"], graph_w["data"]),
+            "env_state": bitwise_equal(eager_w["state"], graph_w["state"]),
+            "learner": all(torch.equal(a, b) for a, b in zip(
+                ppo.learner_tensors(eager_w["ts"]), ppo.learner_tensors(graph_w["ts"]))),
+            "losses": bitwise_equal(eager_w["losses"], graph_w["losses"]),
+            "generators": all(torch.equal(eager_w["gens"][k].get_state(),
+                                          graph_w["gens"][k].get_state())
+                              for k in ("epoch", "env"))}
+    rep["graph_vs_eager"] = {**same, "kinds": [eager_w["kinds"], graph_w["kinds"]],
+                             "sgd_capture": graph_w["sgd"].info,
+                             "rollout_capture": graph_w["roll"].graph.info}
+    checks["graph_vs_eager"] = (all(same.values()) and graph_w["kinds"] ==
+                                ["CapturedRollout", "CapturedSGDStep"])
+    del eager_w
+    ts2, state2, data2, te2, gens2 = (graph_w[k] for k in ("ts", "state", "data", "te", "gens"))
+
+    # this world size (the graphs) against world size 1
     mine = shard.rows(B)
     flat1, flat2 = {}, {}
     tree_leaves(data1, "data", flat1)
@@ -1480,8 +1647,10 @@ def sharded_rank(runner, shard, out: str) -> dict:
            "envs_differing": envs_differ, "params_q99": float(torch.quantile(d, 0.99)),
            "params_max": float(d.max()), "update_cos": cos, "normalizer_mean_max": norm_d,
            "count": [float(ts1.normalizer.count), float(ts2.normalizer.count)],
-           "env_steps": [int(ts1.env_steps), int(ts2.env_steps)], "sgd_steps": kinds}
-    checks["invariance"] = (kinds == ["CapturedSGDStep", "sgd_step"]
+           "env_steps": [int(ts1.env_steps), int(ts2.env_steps)],
+           "steps": [one["kinds"], graph_w["kinds"]]}
+    checks["invariance"] = (one["kinds"] == ["rollout", "CapturedSGDStep"]
+                            and graph_w["kinds"] == ["CapturedRollout", "CapturedSGDStep"]
                             and inv["transitions_max"] <= SHARDED_LIMITS["transitions"]
                             and inv["params_q99"] <= SHARDED_LIMITS["params_q99"]
                             and inv["params_max"] <= SHARDED_LIMITS["params_max"]
@@ -1489,7 +1658,8 @@ def sharded_rank(runner, shard, out: str) -> dict:
                             and norm_d <= SHARDED_LIMITS["normalizer"]
                             and inv["count"][0] == inv["count"][1]
                             and inv["env_steps"][0] == inv["env_steps"][1])
-    del ts1, data1, flat1, data2, flat2
+    rep["invariance"] = inv
+    del one, ts1, data1, flat1, flat2
 
     # (e) a gathered full state of that step, written by rank 0, holds the
     # global rows, and each rank's rows of it are its live state; the
@@ -1519,7 +1689,17 @@ def sharded_rank(runner, shard, out: str) -> dict:
         last_epoch == epochs - 1
         and all(v.shape[0] == B for k, v in trained.items() if k.startswith("env_state/"))
         and all(np.array_equal(trained[k], v) for k, v in flat_params.items()))
-    del ts2, state2, ts_b, es_b, live, back, saved, arrays
+    del ts_b, es_b, live, back, saved, arrays
+
+    # (f) one more training step of the graphs, traced: host calls, replays
+    # and collectives per SGD step, the card's idle share
+    rep["traced"] = traced_step(graph_w, "graph")
+    checks["traced"] = (rep["traced"]["collectives_per_sgd_step"] == n_collectives
+                        and rep["traced"]["graph_replays_per_sgd_step"] == n_collectives + 1
+                        and rep["traced"]["rollout_graph_replays"] == 1
+                        and rep["traced"]["rollout_fused_launches"] == T)
+    del graph_w, ts2, state2, data2, gens2
+    torch.cuda.empty_cache()
 
     # (d) the kernel against its twin on this rank's rows of the trained
     # state (step variant, DR on: train()'s DR rows), on rank 0; and (f)
@@ -1534,15 +1714,10 @@ def sharded_rank(runner, shard, out: str) -> dict:
     n = runner.env.n_substeps
     args = (es.data.qpos.contiguous(), es.data.qvel.contiguous(),
             es.data.qacc_warmstart.contiguous(), es.data.ctrl.contiguous(), n, dr)
-    kernel_ms = None
     for r in range(shard.world):
         if r == shard.rank:
-            kernel_ms = cuda_ms(lambda: fp(*args), reps=20)
+            rep["kernel_ms"] = cuda_ms(lambda: fp(*args), reps=20)
         shard.barrier()
-    rep = {"rank": shard.rank, "world": shard.world, "device": str(dev), "rows": rows,
-           "geometry": fp.geometry(rows, dev), "launches": launches, "want": want,
-           "launch_rows": seen, "t_train": t_train, "breakdown": bd, "params_digest": h.hexdigest(),
-           "invariance": inv, "kernel_ms": kernel_ms}
     if shard.is_main:
         accel = int(fp.model.sensor_adr[fp.model.sensor("accelerometer")])
         out_k = fp(*args)
@@ -2168,11 +2343,15 @@ def kernel_entry(name: str, replaces: str, main: dict, report: dict, case: str) 
     }
 
 
-def sharded_entry(run: dict) -> dict:
+def sharded_entry(run: dict, eager: dict) -> dict:
     """The kernels line's entry of the sharded dispatch (kernel d): the same
     kernel launched by every rank on its rows, from phase 5's gloo run on
-    the one card. launches: both envs' launches summed over the ranks;
-    ms, plain_ms and bound at rank 0's rows (row a's bound at 8192/world)."""
+    the one card, as train() runs it (the graphs). launches: both envs'
+    launches summed over the ranks (launches_eager: the same of the eager
+    run); the fused launches in one replay of each rank's rollout and eval
+    step graph; ms, plain_ms and bound at rank 0's rows (row a's bound at
+    8192/world); ms_in_rollout_graph: one launch's device time inside rank
+    0's traced rollout replay, beside the other rank's work on the card."""
     r0 = run["reps"][0]
     return {
         "name": "fused_physics_step_sharded",
@@ -2181,6 +2360,9 @@ def sharded_entry(run: dict) -> dict:
         "replaces": "open_duck_playground_tpu/ops/pallas_step.py:238 (call_sharded)",
         "launches": sum(sum(rep["launches"].values()) for rep in run["reps"]),
         "launches_per_rank": [rep["launches"] for rep in run["reps"]],
+        "launches_eager": sum(sum(rep["launches"].values()) for rep in eager["reps"]),
+        "launches_per_replay_rollout": r0["launches_per_replay"]["rollout"],
+        "launches_per_replay_eval_step": r0["launches_per_replay"]["eval_step"],
         "rows_per_rank": r0["rows"],
         "world": run["world"],
         "backend": run["backend"],
@@ -2188,6 +2370,7 @@ def sharded_entry(run: dict) -> dict:
         "max_abs_err_of": r0["max_abs_err_of"],
         "ms": r0["kernel_ms"],
         "ms_per_rank": [rep["kernel_ms"] for rep in run["reps"]],
+        "ms_in_rollout_graph": r0["traced"]["fused_ms_per_launch_in_rollout"],
         "plain_ms": r0["plain_ms"],
         "bound_ms": r0["bound_ms"],
         "bound_by": r0["bound_by"],
@@ -2200,7 +2383,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--rank-worker"]:
-        return rank_worker(*sys.argv[2:4])
+        return rank_worker(*sys.argv[2:5])
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2281,7 +2464,7 @@ def main() -> int:
         kernel_entry("fused_physics_step_hfield",
                      "open_duck_playground_tpu/ops/pallas_step.py:225 (has_hf=True)",
                      rough, report, f"{ROUGH_MAIN[0]} B={ROUGH_MAIN[1]} dr=1 step"),
-        sharded_entry(sharded[0]),
+        sharded_entry(sharded[0], sharded[1]),
     ]}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,10 +11,12 @@ Counterpart of the JAX package's ``envs/wrapper.py``, in the same order:
 
 The JAX package jits ``TrainEnv.step``. Its counterpart on the card is
 ``CapturedEnvStep``: the step over fixed buffers (``step_into``, which the
-CPU runs eagerly), replayed as one CUDA graph where it can run (a CUDA
-device at world size 1, on either engine: the fused kernel, or the general
-pipeline's ``forward.step_n`` that XLA compiles into the JAX package's
-jitted step off the TPU; ``eager_reason`` says why not).
+CPU runs eagerly), replayed as one CUDA graph on a CUDA device, at any
+world size (an env-sharded step draws at the global shape and cuts its
+rows inside the graph; no collective runs in a step), on either engine:
+the fused kernel, or the general pipeline's ``forward.step_n`` that XLA
+compiles into the JAX package's jitted step off the TPU
+(``eager_reason`` says why a step runs eagerly).
 """
 
 from __future__ import annotations
@@ -150,12 +152,9 @@ def wrap_for_training(env, num_envs: int, episode_length: int, action_repeat: in
 
 def eager_reason(env) -> Optional[str]:
     """Why the steps of `env` run eagerly, or None where they can be
-    captured as a CUDA graph: on a CUDA device at world size 1, with either
-    physics engine."""
-    shard = getattr(env, "shard", None)
-    if shard is not None and shard.world > 1:
-        return (f"eager at world {shard.world} (the env-sharded trainer runs its steps "
-                "eagerly, as its SGD step)")
+    captured as a CUDA graph: on a CUDA device, at any world size (the
+    steps of an env-sharded run hold no collective), with either physics
+    engine."""
     if env.device.type != "cuda":
         return f"eager on {env.device} (no CUDA graph on the CPU)"
     return None
@@ -166,8 +165,8 @@ def capture_parts(env):
     physics whose launches it counts; raises where the step runs eagerly."""
     why = eager_reason(env)
     if why is not None:
-        raise ValueError(f"a CUDA graph of the env step needs a CUDA device and world size 1: "
-                         f"this env steps {why}")
+        raise ValueError(f"a CUDA graph of the env step needs a CUDA device: this env steps "
+                         f"{why}")
     physics = [env.physics] if getattr(env, "physics_mode", None) == "kernel" else []
     return [env.generator], physics
 

@@ -17,6 +17,11 @@ The semantics are the JAX package's global view:
 - the learner sums over the ranks (normalizer statistics, loss terms,
   gradients), and every rank applies the same update.
 
+A body that sums over the ranks in its middle (the SGD step) is written as
+a generator over fixed buffers (``Collectives``): each ``yield`` is a
+collective point, which ``run_points`` sums eagerly and
+``utils.graphs.GraphedBody`` sums between two replayed graph segments.
+
 With world size 1 every helper returns its input untouched, so a
 one-process run does exactly the arithmetic it did without a shard.
 """
@@ -27,7 +32,7 @@ import datetime
 import hashlib
 import os
 import time
-from typing import Callable, Dict, Iterable, Optional, Sequence
+from typing import Callable, Dict, Generator, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,17 +44,20 @@ class EnvShard:
     holding rows ``rank * n / world`` up to ``(rank + 1) * n / world`` of
     every global env batch of n rows. `device` is the rank's device; the
     collectives of host values (hashes, the resume epoch) run there.
+    `backend` is the process group's ("gloo", "nccl"; None without one).
 
     ``collectives`` counts the collectives this shard has made; with
     ``timed`` set, each one is bracketed by device synchronizations and its
     host time added to ``collective_s``."""
 
-    def __init__(self, rank: int = 0, world: int = 1, device=None):
+    def __init__(self, rank: int = 0, world: int = 1, device=None,
+                 backend: Optional[str] = None):
         if not 0 <= rank < world:
             raise ValueError(f"rank {rank} of a world of {world}")
         self.rank = rank
         self.world = world
         self.device = torch.device(device if device is not None else "cpu")
+        self.backend = backend
         self.collectives = 0
         self.timed = False
         self.collective_s = 0.0
@@ -57,6 +65,13 @@ class EnvShard:
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    @property
+    def stages_on_host(self) -> bool:
+        """Whether the sums of a body's collective points read host memory:
+        gloo over a card copies every tensor through the host, so those
+        buffers are pinned host memory (Collectives)."""
+        return self.world > 1 and self.device.type == "cuda" and self.backend == "gloo"
 
     # -- rows -----------------------------------------------------------------
     def local(self, n: int) -> int:
@@ -94,9 +109,22 @@ class EnvShard:
         """The sum of `x` over the ranks (a new tensor; `x` is left as it is)."""
         if self.world == 1:
             return x
-        out = x.clone()
-        self._run(lambda: dist.all_reduce(out))
-        return out
+        return self.all_reduce_sum_(x.clone())
+
+    def all_reduce_sum_(self, buf: torch.Tensor) -> torch.Tensor:
+        """`buf` summed over the ranks in place, with no copy; returns it. A
+        host buffer of a shard on a card (Collectives, gloo) is read once
+        the card has run what the current stream holds: the copy into it."""
+        if self.world == 1:
+            return buf
+
+        def op():
+            if buf.device.type == "cpu" and self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            dist.all_reduce(buf)
+
+        self._run(op)
+        return buf
 
     def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's `x` concatenated along dim 0, in rank order."""
@@ -134,6 +162,46 @@ class EnvShard:
         if differ:
             raise RuntimeError(f"rank {self.rank}: replicated state differs across the "
                                f"{self.world} ranks in {differ}")
+
+
+class Collectives:
+    """The fixed buffers of a body's collective points, one per name, made
+    at the point's first use and reused by every later run: a body replayed
+    as CUDA graph segments (utils.graphs.GraphedBody) writes, and reads back,
+    the addresses the collective between two segments sums in place. On a
+    card under gloo the buffers are pinned host memory (gloo copies through
+    the host anyway): the copies into and out of them are then device work
+    inside the segments, and a collective costs one host wait and no launch.
+    Elsewhere they are on the tensors' device."""
+
+    def __init__(self, shard: EnvShard):
+        self.shard = shard
+        self.buffers: Dict[str, torch.Tensor] = {}
+
+    def total(self, name: str, x: torch.Tensor) -> Generator[torch.Tensor, None, torch.Tensor]:
+        """Used as ``s = yield from points.total(name, x)``: `x` is copied
+        into point `name`'s buffer, which is yielded to be summed over the
+        ranks in place; returns a copy of the sum on x's device."""
+        buf = self.buffers.get(name)
+        if buf is None:
+            host = self.shard.stages_on_host
+            buf = self.buffers[name] = torch.empty(x.shape, dtype=x.dtype, pin_memory=host,
+                                                   device="cpu" if host else x.device)
+        buf.copy_(x, non_blocking=True)
+        yield buf
+        return buf.to(x.device, non_blocking=True, copy=True)
+
+
+def run_points(body: Generator, shard: Optional[EnvShard]):
+    """Run `body` (a generator written with collective points,
+    Collectives.total) eagerly: each buffer it yields is summed over the
+    ranks in place before it goes on. Returns the body's return value."""
+    try:
+        while True:
+            buf = next(body)  # before `shard` is read: a body without points has none
+            shard.all_reduce_sum_(buf)
+    except StopIteration as stop:
+        return stop.value
 
 
 def _digest(tensors: Iterable[torch.Tensor]) -> bytes:
@@ -214,7 +282,7 @@ def init_distributed(backend: Optional[str] = None, *, device="cuda",
         backend = backend or "gloo"
         if backend != "gloo":
             raise ValueError(f"backend {backend!r} on the CPU: only gloo runs there")
-    shard = EnvShard(rank, world, dev)
+    shard = EnvShard(rank, world, dev, backend if world > 1 else None)
     if world > 1:
         dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
                                 world_size=world,
@@ -238,5 +306,5 @@ def destroy() -> None:
 def current_shard(device) -> EnvShard:
     """The EnvShard of the default process group (rank 0 of 1 without one)."""
     if dist.is_available() and dist.is_initialized():
-        return EnvShard(dist.get_rank(), dist.get_world_size(), device)
+        return EnvShard(dist.get_rank(), dist.get_world_size(), device, dist.get_backend())
     return EnvShard(0, 1, device)

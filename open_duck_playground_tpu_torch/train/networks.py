@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from open_duck_playground_tpu_torch.parallel.dist import EnvShard
+from open_duck_playground_tpu_torch.parallel.dist import Collectives, EnvShard, run_points
 
 _MIN_STD = 0.001
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -152,9 +152,21 @@ def rs_update(state: RunningStatisticsState, batch: Dict[str, torch.Tensor], *,
     shard, `batch` is this rank's equal share of a global batch, and the
     statistics are the global batch's: its count, and two sum all-reduces
     per key (the sum of diff_to_old for the new mean, then the sum of
-    diff_to_old * diff_to_new)."""
-    world = 1 if shard is None else shard.world
-    total = (lambda t: t) if shard is None else shard.all_reduce_sum
+    diff_to_old * diff_to_new). Runs `rs_update_points` eagerly."""
+    points = Collectives(shard) if shard is not None and shard.world > 1 else None
+    return run_points(rs_update_points(state, batch, points, std_min_value=std_min_value,
+                                       std_max_value=std_max_value), shard)
+
+
+def rs_update_points(state: RunningStatisticsState, batch: Dict[str, torch.Tensor],
+                     points: Optional[Collectives] = None, *, std_min_value: float = 1e-6,
+                     std_max_value: float = 1e6):
+    """`rs_update` as a generator with its collective points: with `points`
+    (world > 1) it yields, per obs key, the buffer of the sum of
+    diff_to_old and then that of diff_to_old * diff_to_new, each to be
+    summed over the ranks (dist.run_points, or between two graph segments);
+    returns the new state. Without, it yields nothing."""
+    world = 1 if points is None else points.shard.world
     first = next(iter(batch.values()))
     batch_size = math.prod(first.shape[:-1]) * world
     count = state.count + batch_size
@@ -162,9 +174,15 @@ def rs_update(state: RunningStatisticsState, batch: Dict[str, torch.Tensor], *,
     for k, data in batch.items():
         dims = tuple(range(data.dim() - 1))
         diff_to_old = data - state.mean[k]
-        mean_new = state.mean[k] + total(torch.sum(diff_to_old, dim=dims)) / count
+        summed = torch.sum(diff_to_old, dim=dims)
+        if points is not None:
+            summed = yield from points.total(f"normalizer/mean/{k}", summed)
+        mean_new = state.mean[k] + summed / count
         diff_to_new = data - mean_new
-        svar = state.summed_variance[k] + total(torch.sum(diff_to_old * diff_to_new, dim=dims))
+        summed = torch.sum(diff_to_old * diff_to_new, dim=dims)
+        if points is not None:
+            summed = yield from points.total(f"normalizer/variance/{k}", summed)
+        svar = state.summed_variance[k] + summed
         svar = torch.clamp_min(svar, 0.0)
         means[k], svars[k] = mean_new, svar
         stds[k] = torch.clamp(torch.sqrt(svar / count), std_min_value, std_max_value)

@@ -15,15 +15,16 @@ per-minibatch entropy noise, as tensors. ``train`` makes them from its own
 The learner's products, its Adam and its GAE are plain PyTorch; every env
 step goes through the env's physics (the fused CUDA kernel on the card, or
 the general pipeline with physics="pipeline"). The JAX package jits its
-rollout scan, its eval scan and its SGD step. On the card at world size 1
-each is a CUDA graph here: a training step is the replays of
-``CapturedRollout`` (one of the unroll_length env steps and the policy on
-the kernel; one per env step on the general pipeline, whose control step
-is ~50,000 kernels) and one of ``CapturedSGDStep`` (the normalizer update
-and every minibatch step), and an eval step one replay of
-``CapturedEvalStep``. Each records a body over fixed buffers
-(``rollout_into``, ``sgd_step``, ``eval_step``; utils/graphs.py), which is
-what runs eagerly on the CPU and in env-sharded runs (``make_rollout``,
+rollout scan, its eval scan and its SGD step, one SPMD program at any
+device count. On the card each is a CUDA graph here: a training step is
+the replays of ``CapturedRollout`` (one of the unroll_length env steps and
+the policy on the kernel; one per env step on the general pipeline, whose
+control step is ~50,000 kernels) and of ``CapturedSGDStep`` (the
+normalizer update and every minibatch step: one graph at world size 1, a
+chain of graph segments with the collectives between them at world > 1),
+and an eval step one replay of ``CapturedEvalStep``. Each records a body
+over fixed buffers (``rollout_into``, ``sgd_points``, ``eval_step``;
+utils/graphs.py), which is what runs eagerly on the CPU (``make_rollout``,
 ``make_sgd_step`` and ``make_eval_step`` pick, and train() logs which).
 
 Env-sharded runs (``shard``, ``parallel/dist.py``) keep the JAX package's
@@ -49,7 +50,13 @@ import torch
 from open_duck_playground_tpu_torch import interop
 from open_duck_playground_tpu_torch.envs.types import State
 from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv, capture_parts, eager_reason
-from open_duck_playground_tpu_torch.parallel.dist import EnvShard, current_shard, draw
+from open_duck_playground_tpu_torch.parallel.dist import (
+    Collectives,
+    EnvShard,
+    current_shard,
+    draw,
+    run_points,
+)
 from open_duck_playground_tpu_torch.train import checkpoint as ckpt
 from open_duck_playground_tpu_torch.train import networks as nets
 from open_duck_playground_tpu_torch.train import optim
@@ -141,21 +148,36 @@ def compute_gae(truncation, termination, rewards, values, bootstrap_value,
 
 
 def loss_fn(networks: nets.PPONetworks, normalizer, data: Transition,
-            entropy_noise: torch.Tensor, hp: Hyper, shard: Optional[EnvShard] = None):
+            entropy_noise: torch.Tensor, hp: Hyper):
     """The PPO loss over one minibatch (leaves [T, b, ...]); `entropy_noise`
     [T, b, action_size] is the entropy term's standard-normal draw.
-    Returns (total, {name: detached scalar}).
+    Returns (total, {name: detached scalar}). `loss_points` at world 1."""
+    return run_points(loss_points(networks, normalizer, data, entropy_noise, hp), None)
 
-    With a shard of world > 1, `data` and `entropy_noise` hold this rank's
-    members of a minibatch of hp.batch_size envs spread over the ranks: the
+
+def loss_points(networks: nets.PPONetworks, normalizer, data: Transition,
+                entropy_noise: torch.Tensor, hp: Hyper, mask: Optional[torch.Tensor] = None,
+                points: Optional[Collectives] = None):
+    """`loss_fn` as a generator with its collective points; returns (total,
+    {name: detached scalar}).
+
+    With `points` (an env-sharded run, world > 1), `data` and
+    `entropy_noise` hold all hp.batch_size positions of a minibatch of the
+    global batch, and `mask` [b] says which of them are this rank's envs
+    (the others hold a stand-in row of this rank's data): every sum is
+    taken over the rank's members alone, `torch.where(mask, term, 0)`, so
+    that a stand-in row carries nothing, not even a NaN, into it. The
     advantages are normalized by the whole minibatch's mean and population
-    std (two sum all-reduces, in two passes as jnp.std), every mean is over
-    all T x hp.batch_size samples, and each term returned is this rank's
-    share of it. The ranks' shares sum to the loss (sgd_step sums them with
-    the gradients)."""
-    sharded = shard is not None and shard.world > 1
+    std (two points, in two passes as jnp.std), every mean is over all T x
+    hp.batch_size samples, and each term returned is this rank's share of
+    it. The ranks' shares sum to the loss (sgd_points sums them with the
+    gradients). GAE runs along T per column, stand-ins included."""
+    sharded = points is not None
     n = data.reward.shape[0] * hp.batch_size
-    mean = (lambda x: torch.sum(x) / n) if sharded else torch.mean
+
+    def mean(x):
+        return torch.sum(torch.where(mask, x, 0.0)) / n if sharded else torch.mean(x)
+
     logits = networks.policy_logits(normalizer, data.observation)
     loc, scale = nets.dist_create(logits)
     baseline = networks.value_fn(normalizer, data.observation)
@@ -173,9 +195,13 @@ def loss_fn(networks: nets.PPONetworks, normalizer, data: Transition,
                                  bootstrap_value.detach(), lambda_=hp.gae_lambda,
                                  discount=hp.discounting)
     if hp.normalize_advantage and sharded:
-        adv_mean = shard.all_reduce_sum(torch.sum(advantages)) / n
-        adv_var = shard.all_reduce_sum(torch.sum(torch.square(advantages - adv_mean))) / n
-        advantages = (advantages - adv_mean) / (torch.sqrt(adv_var) + 1e-8)
+        adv_sum = yield from points.total("advantage/sum",
+                                          torch.sum(torch.where(mask, advantages, 0.0)))
+        adv_mean = adv_sum / n
+        deviation = torch.square(advantages - adv_mean)
+        adv_sq = yield from points.total("advantage/deviation",
+                                         torch.sum(torch.where(mask, deviation, 0.0)))
+        advantages = (advantages - adv_mean) / (torch.sqrt(adv_sq / n) + 1e-8)
     elif hp.normalize_advantage:
         # population std, as jnp.std
         advantages = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
@@ -219,6 +245,11 @@ def rollout(train_env: TrainEnv, env_state, normalizer, networks: nets.PPONetwor
     return state, data
 
 
+def _sharded(shard: Optional[EnvShard]) -> Optional[EnvShard]:
+    """`shard` where it splits the envs (world > 1), else None."""
+    return shard if shard is not None and shard.world > 1 else None
+
+
 def _same_tensors(a: list, b: list) -> bool:
     return len(a) == len(b) and all(x is y for x, y in zip(a, b))
 
@@ -239,12 +270,14 @@ def rollout_into(train_env: TrainEnv, buffers: State, normalizer, networks: nets
 
 
 class CapturedRollout:
-    """`rollout` replayed as a CUDA graph, on a CUDA device at world size 1:
-    the JAX package's `lax.scan` of the policy and `train_env.step` (ppo.py
-    rollout). The graph records `span` steps of `nets.sample_actions` and
-    `TrainEnv.step` and their stacked Transition (`rollout_into`), and a
-    call replays it unroll_length / span times. On the fused kernel `span`
-    is the whole unroll (None): one replay per training step. On the
+    """`rollout` replayed as a CUDA graph, on a CUDA device at any world size
+    (an env-sharded env draws at the global shape and cuts its rows inside
+    the graph): the JAX package's `lax.scan` of the policy and
+    `train_env.step` (ppo.py rollout). The graph records `span` steps of
+    `nets.sample_actions` and `TrainEnv.step` and their stacked Transition
+    (`rollout_into`), and a call replays it unroll_length / span times. On
+    the fused kernel `span` is the whole unroll (None): one replay per
+    training step. On the
     general pipeline it is one control step, each replay's Transition
     copied into stacked buffers: a pipeline control step is ~43,000-56,000
     small kernels, and a graph of a 20-step unroll would hold ~1M nodes.
@@ -313,9 +346,18 @@ class CapturedRollout:
         return 0 if self.graph is None else self.graph.replays
 
 
+def _world_note(env) -> str:
+    """What a captured step of an env-sharded `env` holds, for the log."""
+    shard = _sharded(getattr(env, "shard", None))
+    if shard is None:
+        return ""
+    return (f" at world {shard.world} (this rank's rows; the draws made at the global shape "
+            f"and cut inside the graph, no collective in it)")
+
+
 def make_rollout(train_env: TrainEnv, training_state: TrainingState, hp: Hyper, log=None):
     """The rollout train() runs, and the log line that says which: a
-    CapturedRollout on a CUDA device at world size 1, else `rollout`
+    CapturedRollout on a CUDA device, at any world size, else `rollout`
     (wrapper.eager_reason)."""
     why = eager_reason(train_env.env)
     fn = (rollout if why is not None else
@@ -327,6 +369,7 @@ def make_rollout(train_env: TrainEnv, training_state: TrainingState, hp: Hyper, 
                    f"~50,000 kernels per control step, a graph per control step at most)")
         else:
             how = f"one CUDA graph replay per training step ({hp.unroll_length} env steps)"
+        how += _world_note(train_env.env)
         log(f"[ppo] rollout: {why or how + ', captured at its first call'}")
     return fn
 
@@ -342,45 +385,82 @@ def sgd_step(training_state: TrainingState, data: Transition, perms: torch.Tenso
     updated in place (the same tensors before and after); returns
     (training_state, {name: [epochs, nmb] losses}).
 
-    This is the one body of the SGD step: run eagerly on the CPU and in an
-    env-sharded run, captured as a CUDA graph on the card at world size 1
-    (`CapturedSGDStep`). It reads nothing back to the host.
+    This runs the one body of the SGD step, `sgd_points`, eagerly, each of
+    its collectives (world > 1) between the segments it separates: what the
+    CPU runs. On the card `CapturedSGDStep` replays the same body, as one
+    CUDA graph at world size 1 and as a chain of graph segments at world
+    > 1. It reads nothing back to the host.
 
     With a shard of world > 1, `data` holds this rank's envs and the draws
     are the global ones: the normalizer takes the global batch's
-    statistics, each rank takes its members of every global minibatch
-    (`_members`), and the gradients and loss terms are summed over the
-    ranks in one all-reduce per minibatch, before the clip and Adam, so
-    that every rank makes the same update."""
-    sharded = shard is not None and shard.world > 1
+    statistics, each rank takes every position of every global minibatch,
+    its own envs' rows at its members' positions and a masked stand-in
+    elsewhere, and the gradients and loss terms are summed over the ranks
+    in one all-reduce per minibatch, before the clip and Adam, so that
+    every rank makes the same update."""
+    points = None if _sharded(shard) is None else Collectives(shard)
+    return training_state, run_points(
+        sgd_points(training_state, data, perms, entropy_noise, hp, points), shard)
+
+
+def sgd_points(training_state: TrainingState, data: Transition, perms: torch.Tensor,
+               entropy_noise: torch.Tensor, hp: Hyper, points: Optional[Collectives] = None):
+    """The SGD step's body (`sgd_step`) as a generator: with `points` (world
+    > 1) it yields at each of its `sgd_collectives` collective points a
+    fixed buffer to be summed over the ranks; returns the [epochs, nmb]
+    losses. Without, it yields nothing.
+
+    Each rank's minibatch has the world-1 shape, fixed: for minibatch j of
+    epoch e the global members p = perms[e, j*b:(j+1)*b]; this rank's are
+    mine = lo <= p < lo + n_local, gathered as rows `where(mine, p - lo,
+    0)` of its envs, and `mine` masks every sum of the loss (loss_points).
+    The segments between the points run the autograd forward of a
+    minibatch in one segment and its backward two points later: the saved
+    activations stay in the graphs' shared pool, as torch's
+    make_graphed_callables keeps them between its forward and backward
+    graphs, so the arithmetic is the unsegmented body's."""
     normalizer = training_state.normalizer
     if hp.normalize_observations:
-        copy_into(normalizer, nets.rs_update(normalizer, data.observation, shard=shard))
+        updated = yield from nets.rs_update_points(normalizer, data.observation, points)
+        copy_into(normalizer, updated)
     networks = training_state.params
     params = list(networks.parameters())
     opt_state = training_state.opt_state
-    b = hp.batch_size
-    members = _members(perms, shard, hp) if sharded else None
+    E, nmb, b = hp.num_updates_per_batch, hp.num_minibatches, hp.batch_size
+    if points is not None:
+        n_local = points.shard.local(hp.num_envs)
+        lo = points.shard.rank * n_local
+        members = perms.reshape(E, nmb, b)
+        mine = (members >= lo) & (members < lo + n_local)
+        rows = torch.where(mine, members - lo, 0)
     aux = []
-    for e in range(hp.num_updates_per_batch):
-        for j in range(hp.num_minibatches):
-            if sharded:
-                idx, pos = members[e][j]
-                ent = entropy_noise[e, j].index_select(1, pos)
+    for e in range(E):
+        for j in range(nmb):
+            if points is None:
+                idx, mask = perms[e, j * b:(j + 1) * b], None
             else:
-                idx, ent = perms[e, j * b:(j + 1) * b], entropy_noise[e, j]
+                idx, mask = rows[e, j], mine[e, j]
             mb = tree_map(lambda x: x.index_select(1, idx), data)
-            total, mb_aux = loss_fn(networks, normalizer, mb, ent, hp, shard)
+            total, mb_aux = yield from loss_points(networks, normalizer, mb, entropy_noise[e, j],
+                                                   hp, mask, points)
             grads = torch.autograd.grad(total, params)
-            if sharded:
-                grads, mb_aux = _sum_over_ranks(grads, mb_aux, shard)
+            if points is not None:
+                grads, mb_aux = yield from _sum_over_ranks(grads, mb_aux, points)
             if hp.max_grad_norm is not None:
                 grads = optim.clip_by_global_norm(grads, hp.max_grad_norm)
             optim.adam(params, grads, opt_state, hp.learning_rate)
             aux.append(mb_aux)
-    stacked = {k: torch.stack([a[k] for a in aux]).reshape(
-        hp.num_updates_per_batch, hp.num_minibatches) for k in aux[0]}
-    return training_state, stacked
+    return {k: torch.stack([a[k] for a in aux]).reshape(E, nmb) for k in aux[0]}
+
+
+def sgd_collectives(hp: Hyper, obs_keys: int) -> int:
+    """The collectives of one env-sharded SGD step: 2 per obs key for the
+    normalizer, and per minibatch step 2 for the advantages' mean and
+    variance and 1 for the gradients and loss terms (388 at the recipe's
+    4 x 32 minibatches and 2 obs keys)."""
+    per_minibatch = 1 + (2 if hp.normalize_advantage else 0)
+    return ((2 * obs_keys if hp.normalize_observations else 0)
+            + hp.num_updates_per_batch * hp.num_minibatches * per_minibatch)
 
 
 def learner_tensors(training_state: TrainingState) -> list:
@@ -405,70 +485,92 @@ def restore_learner(training_state: TrainingState, saved: list) -> None:
 
 
 class CapturedSGDStep:
-    """`sgd_step` captured as one CUDA graph and replayed once per training
-    step, on a CUDA device at world size 1: the JAX package's jitted SGD
-    step (normalizer + epochs x minibatches in one program), here ~88,000
-    kernel launches recorded once and replayed by one host call.
+    """`sgd_step` replayed as CUDA graphs once per training step, on a CUDA
+    device: the JAX package's jitted SGD step (normalizer + epochs x
+    minibatches in one program, its collectives placed inside by XLA).
 
-    Called as `sgd_step` is. The graph reads and writes fixed addresses:
-    the params, Adam state and normalizer of the `training_state` it was
-    made for (every call must hand that state's own tensors; a restore
-    copies into them), and static copies of the rollout's Transition, the
-    permutations and the entropy noise, into which each call copies its
-    inputs (one copy per tensor, then one replay; the loss terms come back
-    as copies of the graph's outputs).
+    At world size 1 the body (`sgd_points`) is one graph, here ~88,000
+    kernel launches recorded once and replayed by one host call. With a
+    `shard` of world > 1 it is a fixed chain of `sgd_collectives` + 1 graph
+    segments, one per stretch between two collective points (3 per
+    minibatch step at the recipe), all in one memory pool: a call replays
+    them in order and sums each point's fixed buffer over the ranks in
+    place between two of them (EnvShard.all_reduce_sum_, eagerly: gloo
+    cannot be captured, and NCCL's capture needs a card per rank to check).
 
-    The first call captures: a warm-up runs the body eagerly on a side
-    stream (cuBLAS handles, autograd state), the learner's tensors are
-    restored from a snapshot taken before it, the body is captured on that
-    stream (capture executes nothing) and instantiated, and the replay
-    then applies the step, once. A capture or replay that fails raises;
-    nothing falls back to the eager body.
+    Called as `sgd_step` is, with the shard it was made for. The graphs
+    read and write fixed addresses: the params, Adam state and normalizer
+    of the `training_state` it was made for (every call must hand that
+    state's own tensors; a restore copies into them), the collective
+    points' buffers (dist.Collectives), and static copies of the rollout's
+    Transition, the permutations and the entropy noise, into which each
+    call copies its inputs (one copy per tensor, then the replays; the loss
+    terms come back as copies of the graphs' outputs).
 
-    The env-sharded step stays eager: `_members` gives each rank
-    minibatches whose size varies per draw, which a static graph cannot
-    hold, and gloo collectives stage through the host."""
+    The first call captures (utils.graphs.GraphedBody): a warm-up runs the
+    body eagerly on a side stream, its collectives included (cuBLAS
+    handles, autograd state, the points' buffers), the learner's tensors
+    are restored from a snapshot taken before it, each segment is captured
+    on that stream (capture executes nothing) and instantiated, and the
+    replays then apply the step, once. A capture or replay that fails
+    raises; nothing falls back to the eager body."""
 
-    def __init__(self, training_state: TrainingState, hp: Hyper, log=None):
+    def __init__(self, training_state: TrainingState, hp: Hyper, log=None,
+                 shard: Optional[EnvShard] = None):
         dev = training_state.env_steps.device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not {dev}: the CPU runs "
                              "sgd_step eagerly")
         self.hp, self.device, self.log = hp, dev, log
+        self.shard = _sharded(shard)
+        self.points = None if self.shard is None else Collectives(self.shard)
         self._learner = learner_tensors(training_state)
         self._graphed: Optional[GraphedBody] = None
         self.replays = 0
 
     @property
     def graph(self):
-        """The CUDA graph (None before the first call)."""
+        """The CUDA graph, the first segment's at world > 1 (None before the
+        first call)."""
         return None if self._graphed is None else self._graphed.graph
 
     @property
     def info(self) -> Dict[str, Any]:
         return {} if self._graphed is None else self._graphed.info
 
+    @property
+    def segment_capture_s(self) -> list:
+        """Each segment's capture seconds (one at world size 1)."""
+        return [] if self._graphed is None else self._graphed.segment_capture_s
+
     def __call__(self, training_state: TrainingState, data: Transition, perms: torch.Tensor,
                  entropy_noise: torch.Tensor, hp: Hyper, shard: Optional[EnvShard] = None):
         if hp != self.hp:
             raise ValueError("the captured SGD step was made for other hyperparameters")
-        if shard is not None and shard.world > 1:
-            raise ValueError("the env-sharded SGD step runs eagerly (sgd_step)")
+        if _sharded(shard) is not self.shard:
+            raise ValueError("the captured SGD step sums over the shard it was made for")
         if not _same_tensors(learner_tensors(training_state), self._learner):
             raise ValueError("the captured SGD step updates the tensors of the state it was "
                              "made for: restore into them (restore_full_state), do not rebind")
         inputs = {"data": data, "perms": perms, "entropy_noise": entropy_noise}
         if self._graphed is None:
-            static_inputs, out, hp = clone_tree(inputs), {}, self.hp
+            static_inputs, out, hp, points = clone_tree(inputs), {}, self.hp, self.points
             self.inputs, self._out = static_inputs, out
 
             def body():  # references no `self` (see GraphedBody)
-                out["losses"] = sgd_step(training_state, **static_inputs, hp=hp)[1]
+                out["losses"] = yield from sgd_points(training_state, **static_inputs, hp=hp,
+                                                      points=points)
 
             static = tree_leaves(static_inputs).values()
-            self._graphed = GraphedBody(
-                body, self._learner, device=self.device, name="[ppo] SGD step", log=self.log,
-                extra={"static_input_bytes": sum(t.numel() * t.element_size() for t in static)})
+            extra = {"static_input_bytes": sum(t.numel() * t.element_size() for t in static)}
+            between = None
+            if self.shard is not None:
+                between = self.shard.all_reduce_sum_
+                extra["collectives_per_replay"] = sgd_collectives(
+                    hp, len(training_state.normalizer.mean))
+            self._graphed = GraphedBody(body, self._learner, device=self.device,
+                                        name="[ppo] SGD step", log=self.log, extra=extra,
+                                        between=between)
         else:
             copy_into(self.inputs, inputs)
         self._graphed.replay()
@@ -478,48 +580,38 @@ class CapturedSGDStep:
 
 def make_sgd_step(training_state: TrainingState, hp: Hyper, shard: Optional[EnvShard] = None,
                   log=None):
-    """The SGD step train() runs, and the log line that says which: the
-    captured graph on a CUDA device at world size 1, else the eager body
-    (the CPU has no CUDA graph; the env-sharded step is not static)."""
+    """The SGD step train() runs, and the log line that says which: on a
+    CUDA device a CapturedSGDStep (one graph at world size 1, a chain of
+    graph segments around the collectives at world > 1), else the eager
+    body (the CPU has no CUDA graph)."""
     dev = training_state.env_steps.device
-    if shard is not None and shard.world > 1:
-        how = (f"eager at world {shard.world} (each rank's minibatches vary in size per draw, "
-               "which a static graph cannot hold)")
-        fn = sgd_step
-    elif dev.type == "cuda":
-        how = f"one CUDA graph replay per training step on {dev}, captured at its first call"
-        fn = CapturedSGDStep(training_state, hp, log)
+    sharded = _sharded(shard)
+    if sharded is not None:
+        n = sgd_collectives(hp, len(training_state.normalizer.mean))
+        world = (f"at world {sharded.world} ({sharded.backend or 'no process group'}; "
+                 f"{n} sums over the ranks between {n + 1} segments, on fixed buffers"
+                 f"{' in pinned host memory' if sharded.stages_on_host else ''})")
+    if dev.type == "cuda":
+        fn = CapturedSGDStep(training_state, hp, log, shard)
+        how = (f"one CUDA graph replay per training step on {dev}" if sharded is None else
+               f"a chain of CUDA graph segments per training step on {dev} {world}")
+        how += ", captured at its first call"
     else:
-        how = f"eager on {dev} (no CUDA graph on the CPU)"
         fn = sgd_step
+        how = (f"eager on {dev} (no CUDA graph on the CPU)" if sharded is None else
+               f"eager {world} on {dev} (no CUDA graph on the CPU)")
     if log is not None:
         log(f"[ppo] SGD step: {how}")
     return fn
 
 
-def _members(perms: torch.Tensor, shard: EnvShard, hp: Hyper):
-    """This rank's members of every minibatch: [e][j] = (their env indices
-    among this rank's rows, their positions in minibatch j of epoch e), in
-    minibatch order; from one copy of the permutations to the host and one
-    copy of the result back."""
-    n_local = shard.local(hp.num_envs)
-    lo = shard.rank * n_local
-    E, nmb, b = hp.num_updates_per_batch, hp.num_minibatches, hp.batch_size
-    p = perms.cpu().numpy().reshape(E, nmb, b)
-    mine = (p >= lo) & (p < lo + n_local)
-    both = torch.from_numpy(np.stack([p[mine] - lo, np.nonzero(mine)[2]]).astype(np.int64))
-    parts = both.to(perms.device).split(mine.sum(-1).ravel().tolist(), dim=1)
-    return [[(parts[e * nmb + j][0], parts[e * nmb + j][1]) for j in range(nmb)]
-            for e in range(E)]
-
-
-def _sum_over_ranks(grads, aux: Dict[str, torch.Tensor], shard: EnvShard):
-    """The gradients and the loss terms summed over the ranks, in one
-    all-reduce of one flat buffer; total_loss is the sum of the summed
-    terms."""
+def _sum_over_ranks(grads, aux: Dict[str, torch.Tensor], points: Collectives):
+    """The gradients and the loss terms summed over the ranks, at one
+    collective point of one flat buffer; total_loss is the sum of the
+    summed terms."""
     terms = ("policy_loss", "v_loss", "entropy_loss")
-    flat = shard.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]
-                                          + [torch.stack([aux[k] for k in terms])]))
+    flat = yield from points.total("gradients", torch.cat(
+        [g.reshape(-1) for g in grads] + [torch.stack([aux[k] for k in terms])]))
     out, at = [], 0
     for g in grads:
         out.append(flat[at:at + g.numel()].view_as(g))
@@ -604,10 +696,13 @@ def eval_step(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
 
 
 class CapturedEvalStep:
-    """`eval_step` replayed as one CUDA graph, on a CUDA device at world size
-    1 (either physics engine): the step of the JAX package's jitted eval scan
-    (ppo.py run_eval). Called as `eval_step` is; `run_eval` replays it
-    episode_length // action_repeat times after its eager reset.
+    """`eval_step` replayed as one CUDA graph, on a CUDA device (either
+    physics engine, any world size): the step of the JAX package's jitted
+    eval scan (ppo.py run_eval). Called as `eval_step` is, with the eval
+    env's shard (an env-sharded step draws its policy noise at the global
+    shape and cuts its rows inside the graph; run_eval gathers the sums
+    after the last step); `run_eval` replays it episode_length //
+    action_repeat times after its eager reset.
 
     The graph reads the params and the normalizer it was made for and the
     carry's buffers (made at the first call as distinct copies of the carry
@@ -621,6 +716,7 @@ class CapturedEvalStep:
         gens, self.physics = capture_parts(eval_env.env)
         self.generators = gens if deterministic else [generator, *gens]
         self.eval_env, self.generator, self.deterministic = eval_env, generator, deterministic
+        self.shard = _sharded(getattr(eval_env.env, "shard", None))
         self.normalizer, self.networks = normalizer, networks
         self._policy = _policy_tensors(self.normalizer, self.networks)
         self.log = log
@@ -634,18 +730,18 @@ class CapturedEvalStep:
                 or deterministic != self.deterministic):
             raise ValueError("the captured eval step runs the eval env, generator and policy "
                              "it was made for")
-        if shard is not None and shard.world > 1:
-            raise ValueError("the env-sharded eval runs eagerly (eval_step)")
+        if _sharded(shard) is not self.shard:
+            raise ValueError("the captured eval step draws for the eval env's own shard")
         if not _same_tensors(_policy_tensors(normalizer, networks), self._policy):
             raise ValueError("the captured eval step reads the params and normalizer it was "
                              "made for: restore into them, do not rebind")
         if self.graph is None:
             buffers = self.carry = clone_tree(carry)
-            ev, norm, nw, g, det = (self.eval_env, self.normalizer, self.networks, self.generator,
-                                    self.deterministic)
+            ev, norm, nw, g, det, sh = (self.eval_env, self.normalizer, self.networks,
+                                        self.generator, self.deterministic, self.shard)
 
             def body():  # references no `self` (see GraphedBody)
-                copy_into(buffers, eval_step(ev, norm, nw, g, buffers, det))
+                copy_into(buffers, eval_step(ev, norm, nw, g, buffers, det, sh))
 
             self.graph = GraphedBody(body, tree_leaves(buffers).values(), self.generators,
                                      self.physics, carry.sums.device, "[ppo] eval step", self.log)
@@ -662,14 +758,15 @@ class CapturedEvalStep:
 def make_eval_step(eval_env: TrainEnv, training_state: TrainingState, generator: torch.Generator,
                    deterministic: bool, log=None):
     """The eval step train() runs, and the log line that says which: a
-    CapturedEvalStep on a CUDA device at world size 1, else `eval_step`
+    CapturedEvalStep on a CUDA device, at any world size, else `eval_step`
     (wrapper.eager_reason)."""
     why = eager_reason(eval_env.env)
     fn = (eval_step if why is not None else
           CapturedEvalStep(eval_env, training_state.normalizer, training_state.params, generator,
                            deterministic, log))
     if log is not None:
-        how = "one CUDA graph replay per eval step, captured at its first call"
+        how = (f"one CUDA graph replay per eval step{_world_note(eval_env.env)}, captured at its "
+               "first call")
         log(f"[ppo] eval step: {why or how}")
     return fn
 
@@ -891,11 +988,12 @@ def train(
     (a directory every rank reads alike), every rank finds it itself and
     no collective runs.
 
-    On a CUDA device at world size 1, the rollout, the eval step and the
-    SGD step are each a CUDA graph, captured at their first call
-    (make_rollout, make_eval_step, make_sgd_step; each logs which path
-    runs); on the general pipeline no graph spans more than one control
-    step (CapturedRollout.span).
+    On a CUDA device, the rollout, the eval step and the SGD step are each
+    replayed as CUDA graphs, captured at their first call (make_rollout,
+    make_eval_step, make_sgd_step; each logs which path runs): at world > 1
+    the SGD step is a chain of graph segments, its collectives run between
+    them; on the general pipeline no graph spans more than one control step
+    (CapturedRollout.span).
     """
     if num_envs != batch_size * num_minibatches:
         raise ValueError("brax-PPO layout requires num_envs == batch_size * num_minibatches")

@@ -6,7 +6,9 @@ here are CUDA graphs. A graph replays fixed addresses, so each program is
 written as a *body*: a function of no arguments that reads fixed tensors
 and writes its results into fixed tensors (its buffers), in place. The
 body is what the CPU runs eagerly; on the card it is recorded once and
-replayed (`GraphedBody`).
+replayed (`GraphedBody`). A body that must stop for a collective (the
+env-sharded SGD step) is a generator: each `yield` ends one graph segment,
+and the collective runs between two replays (`between`).
 
 Tree helpers for the nested dicts and dataclasses of tensors the bodies
 work on: `tree_map`, `tree_leaves`, and `copy_into`, which copies one tree
@@ -17,7 +19,9 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import inspect
 import json
+import statistics
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
@@ -87,28 +91,38 @@ def clone_tree(x):
     return tree_map(torch.clone, x)
 
 
-class GraphedBody:
-    """`body` recorded once as a CUDA graph and replayed.
+_END = object()  # what a body's run yields after its last segment
 
+
+class GraphedBody:
+    """`body` recorded once as CUDA graphs and replayed.
+
+    `body` is a function of no arguments, or a generator function whose
+    every `yield x` is a point between two segments of it (the env-sharded
+    SGD step yields a fixed buffer at each collective): each segment is
+    then a CUDA graph of its own, all of one memory pool, replayed in the
+    order captured, with `between(x)` run eagerly at each point (the
+    collective, in place on that buffer). A plain function is one segment.
     `buffers`: the tensors the body overwrites that outlive it (its state);
     `generators`: every torch.Generator the body draws from; `physics`: the
     FusedPhysics objects whose kernel the body launches. `log`, if given,
     gets one line "<name> captured: {info}" (seconds of the warm-up, the
     capture and the instantiation, the graph pool's bytes, the fused
-    launches per replay, and `extra`).
+    launches per replay, the segments, and `extra`).
 
     `capture()` (or the first `replay()`): the body runs once eagerly on a
     side stream, as a warm-up (cuBLAS workspaces of that stream, the fused
-    kernel's tables, attributes and module), from snapshots of the buffers
-    and of the generators' states, which are restored after it; then the
-    body is captured on that stream with every generator registered with
-    the graph, and instantiated. Capture runs nothing. A replay then reads
-    each generator's state as it stands (a `set_state` is obeyed) and
-    advances it as the eager body would. The warm-up's kernel launches are
-    real and stay counted; the capture's are taken off each physics
-    object's `launches`, and each replay adds back the number of fused
-    launches its capture recorded. A capture or replay that fails raises:
-    nothing falls back to the eager body.
+    kernel's tables, attributes and module, a segmented body's buffers,
+    `between` at every point), from snapshots of the buffers and of the
+    generators' states, which are restored after it; then each segment is
+    captured on that stream with every generator registered with its
+    graph, and instantiated. Capture runs nothing, `between` included. A
+    replay then reads each generator's state as it stands (a `set_state`
+    is obeyed) and advances it as the eager body would. The warm-up's
+    kernel launches are real and stay counted; the capture's are taken off
+    each physics object's `launches`, and each replay adds back the number
+    of fused launches its capture recorded. A capture or replay that fails
+    raises: nothing falls back to the eager body.
 
     Python's cyclic collector is run before the capture and kept off during
     it: a CUDA graph it frees while this one captures would invalidate the
@@ -120,19 +134,34 @@ class GraphedBody:
     def __init__(self, body: Callable[[], Any], buffers: Iterable[torch.Tensor],
                  generators: Iterable[torch.Generator] = (), physics: Iterable[Any] = (),
                  device=None, name: str = "body", log=None,
-                 extra: Optional[Dict[str, Any]] = None):
+                 extra: Optional[Dict[str, Any]] = None,
+                 between: Optional[Callable[[Any], Any]] = None):
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not {self.device}")
-        self.body, self.name, self.log = body, name, log
+        self.body, self.name, self.log, self.between = body, name, log, between
         self.buffers: List[torch.Tensor] = list(buffers)
         self.generators = list(generators)
         self.physics = list(physics)
-        self.graph = None
+        self.graphs: List[Any] = []
+        self.points: List[Any] = []  # what each segment yields (_END after the last)
+        self.segment_capture_s: List[float] = []
         self.replays = 0
         self.launches_per_replay: List[int] = []
         self.info: Dict[str, Any] = {}
         self._extra = dict(extra or {})
+
+    @property
+    def graph(self):
+        """The first segment's graph (a plain body's only one); None before
+        the capture."""
+        return self.graphs[0] if self.graphs else None
+
+    def _run(self):
+        """The body, yielding at its points (nothing for a plain function)."""
+        out = self.body()
+        if inspect.isgenerator(out):
+            yield from out
 
     def capture(self) -> None:
         dev = self.device
@@ -143,7 +172,8 @@ class GraphedBody:
         stream.wait_stream(torch.cuda.current_stream(dev))
         t0 = time.perf_counter()
         with torch.cuda.stream(stream):
-            self.body()
+            for point in self._run():
+                self.between(point)
         torch.cuda.current_stream(dev).wait_stream(stream)
         with torch.no_grad():
             for t, s in zip(self.buffers, saved):
@@ -155,40 +185,53 @@ class GraphedBody:
         del saved
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        for g in self.generators:
-            graph.register_generator_state(g)
+        pool = torch.cuda.graph_pool_handle()
         counts = [p.launches for p in self.physics]
+        graphs, points, seconds = [], [], []
+        run = self._run()
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
-        t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, stream=stream):
-                self.body()
+            while not points or points[-1] is not _END:
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                for g in self.generators:
+                    graph.register_generator_state(g)
+                t0 = time.perf_counter()
+                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                    points.append(next(run, _END))
+                seconds.append(time.perf_counter() - t0)
+                graphs.append(graph)
         finally:
             if collecting:
                 gc.enable()
-        capture_s = time.perf_counter() - t0
         self.launches_per_replay = [p.launches - n for p, n in zip(self.physics, counts)]
         for p, n in zip(self.physics, counts):
             p.launches = n  # the capture launched nothing
         t0 = time.perf_counter()
-        graph.instantiate()
+        for graph in graphs:
+            graph.instantiate()
         torch.cuda.synchronize(dev)
-        self.graph = graph
-        self.info = {"warmup_s": round(warmup_s, 4), "capture_s": round(capture_s, 4),
+        self.graphs, self.points, self.segment_capture_s = graphs, points, seconds
+        self.info = {"warmup_s": round(warmup_s, 4), "capture_s": round(sum(seconds), 4),
                      "instantiate_s": round(time.perf_counter() - t0, 4),
                      "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
                      "fused_launches_per_replay": sum(self.launches_per_replay),
                      **self._extra}
+        if len(graphs) > 1:
+            self.info.update(segments=len(graphs),
+                             segment_capture_s_median=round(statistics.median(seconds), 6),
+                             segment_capture_s_max=round(max(seconds), 6))
         if self.log is not None:
             self.log(f"{self.name} captured: {json.dumps(self.info)}")
 
     def replay(self) -> None:
-        if self.graph is None:
+        if not self.graphs:
             self.capture()
-        self.graph.replay()
+        for graph, point in zip(self.graphs, self.points):
+            graph.replay()
+            if point is not _END:
+                self.between(point)
         self.replays += 1
         for p, n in zip(self.physics, self.launches_per_replay):
             p.launches += n

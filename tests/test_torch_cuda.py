@@ -630,3 +630,27 @@ def test_gait_playback_on_the_card_matches_the_cpu(card, root):
     feet = [ref_motion_viewer.playback(periods=1, out=None, device=d) for d in (card, "cpu")]
     assert feet[0].shape == feet[1].shape
     assert abs(feet[0] - feet[1]).max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_sharded_step_replays_match_eager_at_world_2(card, root, tmp_path):
+    """Two gloo ranks sharing the card, 64 flat backlash DR envs (32 per
+    rank), unroll 4, 4 minibatches of 16, 2 epochs: two training steps
+    through the captured rollout and the SGD segment chain equal the eager
+    bodies' from the same init and global draws, bit for bit on each rank
+    (Transitions, env state, params, Adam state, normalizer, loss terms,
+    generators); one rollout replay per step with 4 fused launches, and
+    each SGD step 2 * 2 + 3 * 8 = 28 collectives between 29 segments (56
+    in the first captured step: its warm-up runs the body eagerly)."""
+    from torch_dist_worker import run_ranks  # tests/ is on sys.path, as for duck_standin
+
+    ranks = run_ranks("sharded_graph_vs_eager", tmp_path, "flat_terrain_backlash", 64, 3,
+                      timeout_s=600, device="cuda")
+    for r in ranks:
+        assert r["kinds"] == ["CapturedRollout", "CapturedSGDStep"]
+        assert r["equal"] == [{p: True for p in ("data", "state", "learner", "losses",
+                                                 "generators")}] * 2, r["equal"]
+        assert r["want_collectives"] == 28
+        # the graphs' first call adds its capture's eager warm-up, collectives included
+        assert r["collectives"] == [[28, 28], [56, 28]]
+        assert r["segments"] == 29 and r["replays"] == [2, 2] and r["fused_per_replay"] == 4

@@ -2,7 +2,9 @@
 them on gloo ranks of one machine.
 
 This module is not collected by pytest and imports neither JAX nor the JAX
-package, so `spawn` can import it in each rank. Every rank joins a gloo
+package, so `spawn` can import it in each rank; nor, at its top, any other
+module of tests/ (the card test imports it as a top-level module: an
+installed `tests` package may shadow ours there). Every rank joins a gloo
 group through a FileStore under the test's tmp_path (no port is opened),
 runs one function of this module with its EnvShard, and leaves its result
 (or its traceback) in a file there; `run_ranks` joins them with a time
@@ -29,18 +31,18 @@ from open_duck_playground_tpu_torch.parallel import dist as pdist
 from open_duck_playground_tpu_torch.train import checkpoint as ckpt
 from open_duck_playground_tpu_torch.train import optim, ppo
 from open_duck_playground_tpu_torch.utils.graphs import tree_map
-from tests.torch_helpers import TorchToyEnv
 
 
-def run_ranks(fn: str, tmp_path, *args, world: int = 2, timeout_s: float = 120.0) -> List[Any]:
+def run_ranks(fn: str, tmp_path, *args, world: int = 2, timeout_s: float = 120.0,
+              device: str = "cpu") -> List[Any]:
     """Run `fn` (a name in this module) as `fn(shard, *args)` on `world`
-    gloo ranks; returns each rank's result, in rank order. Raises with the
-    ranks' tracebacks if one fails, and kills them if they outlast
-    `timeout_s`."""
+    gloo ranks, each on `device` ("cuda": the ranks share the card);
+    returns each rank's result, in rank order. Raises with the ranks'
+    tracebacks if one fails, and kills them if they outlast `timeout_s`."""
     out = os.path.join(str(tmp_path), f"ranks_{fn}")
     os.makedirs(out)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, world, out, args), daemon=True)
+    procs = [ctx.Process(target=_rank_main, args=(fn, r, world, out, args, device), daemon=True)
              for r in range(world)]
     for p in procs:
         p.start()
@@ -65,10 +67,10 @@ def run_ranks(fn: str, tmp_path, *args, world: int = 2, timeout_s: float = 120.0
     return results
 
 
-def _rank_main(fn: str, rank: int, world: int, out: str, args) -> None:
+def _rank_main(fn: str, rank: int, world: int, out: str, args, device: str = "cpu") -> None:
     torch.set_num_threads(1)
     try:
-        shard = pdist.init_distributed("gloo", device="cpu", rank=rank, world_size=world,
+        shard = pdist.init_distributed("gloo", device=device, rank=rank, world_size=world,
                                        init_method=f"file://{os.path.join(out, 'store')}",
                                        timeout_s=60)
         try:
@@ -182,6 +184,8 @@ def toy_step_given(shard, params, normalizer, start, draws, hp_kw) -> Dict[str, 
     """ppo.rollout and ppo.training_step on this shard's rows of the
     ToyEnv state `start` (numpy, JAX layout), from the given (normalizer,
     params) and global draws."""
+    from tests.torch_helpers import TorchToyEnv
+
     hp = ppo.Hyper(**hp_kw)
     tp = interop.ppo_params_from_numpy(params)
     ts = ppo.TrainingState(params=tp, normalizer=interop.normalizer_from_numpy(normalizer),
@@ -209,6 +213,8 @@ def toy_step_own(shard, hp_kw, seed: int) -> Dict[str, Any]:
     """train()'s init from `seed`, a reset of the noisy ToyEnv, and one
     training step with draw_training_step's draws, on this shard's rows
     (shard None: the one-process run)."""
+    from tests.torch_helpers import TorchToyEnv
+
     hp = ppo.Hyper(**hp_kw)
     gens = ppo.seeded_generators(seed, "cpu")
     env = TorchToyEnv(noise=0.01)
@@ -242,6 +248,8 @@ def toy_train(shard, directory=None, stop_after=None, auto_resume=False, num_eva
     ToyEnv) through ppo.train with this shard. Records what progress_fn
     saw and how many broadcasts the shard made; with `policy_dir`,
     policy_params_fn writes a checkpoint there named by rank."""
+    from tests.torch_helpers import TorchToyEnv
+
     evals, calls, broadcasts = [], [], []
     broadcast = shard.broadcast
 
@@ -288,3 +296,316 @@ def toy_kill_and_resume(shard, directory: str) -> Dict[str, Any]:
     out["c"] = toy_train(shard, directory, auto_resume=True)
     out["d"] = toy_train(shard, directory + "_shared", auto_resume=True, resume_shared_fs=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# 7. the env-sharded SGD step as a chain of segments (test_torch_sharded_graph.py)
+# ---------------------------------------------------------------------------
+
+
+SEG_OBS = {"state": 6, "privileged_state": 10}
+SEG_ACT = 3
+SEG_NF = {"policy_hidden_layer_sizes": (16, 16), "value_hidden_layer_sizes": (16, 16)}
+
+
+def seg_hyper(num_envs=32, unroll_length=4, num_minibatches=4, batch_size=8,
+              num_updates_per_batch=2) -> ppo.Hyper:
+    return ppo.Hyper(num_envs=num_envs, unroll_length=unroll_length,
+                     num_minibatches=num_minibatches, batch_size=batch_size,
+                     num_updates_per_batch=num_updates_per_batch, action_repeat=1,
+                     learning_rate=3e-4, entropy_cost=5e-3, discounting=0.97, gae_lambda=0.95,
+                     clipping_epsilon=0.2, normalize_advantage=True, reward_scaling=1.0,
+                     normalize_observations=True, max_grad_norm=1.0)
+
+
+def seg_inputs(hp: ppo.Hyper, seed: int):
+    """train()'s init from `seed` and one SGD step's global inputs, made
+    alike on every rank from seeded numpy: a Transition [T, num_envs, ...]
+    (actions, raw actions and log probs from the init's policy, some dones
+    and truncations), the epochs' permutations and the entropy noise."""
+    ts = ppo.init_training_state(SEG_OBS, SEG_ACT, SEG_NF, torch.Generator().manual_seed(seed),
+                                 "cpu")
+    rng = np.random.RandomState(seed)
+    T, N = hp.unroll_length, hp.num_envs
+    f32 = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))  # noqa: E731
+    obs = {k: f32(T, N, n) * 2.0 + 0.5 for k, n in SEG_OBS.items()}
+    nxt = {k: v + 0.1 * f32(T, N, v.shape[-1]) for k, v in obs.items()}
+    with torch.no_grad():
+        action, raw, log_prob = ppo.nets.sample_actions(ts.params, ts.normalizer, obs,
+                                                        f32(T, N, SEG_ACT))
+    done = torch.from_numpy((rng.rand(T, N) < 0.2).astype(np.float32))
+    trunc = torch.from_numpy((rng.rand(T, N) < 0.3).astype(np.float32)) * done
+    data = ppo.Transition(observation=obs, action=action, reward=f32(T, N), discount=1.0 - done,
+                          next_observation=nxt, truncation=trunc, raw_action=raw,
+                          log_prob=log_prob)
+    perms = torch.from_numpy(np.stack([rng.permutation(N)
+                                       for _ in range(hp.num_updates_per_batch)]))
+    ent = f32(hp.num_updates_per_batch, hp.num_minibatches, T, hp.batch_size, SEG_ACT)
+    return ts, data, perms, ent
+
+
+def _members(perms, shard, hp):
+    """The host-built member lists the SGD step used before its minibatches
+    were static: per minibatch, this rank's env rows and their positions,
+    from a copy of the permutations to the host."""
+    n_local = shard.local(hp.num_envs)
+    lo = shard.rank * n_local
+    E, nmb, b = hp.num_updates_per_batch, hp.num_minibatches, hp.batch_size
+    p = perms.cpu().numpy().reshape(E, nmb, b)
+    mine = (p >= lo) & (p < lo + n_local)
+    both = torch.from_numpy(np.stack([p[mine] - lo, np.nonzero(mine)[2]]).astype(np.int64))
+    parts = both.to(perms.device).split(mine.sum(-1).ravel().tolist(), dim=1)
+    return [[(parts[e * nmb + j][0], parts[e * nmb + j][1]) for j in range(nmb)]
+            for e in range(E)]
+
+
+def straight_sgd_step(ts, data, perms, ent, hp, shard, members: str):
+    """The env-sharded SGD step written straight, every sum over the ranks
+    a `shard.all_reduce_sum` in line, no segment and no fixed buffer: with
+    members "host", the member lists of `_members` (the step as it stood
+    before); with "masked", every minibatch position, the sums masked by
+    `torch.where` (what ppo.sgd_points computes). Returns the losses."""
+    from open_duck_playground_tpu_torch.train import networks as nets
+    from open_duck_playground_tpu_torch.utils.graphs import copy_into
+
+    normalizer = ts.normalizer
+    copy_into(normalizer, nets.rs_update(normalizer, data.observation, shard=shard))
+    params = list(ts.params.parameters())
+    E, nmb, b = hp.num_updates_per_batch, hp.num_minibatches, hp.batch_size
+    n_local = shard.local(hp.num_envs)
+    lo = shard.rank * n_local
+    listed = _members(perms, shard, hp) if members == "host" else None
+    terms = ("policy_loss", "v_loss", "entropy_loss")
+    aux = []
+    for e in range(E):
+        for j in range(nmb):
+            if listed is not None:
+                idx, pos = listed[e][j]
+                noise, mask = ent[e, j].index_select(1, pos), None
+            else:
+                p = perms[e, j * b:(j + 1) * b]
+                mask = (p >= lo) & (p < lo + n_local)
+                idx, noise = torch.where(mask, p - lo, 0), ent[e, j]
+            mb = tree_map(lambda x: x.index_select(1, idx), data)
+            n = mb.reward.shape[0] * b
+            keep = (lambda x: x) if mask is None else (lambda x: torch.where(mask, x, 0.0))
+            mean = lambda x: torch.sum(keep(x)) / n  # noqa: E731
+            loc, scale = nets.dist_create(ts.params.policy_logits(normalizer, mb.observation))
+            baseline = ts.params.value_fn(normalizer, mb.observation)
+            terminal = {k: v[-1] for k, v in mb.next_observation.items()}
+            boot = ts.params.value_fn(normalizer, terminal)
+            termination = (1 - mb.discount) * (1 - mb.truncation)
+            rho = torch.exp(nets.dist_log_prob(loc, scale, mb.raw_action) - mb.log_prob)
+            vs, adv = ppo.compute_gae(mb.truncation, termination, mb.reward * hp.reward_scaling,
+                                      baseline.detach(), boot.detach(), lambda_=hp.gae_lambda,
+                                      discount=hp.discounting)
+            adv_mean = shard.all_reduce_sum(torch.sum(keep(adv))) / n
+            adv_var = shard.all_reduce_sum(torch.sum(keep(torch.square(adv - adv_mean)))) / n
+            adv = (adv - adv_mean) / (torch.sqrt(adv_var) + 1e-8)
+            clipped = torch.clamp(rho, 1 - hp.clipping_epsilon, 1 + hp.clipping_epsilon)
+            policy_loss = -mean(torch.minimum(rho * adv, clipped * adv))
+            v_error = vs - baseline
+            v_loss = mean(v_error * v_error) * 0.5 * 0.5
+            entropy_loss = -hp.entropy_cost * mean(nets.dist_entropy(loc, scale, noise))
+            total = policy_loss + v_loss + entropy_loss
+            grads = torch.autograd.grad(total, params)
+            flat = shard.all_reduce_sum(torch.cat(
+                [g.reshape(-1) for g in grads]
+                + [torch.stack([x.detach() for x in (policy_loss, v_loss, entropy_loss)])]))
+            summed, at = [], 0
+            for g in grads:
+                summed.append(flat[at:at + g.numel()].view_as(g))
+                at += g.numel()
+            mb_aux = dict(zip(terms, flat[at:]))
+            mb_aux["total_loss"] = mb_aux["policy_loss"] + mb_aux["v_loss"] + mb_aux["entropy_loss"]
+            optim.adam(params, optim.clip_by_global_norm(summed, hp.max_grad_norm), ts.opt_state,
+                       hp.learning_rate)
+            aux.append(mb_aux)
+    return {k: torch.stack([a[k] for a in aux]).reshape(E, nmb)
+            for k in ("total_loss", "policy_loss", "v_loss", "entropy_loss")}
+
+
+HOST_READS = ("__bool__", "__int__", "__float__", "__index__", "item", "tolist", "numpy", "cpu")
+
+
+class HostSpy:
+    """Records, while on, every tensor made from host data (torch.tensor /
+    as_tensor / from_numpy), every read of a tensor back to the host (item,
+    bool, int, float, index, tolist, numpy, cpu) and every synchronize:
+    what a CUDA graph segment must not hold."""
+
+    def __init__(self):
+        self.calls: List[str] = []
+        self.on = False
+        self._saved = []
+        targets = [(torch, n) for n in ("tensor", "as_tensor", "from_numpy")]
+        targets += [(torch.Tensor, n) for n in HOST_READS]
+        targets += [(torch.cuda, "synchronize"), (torch.cuda.Stream, "synchronize")]
+        for owner, name in targets:
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def spied(*a, **k):
+            if self.on:
+                self.calls.append(name)
+            return fn(*a, **k)
+        return spied
+
+    def close(self):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def sgd_segment_checks(shard, hp_kw, seed: int) -> Dict[str, Any]:
+    """On each rank, from `seg_inputs(seed)` cut to this rank's rows:
+    (1) ppo.sgd_step (the segment chain, run eagerly with its collectives
+    between the segments), (2) straight_sgd_step "masked" and (3) "host" on
+    copies of the init; (4) the collective points of two runs of
+    sgd_points on one Collectives (their buffers, in order); (5) the host
+    spy over each segment of a third run, collectives excluded, and over
+    the host member lists; (6) all_reduce_sum_ in place, counted, timed."""
+    hp = ppo.Hyper(**hp_kw)
+
+    def start():
+        ts, data, perms, ent = seg_inputs(hp, seed)
+        return ts, tree_map(lambda x: shard.take(x, dim=1), data), perms, ent
+
+    out = {}
+    for name, step in (("chain", lambda *a: ppo.sgd_step(*a, shard)[1]),
+                       ("masked", lambda *a: straight_sgd_step(*a, shard, "masked")),
+                       ("host", lambda *a: straight_sgd_step(*a, shard, "host"))):
+        ts, data, perms, ent = start()
+        losses = step(ts, data, perms, ent, hp)
+        out[name] = {"learner": [t.detach().numpy().copy() for t in ppo.learner_tensors(ts)],
+                     "losses": {k: v.numpy() for k, v in losses.items()},
+                     "params": interop.ppo_params_to_numpy(ts.params)}
+
+    ts, data, perms, ent = start()
+    points = pdist.Collectives(shard)
+    runs = []
+    for _ in range(2):
+        seen, body = [], ppo.sgd_points(ts, data, perms, ent, hp, points)
+        try:
+            while True:
+                buf = next(body)
+                seen.append((id(buf), buf.data_ptr()))
+                shard.all_reduce_sum_(buf)
+        except StopIteration:
+            pass
+        runs.append(seen)
+    out["points"] = runs
+    out["collectives_expected"] = ppo.sgd_collectives(hp, len(SEG_OBS))
+
+    spy = HostSpy()
+    try:
+        body, segments, per_segment = ppo.sgd_points(ts, data, perms, ent, hp, points), 0, []
+        while True:
+            spy.on = True
+            try:
+                buf = next(body)
+            except StopIteration:
+                break
+            finally:
+                spy.on, segments = False, segments + 1
+                per_segment.append(list(spy.calls))
+                spy.calls.clear()
+            shard.all_reduce_sum_(buf)
+        out["spy_segments"] = segments
+        out["spy_calls"] = sorted({c for s in per_segment for c in s})
+        spy.on = True
+        _members(perms, shard, hp)
+        spy.on = False
+        out["spy_host_members"] = sorted(set(spy.calls))
+    finally:
+        spy.close()
+
+    buf = torch.tensor([1.0 + shard.rank, 2.0])
+    n0 = shard.collectives
+    same = shard.all_reduce_sum_(buf) is buf
+    shard.timed, shard.collective_s = True, 0.0
+    try:
+        shard.all_reduce_sum_(buf)
+    finally:
+        shard.timed = False
+    out["in_place"] = {"same": same, "value": buf.numpy(), "counted": shard.collectives - n0,
+                       "timed_s": shard.collective_s}
+    return out
+
+
+def seg_world_1(hp_kw, seed: int) -> Dict[str, Any]:
+    """ppo.sgd_step at world size 1 on all of seg_inputs(seed)."""
+    hp = ppo.Hyper(**hp_kw)
+    ts, data, perms, ent = seg_inputs(hp, seed)
+    losses = ppo.sgd_step(ts, data, perms, ent, hp)[1]
+    return {"learner": [t.detach().numpy().copy() for t in ppo.learner_tensors(ts)],
+            "losses": {k: v.numpy() for k, v in losses.items()},
+            "params": interop.ppo_params_to_numpy(ts.params)}
+
+
+def sharded_graph_vs_eager(shard, task: str, n_global: int, seed: int) -> Dict[str, Any]:
+    """On the card: two training steps at this world size from train()'s
+    init (seed) and the same global draws, once through the eager bodies
+    (ppo.rollout, ppo.sgd_step) and once through the graphs (make_rollout's
+    CapturedRollout, make_sgd_step's CapturedSGDStep of the shard: the first
+    call captures, the second replays). Per step, on this rank: the
+    Transition, the env state, the learner's tensors, the loss terms and
+    the generators' states, each equal bit for bit or not; the replays, the
+    SGD chain's segments and the collectives of each SGD step."""
+    from open_duck_playground_tpu_torch.envs import randomize
+    from open_duck_playground_tpu_torch.envs.joystick import Joystick
+
+    dev = shard.device
+    hp = seg_hyper(num_envs=n_global, unroll_length=4, num_minibatches=4,
+                   batch_size=n_global // 4, num_updates_per_batch=2)
+
+    def bits(tree):
+        from open_duck_playground_tpu_torch.utils.graphs import tree_leaves
+
+        return {k: v.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+                for k, v in tree_leaves(tree).items()}
+
+    def run(graphs: bool):
+        gens = ppo.seeded_generators(seed, dev)
+        env = Joystick(task, device=dev)
+        env.shard = shard
+        env.generator.set_state(gens["env"].get_state())
+        te = TrainEnv(env, num_envs=shard.local(n_global), episode_length=100,
+                      randomization_fn=randomize.domain_randomize,
+                      randomization_generator=gens["randomization"])
+        obs_sizes = {k: v[0] for k, v in env.observation_size.items()}
+        ts = ppo.init_training_state(obs_sizes, env.action_size,
+                                     {"policy_hidden_layer_sizes": (32, 16),
+                                      "value_hidden_layer_sizes": (32, 16)}, gens["net"], dev)
+        state = te.reset(gens["reset"])
+        roll = ppo.make_rollout(te, ts, hp) if graphs else ppo.rollout
+        sgd = ppo.make_sgd_step(ts, hp, shard) if graphs else ppo.sgd_step
+        steps, collectives = [], []
+        for _ in range(2):
+            noise, perms, ent = ppo.draw_training_step(gens["epoch"], hp, env.action_size, dev)
+            state, data = roll(te, state, ts.normalizer, ts.params, shard.take(noise, dim=1))
+            got = {"data": bits(data), "state": bits(state)}
+            n0 = shard.collectives
+            ts, losses = sgd(ts, data, perms, ent, hp, shard)
+            collectives.append(shard.collectives - n0)
+            got.update(learner=bits(dict(enumerate(ppo.learner_tensors(ts)))),
+                       losses=bits(losses),
+                       generators={k: g.get_state().numpy() for k, g in
+                                   (("epoch", gens["epoch"]), ("env", env.generator))})
+            steps.append(got)
+        out = {"steps": steps, "collectives": collectives}
+        if graphs:
+            out.update(kinds=[type(roll).__name__, type(sgd).__name__],
+                       replays=[roll.replays, sgd.replays], segments=sgd.info.get("segments"),
+                       fused_per_replay=roll.graph.info["fused_launches_per_replay"])
+        return out
+
+    eager, graph = run(False), run(True)
+    equal = []
+    for a, b in zip(eager["steps"], graph["steps"]):
+        equal.append({part: all(np.array_equal(v, b[part][k]) for k, v in a[part].items())
+                      for part in a})
+    return {"equal": equal, "collectives": [eager["collectives"], graph["collectives"]],
+            "want_collectives": ppo.sgd_collectives(hp, 2),
+            **{k: graph[k] for k in ("kinds", "replays", "segments", "fused_per_replay")}}
