@@ -9,8 +9,10 @@ Phases:
    path's shape (shared bytes per env, envs per block, resident blocks per
    SM, waves);
 2. kernel vs its plain PyTorch version ("twin", ops/lane_physics.py) on the
-   card: the step variant (10 substeps) and the init variant (1 substep)
-   from settled stand-in states, and the init variant from tilted ones
+   card: the step variant (SIDE_SUBSTEPS substeps; at the main paths'
+   shapes with DR on, flat 4096 and rough 8192, phase 3 holds a whole
+   control step instead) and the init variant (1 substep) from settled
+   stand-in states, and the init variant from tilted ones
    (its kinematic outputs only), at 1024 and 4096 envs, DR off and on, the
    backlash scene at 1024, and the heightfield scenes: rough at 1024 (DR
    off and on) and 8192 (DR on), the 64x64 judge scene at 1024. For each
@@ -30,7 +32,9 @@ Phases:
    shapes, that everything is finite, one graph launch per captured step;
    prints env-steps/s of both runs, host launches per env step of each
    (GRAPH_TRACE_STEPS steps under the profiler) and the kernel's and the
-   twin's time for one control step at 4096 envs;
+   twin's time for one control step at 4096 envs from the main path's last
+   state, whose outputs must agree within phase 2's limits (the kernels
+   line's max_abs_err);
 3b. the rough main path: the same with Joystick("rough_terrain_backlash")
    at 8192 envs, through the kernel's heightfield branch;
 4. the trainer: first the captured SGD step against its eager body
@@ -52,13 +56,20 @@ Phases:
    policy on the card within 1e-5, and that the last full-state checkpoint
    loads back tensor for tensor; then holds the kernel against its twin on
    this path's inputs (trainer_vs_twin): the train env at 8192 envs with
-   train()'s DR draw (reset, and the trained state of that checkpoint) and
-   the eval env at 1024 envs, DR off (reset, and 20 steps of the trained
-   policy), within duck_standin.TRAINER_PARITY_LIMITS; every rollout, SGD
+   train()'s DR draw (reset, and a whole control step from the trained
+   state of that checkpoint) and the eval env at 1024 envs, DR off (reset,
+   and a control step after 20 steps of the trained policy), within
+   duck_standin.TRAINER_PARITY_LIMITS; every rollout, SGD
    step and eval step of the run is one replay of train()'s
-   CapturedRollout, CapturedSGDStep and CapturedEvalStep; one eval of the
-   trained policy by run_eval, eager against captured
-   (eval_graph_vs_eager), has every metric equal. Prints training/sps per
+   CapturedRollout, CapturedSGDStep and CapturedEvalStep; the first
+   EVAL_CHECK_STEPS steps of one eval of the trained policy by run_eval,
+   eager against captured (eval_graph_vs_eager), have every metric equal;
+   then exact resume through
+   the graphs (resume_vs_run): the runner from the same argv with
+   --auto_resume in a fresh directory holding only the run's
+   full_00000.npz recaptures every graph and trains epoch 1, and its
+   metrics line, params, Adam state and normalizer (and the whole full
+   state) equal the run's bit for bit. Prints training/sps per
    epoch, the profile_breakdown line (rollout_s, sgd_s, training_step_s,
    eval_s, each graph's capture seconds and pool bytes).
 5. the env-sharded trainer: the same runner and recipe under
@@ -67,7 +78,8 @@ Phases:
    rollout and eval step one graph replay, every SGD step a chain of
    graph segments with the collectives between them) and once more with
    the eager bodies asked for by name (eager_bodies: the parent's path,
-   for its numbers in the same call), and, where the machine has two
+   for its numbers in the same call; one epoch of 2 training steps,
+   SHARDED_ARGS), and, where the machine has two
    cards or more, world min(cards, 4) over NCCL. Each rank (this script
    with --rank-worker) checks and reports: (a) its train env's and eval
    env's kernel launches against the count the code gives, with each
@@ -115,8 +127,9 @@ Phases:
    physics="pipeline")) at phase 4's recipe widths (8192 DR envs, unroll
    20, batch 256 x 32, 4 updates, (512, 256, 128) networks, 1024 eval
    envs) with profile_breakdown=True, cut to one training step and 2 evals
-   of 20-step episodes (PIPELINE_TRAINER): its captured rollout (one graph
-   per env step) against the eager one bit for bit, finite metrics, every
+   of 20-step episodes (PIPELINE_TRAINER): one rollout of its captured
+   rollout (one graph per env step) against the eager one bit for bit,
+   finite metrics, every
    rollout, SGD step and eval step a replay, no graph spanning more than
    one control step, 0 kernel launches.
 
@@ -172,6 +185,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -185,13 +199,19 @@ CASES = (("flat_terrain", 1024, False), ("flat_terrain", 1024, True),
          ("rough_terrain_backlash", 8192, True), ("rough_judge_backlash", 1024, True))
 # main paths: (task, envs); DR on, 100 steps of random actions
 FLAT_MAIN, ROUGH_MAIN = ("flat_terrain", 4096), ("rough_terrain_backlash", 8192)
+# the step variant's substeps where the twin is not timed: phase 2's cases
+# (phase 3 holds a whole control step at the main paths' shapes) and
+# phase 6's trained DR state (phase 4 holds a whole control step on its
+# own; the twin takes 1-2.5 s per substep at any width: it launches each
+# of its operations from the host)
+SIDE_SUBSTEPS = 2
 N_STEPS = 100
 # phase 3: captured and eager steps traced for their host calls
 GRAPH_TRACE_STEPS = 5
 # phase 8: timed steps of each env (the pipeline takes ~1 s per step); the
 # pipeline trainer's cuts of phase 4's recipe: one training step and 2 evals
 # of 20-step episodes (a 1000-step eval on the pipeline would take minutes)
-PIPELINE_STEPS = 20
+PIPELINE_STEPS = 5
 PIPELINE_TRAINER = {"episode_length": 20, "num_evals": 2, "num_timesteps": 8192 * 20}
 # phase 4: the recipe's widths (BASELINE.md:14), cut to 2 epochs of 2 training steps
 TRAINER_TASK = "flat_terrain_backlash"
@@ -200,6 +220,14 @@ TRAINER_ARGS = ("--env", "joystick", "--task", TRAINER_TASK, "--num_envs", "8192
                 "--device", "cuda")
 # phase 6: the standing task at phase 4's cut
 STANDING_ARGS = ("--env", "standing", *TRAINER_ARGS[2:])
+# phase 5: the runner's command line of each run, by its bodies: the
+# graphs at phase 4's cut; the eager rerun (the parent's numbers) one
+# training step, its evals cut to EAGER_EVAL_STEPS steps (episode_length:
+# the training never reaches it)
+SHARDED_ARGS = {"graph": TRAINER_ARGS,
+                "eager": (*TRAINER_ARGS[:-6], "--num_evals", "2", "--num_timesteps", "163840",
+                          "--device", "cuda")}
+EAGER_EVAL_STEPS = 100
 OBS_SIZES = {"joystick": {"state": 101, "privileged_state": 212},
              "standing": {"state": 85, "privileged_state": 153}}
 # phase 5: what a world-size-W training step may differ by from world size
@@ -215,10 +243,15 @@ SHARDED_LIMITS = {"transitions": 0.0, "params_q99": 8e-5, "params_max": 2 * 3e-4
 # phase 9: steps before the traced window and in it; the deploy hooks'
 # rollout; the gait playback's cuda-vs-cpu limit on the feet (float32 both)
 PROFILE_WARMUP, PROFILE_STEPS = 10, 20
-# phase 4: SGD steps of the captured step held against the eager body, and
+# phase 4: SGD steps of the captured step held against the eager body,
 # consecutive rollouts of the captured rollout held against the eager one
-SGD_GRAPH_STEPS = 3
+# (phase 8's pipeline trainer: one rollout of PIPELINE_ROLLOUT_STEPS replays
+# of its one-step graph), and the steps of the eval held against the eager
+# one
+SGD_GRAPH_STEPS = 2
 ROLLOUT_GRAPH_ROLLOUTS = 2
+PIPELINE_ROLLOUT_STEPS = 10
+EVAL_CHECK_STEPS = 200
 DEPLOY_HOOK_S = 2.0
 PLAYBACK_ATOL_M = 1e-5
 FUSED_KERNEL = "physics_step_kernel"  # the __global__ of ops/csrc/physics_step.cu
@@ -293,6 +326,19 @@ def asset_root() -> str:
     return root
 
 
+def fused_launches(unroll_length: int, rollouts: int, evals: int, episode_length: int,
+                   sized: bool = False) -> dict:
+    """The fused kernel's launches the code gives for one call of
+    ppo.train: on the train env the batch's reset, the rollout capture's
+    warm-up (unroll_length real steps) and unroll_length per rollout
+    replay, plus the one-env reset that sizes the observations when the
+    runner is built (`sized`: counted from the runner's construction); on
+    the eval env the eval capture's warm-up step, then a reset and
+    episode_length steps per eval."""
+    return {"train_env": int(sized) + 1 + unroll_length * (1 + rollouts),
+            "eval_env": 1 + evals * (1 + episode_length)}
+
+
 def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -362,9 +408,12 @@ def phase_build():
             f"blocks in {geo['waves']} waves")
 
 
-def phase_kernel_vs_twin(cases, report) -> bool:
-    """Kernel vs twin in each case: the step and init variants from settled
-    states, and the init variant from tilted states. Fills `report` with the
+def phase_kernel_vs_twin(cases, report, side_substeps: int = 10) -> bool:
+    """Kernel vs twin in each case: the step variant (`side_substeps`
+    substeps) and the init variant from settled states, and the init
+    variant from tilted states. At the main paths' shapes with DR on the
+    step variant is left to phase_main_path, which holds a whole control
+    step there on the main path's own states. Fills `report` with the
     parity readings and returns whether all are within their limits."""
     from open_duck_playground_tpu_torch.envs import randomize
     from open_duck_playground_tpu_torch.mjcf import compile_mjcf
@@ -386,8 +435,11 @@ def phase_kernel_vs_twin(cases, report) -> bool:
         if with_dr:
             g = torch.Generator(device=dev).manual_seed(7)
             dr = flatten_dr_fields(randomize.domain_randomize(m.to(dev), B, g))
-        for variant, n, start in (("step", 10, "settled"), ("init", 1, "settled"),
-                                  ("tilted", 1, "tilted")):
+        variants = (("step", side_substeps, "settled"), ("init", 1, "settled"),
+                    ("tilted", 1, "tilted"))
+        if with_dr and (task, B) in (FLAT_MAIN, ROUGH_MAIN):
+            variants = variants[1:]
+        for variant, n, start in variants:
             qpos, qvel, ctrl = states[start]
             warm = torch.zeros_like(qvel)
             out_k = fp(qpos, qvel, warm, ctrl, n, dr)
@@ -399,7 +451,8 @@ def phase_kernel_vs_twin(cases, report) -> bool:
             tag = f"{task} B={B} dr={int(with_dr)} {variant}"
             if variant == "step":
                 ms = cuda_ms(lambda: fp(qpos, qvel, warm, ctrl, n, dr), reps=10)
-                log(f"[time] {tag}: kernel {ms:.3f} ms, twin {plain_ms:.1f} ms per control step")
+                log(f"[time] {tag}: kernel {ms:.3f} ms, twin {plain_ms:.1f} ms per call of "
+                    f"{n} substeps")
             ok &= parity_table(tag, out_k, out_p, accel, variant, with_dr, rough, report)
     return ok
 
@@ -470,7 +523,7 @@ def step_bound(fp, B: int, n_substeps: int, dr, per_env_substep: float) -> dict:
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_main_path(task: str, B: int) -> dict:
+def phase_main_path(task: str, B: int, report: dict) -> dict:
     """TrainEnv(Joystick(task), B envs, DR on): reset, then N_STEPS steps of
     random actions, eagerly (TrainEnv.step) and then, from the same reset
     and the same generator states, through a CapturedEnvStep (one CUDA
@@ -479,8 +532,9 @@ def phase_main_path(task: str, B: int) -> dict:
     count set to 0 just before and read just after; the two final states
     and the env generator's states must be equal bit for bit. Then
     GRAPH_TRACE_STEPS replays and as many eager steps under the profiler
-    (host calls per env step), and one control step at this shape timed,
-    kernel vs twin, and its bound."""
+    (host calls per env step), and one control step at this shape from the
+    main path's last state, timed, kernel vs twin (the step variant's
+    outputs within phase 2's limits, filed in `report`), and its bound."""
     from open_duck_playground_tpu_torch.envs import randomize
     from open_duck_playground_tpu_torch.envs.joystick import Joystick
     from open_duck_playground_tpu_torch.envs.wrapper import CapturedEnvStep, TrainEnv
@@ -550,18 +604,26 @@ def phase_main_path(task: str, B: int) -> dict:
                 one_graph_launch_per_step=split["graph_step"]["graph_launches"] == 1)
 
     # one control step at the main path's shape: kernel vs twin, same inputs
+    # (the main path's last state), timed; the step variant's outputs held
+    # to phase 2's limits (the kernels line's max_abs_err)
     data = state.data
     dr = flatten_dr_fields(te.model)
     args = (data.qpos.contiguous(), data.qvel.contiguous(),
             data.qacc_warmstart.contiguous(), data.ctrl.contiguous(), env.n_substeps, dr)
     per_env_substep = flops_per_env_substep(env.physics, dr)
     timed = {}
+    accel = int(env.physics.model.sensor_adr[env.physics.model.sensor("accelerometer")])
     for variant, n in (("step", env.n_substeps), ("init", 1)):
+        out_k = env.physics(*args[:4], n, dr)
         ms = cuda_ms(lambda: env.physics(*args[:4], n, dr), reps=20)
         t0 = time.perf_counter()
-        env.physics.plain(*args[:4], n, dr)
+        out_p = env.physics.plain(*args[:4], n, dr)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        if variant == "step":
+            ok &= parity_table(f"{task} B={B} dr=1 step", out_k, out_p, accel, variant, True,
+                               "rough" in task, report)
+        del out_k, out_p
         bound = step_bound(env.physics, B, n, dr, per_env_substep)
         log(f"[main] {task}: {variant} variant ({n} substeps) at {B} envs (DR on): kernel "
             f"{ms:.3f} ms, twin {plain_ms:.1f} ms; bound {bound['bound_ms']:.4f} ms by "
@@ -755,7 +817,8 @@ def pipeline_trainer() -> dict:
     and 2 evals of 20-step episodes (a 1000-step eval on the pipeline would
     take minutes), with profile_breakdown=True, the runner's callbacks and
     checkpoints left out. First the captured rollout against the eager one
-    (rollout_graph_vs_eager, one replay per env step). Checks finite
+    (rollout_graph_vs_eager: one rollout of PIPELINE_ROLLOUT_STEPS replays
+    of the one-step graph). Checks finite
     metrics; every rollout, SGD step and eval step a replay of train()'s
     captured programs (unroll_length replays of a one-step graph per
     rollout, one per SGD step, one per eval step; the counts the code
@@ -782,7 +845,9 @@ def pipeline_trainer() -> dict:
     env = Joystick(TRAINER_TASK, device=dev, physics="pipeline")
     eval_env = Joystick(TRAINER_TASK, device=dev, physics="pipeline")
     del runner
-    roll = rollout_graph_vs_eager(SimpleNamespace(env=env, device=dev), kw, "pipeline trainer")
+    roll = rollout_graph_vs_eager(SimpleNamespace(env=env, device=dev),
+                                  {**kw, "unroll_length": PIPELINE_ROLLOUT_STEPS},
+                                  "pipeline trainer", rollouts=1)
 
     T = kw["unroll_length"]
     epochs = kw["num_evals"] - 1
@@ -887,11 +952,7 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
     n_evals = 1 + epochs + 2
     want_replays = {"rollout": 2 + 2 + epochs * steps_per_epoch,
                     "SGD step": 2 + 2 + epochs * steps_per_epoch, "eval step": n_evals * ep_len}
-    # launches the code gives: the train env's reset, the rollouts' env
-    # steps and the rollout capture's warm-up (T real steps); the eval env's
-    # reset and episode_length steps per eval and the eval capture's warm-up
-    want_train = 1 + T * (1 + want_replays["rollout"])
-    want_eval = n_evals * (1 + ep_len) + 1
+    want_launches = fused_launches(T, want_replays["rollout"], n_evals, ep_len)
     graph = sgd_graph_vs_eager(runner, kw, label) if label == "trainer" else {"ok": True}
     roll_graph = rollout_graph_vs_eager(runner, kw, label) if label == "trainer" else {"ok": True}
 
@@ -909,8 +970,8 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
     bd = ppo.LAST_PROFILE_BREAKDOWN
     replays = {name: [c.replays for c in made.get(name, [])] for name in want_replays}
     graph_ok = replays == {name: [n] for name, n in want_replays.items()}
-    log(f"[{label}] ppo.train {t_train:.1f} s; launches {launches} (want train_env "
-        f"{want_train}, eval_env {want_eval}); graph replays {json.dumps(replays)} (want "
+    log(f"[{label}] ppo.train {t_train:.1f} s; launches {launches} (want "
+        f"{want_launches}); graph replays {json.dumps(replays)} (want "
         f"{json.dumps(want_replays)}: every rollout, SGD step and eval step a replay); captures "
         f"rollout {json.dumps(bd.get('rollout_graph'))}, SGD step "
         f"{json.dumps(bd.get('sgd_graph'))}, eval step {json.dumps(bd.get('eval_graph'))}")
@@ -990,15 +1051,17 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
     with torch.no_grad():
         parity_ok = trainer_vs_twin(runner, kw, es, make_policy((normalizer, params),
                                                                 deterministic=True), report,
-                                    label, dr_off=cli.env == "joystick")
+                                    label, dr_off=cli.env == "joystick",
+                                    dr_substeps=None if label == "trainer" else SIDE_SUBSTEPS)
+    resumed = resume_vs_run(args, out_dir, lines[-1], label) if label == "trainer" else {"ok": True}
     log(f"[{label}] gpu {gpu_line()}")
     ok = passed(label, recipe=recipe_ok, sizes=sizes_ok, metrics_finite=finite, counts=counts_ok,
                 checkpoint=ckpt_ok, onnx=onnx_err <= 1e-5, full_state_live=live_ok,
                 full_state_loads=same, full_state_epoch=epoch == epochs - 1,
                 kernel_vs_twin=parity_ok, sgd_graph_vs_eager=graph["ok"],
                 rollout_graph_vs_eager=roll_graph["ok"], eval_graph_vs_eager=evals["ok"],
-                graph_replays=graph_ok,
-                launches=launches == {"train_env": want_train, "eval_env": want_eval})
+                graph_replays=graph_ok, resume=resumed["ok"],
+                launches=launches == want_launches)
     log(f"[{label}] {'OK' if ok else 'FAIL'}")
     return dict(ok=ok, launches=launches, breakdown=bd, onnx=onnx_path, sgd_graph=graph,
                 rollout_graph=roll_graph, eval_graph=evals,
@@ -1030,6 +1093,84 @@ def captured_programs():
     finally:
         for name, cls in inits.items():
             cls.__init__ = saved_inits[name]
+
+
+def _bits(a: np.ndarray) -> tuple:
+    return a.dtype.str, a.shape, a.tobytes()
+
+
+def resume_vs_run(args, out_dir: str, last_line: dict, label: str) -> dict:
+    """Phase 4, after ppo.train: exact resume through the graphs on the
+    card. The run's full_00000.npz (the state after epoch 0) is copied into
+    a fresh directory and the runner is built there from the same argv with
+    --auto_resume: train() restores that state into the learner's and the
+    env's buffers, captures every graph anew and trains epoch 1, its kernel
+    launches counted from 0. Checks against the uninterrupted run
+    (`out_dir`, whose last metrics line is `last_line`), bit for bit: epoch
+    1's metrics.jsonl line to every digit (all keys but the two read off
+    the host's clock, training/sps and training/walltime), and the params,
+    Adam state and normalizer of full_00001.npz; also that every rollout,
+    SGD step and eval step of the resumed run was a graph replay, the
+    launches the code gives, and the whole full_00001.npz (env state and
+    generators too) equal array for array."""
+    from open_duck_playground_tpu_torch.train import checkpoint as ckpt
+    from open_duck_playground_tpu_torch.train import runner as rn
+
+    res_dir = os.path.join(ROOT, "build", f"{label}_resume")
+    shutil.rmtree(res_dir, ignore_errors=True)
+    os.makedirs(res_dir)
+    shutil.copy(ckpt.full_path(out_dir, 0), res_dir)
+    runner = rn.OpenDuckMiniV2Runner(rn.build_parser().parse_args(
+        ["--output_dir", res_dir, *args, "--auto_resume"]))
+    kw = runner.train_kwargs()
+    T, ep_len = kw["unroll_length"], kw["episode_length"] // kw["action_repeat"]
+    steps = math.ceil(kw["num_timesteps"] / ((kw["num_evals"] - 1) * kw["num_envs"] * T))
+    runner.env.physics.launches = runner.eval_env.physics.launches = 0
+    t0 = time.perf_counter()
+    with captured_programs() as made:
+        runner.train()
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
+    launches = {"train_env": runner.env.physics.launches,
+                "eval_env": runner.eval_env.physics.launches}
+    want_launches = fused_launches(T, steps, 1, ep_len)  # one epoch, one eval
+    replays = {name: [c.replays for c in made.get(name, [])]
+               for name in ("rollout", "SGD step", "eval step")}
+    want_replays = {"rollout": [steps], "SGD step": [steps], "eval step": [ep_len]}
+
+    clock = ("training/sps", "training/walltime")
+    with open(runner.metrics_path) as f:
+        res_lines = [json.loads(line) for line in f]
+    same_line = (len(res_lines) == 1 and res_lines[0]["step"] == last_line["step"]
+                 and json.dumps({k: v for k, v in res_lines[0].items() if k not in clock},
+                                sort_keys=True)
+                 == json.dumps({k: v for k, v in last_line.items() if k not in clock},
+                               sort_keys=True))
+    a = ckpt.load_full(ckpt.full_path(out_dir, 1))
+    b = ckpt.load_full(ckpt.full_path(res_dir, 1))
+    learner = [k for k in a if k.startswith(("training_state/params/",
+                                             "training_state/opt_state/",
+                                             "training_state/normalizer/"))]
+    learner_same = (bool(learner) and all(k in b and _bits(a[k]) == _bits(b[k])
+                                          for k in learner))
+    differing = sorted(k for k in a.keys() | b.keys()
+                       if k not in a or k not in b or _bits(a[k]) != _bits(b[k]))
+    log(f"[{label}] resumed from full_00000.npz in {res_dir}: train() {t_resume:.1f} s; epoch 1's "
+        f"line {json.dumps(res_lines[-1] if res_lines else None)}; equal to the run's (all but "
+        f"{', '.join(clock)}) {same_line}; params, Adam state and normalizer ({len(learner)} "
+        f"arrays) bit for bit {learner_same}; arrays of the whole full state "
+        f"differing {len(differing)} of {len(a)} {differing[:8]}; graph replays "
+        f"{json.dumps(replays)} (want {json.dumps(want_replays)}); launches {launches} (want "
+        f"{want_launches})")
+    log(f"[check] {label} resume: epoch 1's metrics line bit for bit {same_line}")
+    log(f"[check] {label} resume: final params, Adam state and normalizer bit for bit "
+        f"{learner_same}")
+    ok = passed(f"{label} resume", metrics_line=same_line, learner=learner_same,
+                full_state=not differing, graph_replays=replays == want_replays,
+                launches=launches == want_launches)
+    del runner, made
+    torch.cuda.empty_cache()
+    return dict(ok=ok, seconds=t_resume, differing=differing)
 
 
 def sgd_graph_vs_eager(runner, kw, label: str) -> dict:
@@ -1131,13 +1272,13 @@ def _trainer_hyper(kw):
                         for f in dataclasses.fields(ppo.Hyper)})
 
 
-def rollout_graph_vs_eager(runner, kw, label: str) -> dict:
+def rollout_graph_vs_eager(runner, kw, label: str, rollouts: int = ROLLOUT_GRAPH_ROLLOUTS) -> dict:
     """Phase 4, before ppo.train (and phase 8's pipeline trainer): the
     captured rollout against the eager one at the recipe's widths (8192 DR
     envs on the train env, unroll 20, the policy of train()'s init; on the
     pipeline one replay per env step, CapturedRollout.span). From one
-    reset and one state of the env's generator, ROLLOUT_GRAPH_ROLLOUTS
-    consecutive rollouts run by
+    reset and one state of the env's generator, `rollouts` consecutive
+    rollouts run by
     ppo.rollout, then as many by a CapturedRollout (the first call
     captures), on the same policy noise: every rollout's final env state and
     Transition, and the env generator's state after the last, equal bit for
@@ -1161,7 +1302,7 @@ def rollout_graph_vs_eager(runner, kw, label: str) -> dict:
                                  dev)
     start = te.reset(gens["reset"])
     noises = [ppo.draw_training_step(gens["epoch"], hp, env.action_size, dev)[0]
-              for _ in range(ROLLOUT_GRAPH_ROLLOUTS)]
+              for _ in range(rollouts)]
     g0 = env.generator.get_state()
     cap = ppo.CapturedRollout(te, ts.normalizer, ts.params)
     out, ok = {}, True
@@ -1182,7 +1323,7 @@ def rollout_graph_vs_eager(runner, kw, label: str) -> dict:
     per_rollout = hp.unroll_length // (cap.span or hp.unroll_length)
     ok = passed(f"{label} rollout captured vs eager", states_and_transitions_equal=all(same),
                 generators_equal=gens_same,
-                replays=cap.replays == ROLLOUT_GRAPH_ROLLOUTS * per_rollout)
+                replays=cap.replays == rollouts * per_rollout)
     res = {"eager_s": [round(r[0], 4) for r in eager], "graph_s": [round(r[0], 4) for r in graph],
            "equal": same, "generators_equal": gens_same, "capture": cap.graph.info,
            "replays": cap.replays}
@@ -1195,7 +1336,7 @@ def rollout_graph_vs_eager(runner, kw, label: str) -> dict:
 
 def eval_graph_vs_eager(runner, kw, normalizer, params, label: str) -> dict:
     """Phase 4, after ppo.train: one eval of the trained policy (the eval
-    env, num_eval_envs envs, one episode of episode_length steps, train()'s
+    env, num_eval_envs envs, the first EVAL_CHECK_STEPS steps of an episode, train()'s
     stochastic or deterministic policy) by ppo.run_eval with the eager
     eval_step and twice with a CapturedEvalStep (the first captures), each
     from the same generator states: every eval metric equal to every digit.
@@ -1206,6 +1347,7 @@ def eval_graph_vs_eager(runner, kw, normalizer, params, label: str) -> dict:
     dev = runner.device
     te = TrainEnv(runner.eval_env, num_envs=kw["num_eval_envs"],
                   episode_length=kw["episode_length"])
+    steps = EVAL_CHECK_STEPS
     det = kw.get("deterministic_eval", False)
     g = torch.Generator(device=dev)
     cap = ppo.CapturedEvalStep(te, normalizer, params, g, det)
@@ -1215,14 +1357,14 @@ def eval_graph_vs_eager(runner, kw, normalizer, params, label: str) -> dict:
         runner.eval_env.generator.manual_seed(6)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = ppo.run_eval(te, normalizer, params, g, episode_length=kw["episode_length"],
+        out = ppo.run_eval(te, normalizer, params, g, episode_length=steps,
                            deterministic=det, step=step)
         outs.append({k: float(v) for k, v in out.items()})
         secs.append(round(time.perf_counter() - t0, 4))
     same = outs[1] == outs[0] and outs[2] == outs[0]
     ok = passed(f"{label} eval captured vs eager", metrics_equal=same,
-                replays=cap.replays == 2 * kw["episode_length"])
-    log(f"[{label}] eval at {te.num_envs} envs x {kw['episode_length']} steps: seconds eager "
+                replays=cap.replays == 2 * steps)
+    log(f"[{label}] eval at {te.num_envs} envs x {steps} steps: seconds eager "
         f"{secs[0]}, captured {secs[1]} (with the capture) and {secs[2]}; eval/episode_reward "
         f"eager {outs[0]['eval/episode_reward']!r}, captured {outs[1]['eval/episode_reward']!r} "
         f"and {outs[2]['eval/episode_reward']!r}; every metric equal {same}; capture "
@@ -1231,13 +1373,15 @@ def eval_graph_vs_eager(runner, kw, normalizer, params, label: str) -> dict:
 
 
 def trainer_vs_twin(runner, kw, trained, policy, report, label: str = "trainer",
-                    dr_off: bool = True) -> bool:
+                    dr_off: bool = True, dr_substeps: Optional[int] = None) -> bool:
     """The kernel against its twin on the trainer path's inputs: the train
     env (flat_terrain_backlash, 8192 envs, DR on with train()'s own draw,
     rebuilt from the seed) from a reset (init variant) and from the trained
-    state of the last full-state checkpoint (step variant); with `dr_off`,
-    the eval env (1024 envs, DR off) from a reset and after 20 steps of the
-    trained deterministic policy. Limits: duck_standin.TRAINER_PARITY_LIMITS.
+    state of the last full-state checkpoint (step variant, `dr_substeps`
+    substeps, a whole control step if None: with DR on the two agree bit
+    for bit); with `dr_off`, the
+    eval env (1024 envs, DR off) from a reset and after 20 steps of the
+    trained deterministic policy (step variant, a whole control step). Limits: duck_standin.TRAINER_PARITY_LIMITS.
     Readings go into report under "<label> ..." tags; returns whether all
     are within their limits."""
     from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
@@ -1263,7 +1407,8 @@ def trainer_vs_twin(runner, kw, trained, policy, report, label: str = "trainer",
         fp = te.env.physics
         dr = flatten_dr_fields(te.model) if with_dr else None
         accel = int(fp.model.sensor_adr[fp.model.sensor("accelerometer")])
-        for variant, n, data in (("step", te.env.n_substeps, stepped), ("init", 1, reset)):
+        n_step = dr_substeps if with_dr and dr_substeps is not None else te.env.n_substeps
+        for variant, n, data in (("step", n_step, stepped), ("init", 1, reset)):
             warm = data.qacc_warmstart if variant == "step" else torch.zeros_like(data.qvel)
             args = (data.qpos.contiguous(), data.qvel.contiguous(), warm.contiguous(),
                     data.ctrl.contiguous(), n, dr)
@@ -1316,14 +1461,20 @@ def run_sharded(backend: str, world: int, bodies: str = "graph") -> dict:
     ok = passed(f"sharded {tag}", exit=rc == 0, reports=len(reps) == world)
     log(f"[sharded] {tag}: exit {rc} after {wall:.1f} s; {len(reps)} of {world} rank reports")
     if ok:
-        ok = check_sharded(tag, backend, world, torch.cuda.device_count(), reps, out)
+        ok = check_sharded(tag, backend, world, torch.cuda.device_count(), reps, out,
+                           SHARDED_ARGS[bodies])
     return dict(ok=ok, backend=backend, world=world, bodies=bodies, reps=reps, wall_s=wall)
 
 
-def check_sharded(tag: str, backend: str, world: int, cards: int, reps: list, out: str) -> bool:
+def check_sharded(tag: str, backend: str, world: int, cards: int, reps: list, out: str,
+                  args=TRAINER_ARGS) -> bool:
     """Print each rank's report and check what spans the ranks: every rank's
     own checks, the same params everywhere, each rank on its card (ranks
-    share cards only over gloo), finite metrics and the global counts."""
+    share cards only over gloo), finite metrics and the global counts of
+    the runner's command line `args`."""
+    from open_duck_playground_tpu_torch.train import runner as rn
+
+    cli = rn.build_parser().parse_args(list(args))
     ok = True
     for rep in reps:
         r = rep["rank"]
@@ -1355,13 +1506,14 @@ def check_sharded(tag: str, backend: str, world: int, cards: int, reps: list, ou
                  devices=devices == own_cards and (backend == "gloo" or len(set(devices)) == world))
     with open(os.path.join(out, "run", "metrics.jsonl")) as f:
         lines = [json.loads(line) for line in f]
-    finite = len(lines) == 3 and all(
+    finite = len(lines) == cli.num_evals and all(
         math.isfinite(v) for line in lines for k, v in line.items()
         if k.startswith(("training/", "eval/")))
     for line in lines[1:]:
         log(f"[sharded] {tag} epoch at step {line['step']}: training/sps "
             f"{line['training/sps']:.1f}, eval/episode_reward {line['eval/episode_reward']:.4f}")
-    ok &= passed(f"sharded {tag}", metrics_finite=finite, env_steps=lines[-1]["step"] == 655360)
+    ok &= passed(f"sharded {tag}", metrics_finite=finite,
+                 env_steps=lines[-1]["step"] == cli.num_timesteps)
     log(f"[sharded] {tag}: devices {devices}; params identical on every rank {same_params}; "
         f"metrics finite {finite}; gpu {gpu_line()}; {'OK' if ok else 'FAIL'}")
     return ok
@@ -1379,7 +1531,8 @@ def rank_worker(out: str, backend: str, bodies: str = "graph") -> int:
     from open_duck_playground_tpu_torch.train import runner as rn
 
     args = rn.build_parser().parse_args(
-        ["--output_dir", os.path.join(out, "run"), *TRAINER_ARGS, "--dist_backend", backend])
+        ["--output_dir", os.path.join(out, "run"), *SHARDED_ARGS[bodies], "--dist_backend",
+         backend])
     shard = rn.init_distributed(args)
     try:
         rep = sharded_rank(rn.OpenDuckMiniV2Runner(args, shard), shard, out,
@@ -1443,6 +1596,8 @@ def sharded_rank(runner, shard, out: str, eager: bool = False) -> dict:
 
     dev = shard.device
     kw = runner.train_kwargs()
+    if eager:
+        kw["episode_length"] = EAGER_EVAL_STEPS
     nf = kw["network_factory"]
     T, B = kw["unroll_length"], kw["num_envs"]
     rows, eval_rows = shard.local(B), shard.local(kw["num_eval_envs"])
@@ -2320,8 +2475,8 @@ def kernel_entry(name: str, replaces: str, main: dict, report: dict, case: str) 
     """One entry of the kernels line: launches (the main path's captured
     run; launches_eager: its eager run; the fused launches one replay of
     the captured env step records), times and bound from the main path;
-    max_abs_err from phase 2's step variant at the main
-    path's shape, over all outputs (contact_dist over slots valid on both
+    max_abs_err from phase 3's control step at the main path's
+    shape, on its own last state, over all outputs (contact_dist over slots valid on both
     sides: a slot valid on one side only reads 1e10 on the other)."""
     rs = report[case]
     worst = max(rs, key=lambda f: rs[f]["max"])
@@ -2334,7 +2489,8 @@ def kernel_entry(name: str, replaces: str, main: dict, report: dict, case: str) 
         "launches_eager": main["launches_eager"],
         "launches_per_replay_env_step": main["launches_per_replay"],
         "max_abs_err": rs[worst]["max"],
-        "max_abs_err_of": f"{case}: step variant, all outputs; largest in {worst}",
+        "max_abs_err_of": f"{case}: step variant on the main path's last state, all outputs; "
+                          f"largest in {worst}",
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
@@ -2403,9 +2559,9 @@ def main() -> int:
 
     timed("1 build", phase_build)
     report = {}  # {case: {field: parity reading}}
-    ok = timed("2 kernel vs twin", phase_kernel_vs_twin, CASES, report)
-    flat = timed("3 flat main path", phase_main_path, *FLAT_MAIN)
-    rough = timed("3b rough main path", phase_main_path, *ROUGH_MAIN)
+    ok = timed("2 kernel vs twin", phase_kernel_vs_twin, CASES, report, SIDE_SUBSTEPS)
+    flat = timed("3 flat main path", phase_main_path, *FLAT_MAIN, report)
+    rough = timed("3b rough main path", phase_main_path, *ROUGH_MAIN, report)
     trainer = timed("4 trainer", phase_trainer, report)
     torch.cuda.empty_cache()  # phase 5's ranks share the card with this process
     sharded = timed("5 sharded trainer", phase_sharded)
