@@ -1,0 +1,8 @@
+"""Mean milliseconds of the trainer's rollout call (a CapturedRollout replay),
+CUDA events around the call, over the window's units."""
+
+from duckbench.readers import mean_ms
+
+
+def read(ctx):
+    return mean_ms(ctx, "rollout")
