@@ -28,6 +28,7 @@ import torch
 
 from open_duck_playground_tpu_torch.envs import randomize
 from open_duck_playground_tpu_torch.envs.types import State
+from open_duck_playground_tpu_torch.utils import profiling
 from open_duck_playground_tpu_torch.utils.graphs import (
     GraphedBody,
     clone_tree,
@@ -76,6 +77,11 @@ class TrainEnv:
         return self._env.observation_size
 
     def reset(self, generator: Optional[torch.Generator] = None) -> State:
+        """The batch's first state (the tracer's span ``env.reset``)."""
+        with profiling.span("env.reset", getattr(self._env, "device", None)):
+            return self._reset(generator)
+
+    def _reset(self, generator: Optional[torch.Generator]) -> State:
         state = self._env.reset_with_model(self.model, self.num_envs, generator)
         info = dict(state.info)
         dev = state.reward.device
@@ -87,6 +93,11 @@ class TrainEnv:
         return state.replace(info=info)
 
     def step(self, state: State, action: torch.Tensor) -> State:
+        """One step of every env (the tracer's span ``env.step``)."""
+        with profiling.span("env.step", action.device):
+            return self._step(state, action)
+
+    def _step(self, state: State, action: torch.Tensor) -> State:
         # --- auto-reset: restart finished envs from their first state ---
         done_prev = state.done
         data = _where_done(done_prev, state.info["first_data"], state.data)

@@ -16,7 +16,9 @@ the last substep, taken before its integration.
   picks the envs per block from the occupancy the runtime reports.
 - Tensors on the CPU run the kernel's plain PyTorch version
   (``lane_physics.LanePhysics``), the same program on ``(B,)`` tensors.
-- ``launches`` counts the kernel launches of this object, and nothing else.
+- ``launches`` counts the kernel launches of this object, and nothing else
+  (the tracer's ``physics.launches``); each call is the tracer's span
+  ``physics`` (utils/profiling.py).
 
 The model is data, not code: the structural arrays (and a rough scene's
 heightfield table) are packed once per device into tensors whose pointers
@@ -48,8 +50,11 @@ from open_duck_playground_tpu_torch.ops.lane_physics import (
     _np_quat_to_mat,
 )
 from open_duck_playground_tpu_torch.ops.types import JointType, Model, PairType
+from open_duck_playground_tpu_torch.utils import profiling
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "physics_step.cu")
+# the tracer's device time stamps (utils/profiling.py), built into the same library
+_STAMP_SRC = os.path.join(os.path.dirname(_SRC), "stamp.cu")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "kernels")
 NVCC_FLAGS = (
@@ -232,12 +237,15 @@ def _nvcc() -> str:
 
 
 def build_library(profile: bool = False) -> str:
-    """Compile the kernel (or reuse an earlier build of the same source);
+    """Compile the kernel and the tracer's stamp kernel (``csrc/stamp.cu``)
+    into one library, or reuse an earlier build of the same sources;
     returns the path of the shared library. Its ptxas report (registers,
     stack, spills) is written beside it as ``.log``. ``profile`` builds the
     variant that counts each stage's clock cycles (``-DDUCK_PROFILE``)."""
-    with open(_SRC, "rb") as f:
-        src = f.read()
+    src = b""
+    for path in (_SRC, _STAMP_SRC):
+        with open(path, "rb") as f:
+            src += f.read()
     flags = NVCC_FLAGS + (("-DDUCK_PROFILE",) if profile else ())
     key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     so = os.path.join(BUILD_DIR, f"libduck_physics_{key}.so")
@@ -245,7 +253,7 @@ def build_library(profile: bool = False) -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, _SRC],
+    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, _SRC, _STAMP_SRC],
                           capture_output=True, text=True)
     with open(so + ".log", "w") as f:
         f.write(proc.stdout + proc.stderr)
@@ -307,7 +315,18 @@ def _library(profile: bool = False):
          ctypes.c_int]
         + [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_void_p]
     )
+    lib.duck_stamp.restype = ctypes.c_int
+    lib.duck_stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong,
+                               ctypes.c_void_p]
     return lib
+
+
+def _stamp(ring: int, count: int, capacity: int, stream: int) -> int:
+    """The tracer's stamp kernel (``csrc/stamp.cu``): see profiling.stamp_with."""
+    return _library().duck_stamp(ring, count, capacity, stream)
+
+
+profiling.stamp_with(_stamp)
 
 
 def kernel_limits() -> Dict[str, int]:
@@ -548,6 +567,7 @@ class FusedPhysics:
         self.profile = profile  # launch the stage-counting build (stage_cycles)
         self.lane = LanePhysics(self.model)
         self.launches = 0
+        profiling.watch(self, "launches", "physics.launches")
         self._packed = None
         self._device_model = {}
 
@@ -563,11 +583,12 @@ class FusedPhysics:
         """qpos (B, nq), qvel / warm (B, nv), ctrl (B, nu); dr: flat (B, rows)
         DR fields or None. Returns the flat (B, width) outputs."""
         dev = qpos.device
-        if dev.type == "cpu":
-            return self.plain(qpos, qvel, warm, ctrl, n_substeps, dr)
-        if dev.type != "cuda":
+        if dev.type not in ("cpu", "cuda"):
             raise ValueError(f"fused physics step runs on cuda or cpu tensors, not {dev}")
-        return self._launch(qpos, qvel, warm, ctrl, n_substeps, dr)
+        with profiling.span("physics", dev):
+            if dev.type == "cpu":
+                return self.plain(qpos, qvel, warm, ctrl, n_substeps, dr)
+            return self._launch(qpos, qvel, warm, ctrl, n_substeps, dr)
 
     def plain(self, qpos, qvel, warm, ctrl, n_substeps: int, dr=None):
         """The kernel's plain PyTorch version (any device; the reference)."""

@@ -31,12 +31,13 @@ from __future__ import annotations
 import datetime
 import hashlib
 import os
-import time
 from typing import Callable, Dict, Generator, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from open_duck_playground_tpu_torch.utils import profiling
 
 
 class EnvShard:
@@ -46,9 +47,9 @@ class EnvShard:
     collectives of host values (hashes, the resume epoch) run there.
     `backend` is the process group's ("gloo", "nccl"; None without one).
 
-    ``collectives`` counts the collectives this shard has made; with
-    ``timed`` set, each one is bracketed by device synchronizations and its
-    host time added to ``collective_s``."""
+    ``collectives`` counts the collectives this shard has made (the
+    tracer's ``dist.collectives``); each is the tracer's span
+    ``dist.collective`` (utils/profiling.py)."""
 
     def __init__(self, rank: int = 0, world: int = 1, device=None,
                  backend: Optional[str] = None):
@@ -59,8 +60,7 @@ class EnvShard:
         self.device = torch.device(device if device is not None else "cpu")
         self.backend = backend
         self.collectives = 0
-        self.timed = False
-        self.collective_s = 0.0
+        profiling.watch(self, "collectives", "dist.collectives")
 
     @property
     def is_main(self) -> bool:
@@ -96,14 +96,8 @@ class EnvShard:
     # -- collectives ------------------------------------------------------------
     def _run(self, op: Callable[[], None]) -> None:
         self.collectives += 1
-        if not self.timed:
+        with profiling.span("dist.collective", self.device):
             op()
-            return
-        _sync(self.device)
-        t0 = time.perf_counter()
-        op()
-        _sync(self.device)
-        self.collective_s += time.perf_counter() - t0
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of `x` over the ranks (a new tensor; `x` is left as it is)."""
@@ -117,13 +111,9 @@ class EnvShard:
         the card has run what the current stream holds: the copy into it."""
         if self.world == 1:
             return buf
-
-        def op():
-            if buf.device.type == "cpu" and self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-            dist.all_reduce(buf)
-
-        self._run(op)
+        if buf.device.type == "cpu" and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self._run(lambda: dist.all_reduce(buf))
         return buf
 
     def all_gather_rows(self, x: torch.Tensor) -> torch.Tensor:
@@ -209,11 +199,6 @@ def _digest(tensors: Iterable[torch.Tensor]) -> bytes:
     for t in tensors:
         h.update(t.detach().reshape(-1).contiguous().cpu().view(torch.uint8).numpy().tobytes())
     return h.digest()
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def draw(shard: Optional[EnvShard], fn: Callable[..., torch.Tensor], shape: Sequence[int],

@@ -60,6 +60,7 @@ from open_duck_playground_tpu_torch.parallel.dist import (
 from open_duck_playground_tpu_torch.train import checkpoint as ckpt
 from open_duck_playground_tpu_torch.train import networks as nets
 from open_duck_playground_tpu_torch.train import optim
+from open_duck_playground_tpu_torch.utils import profiling
 from open_duck_playground_tpu_torch.utils.graphs import (
     GraphedBody,
     clone_tree,
@@ -229,7 +230,8 @@ def rollout(train_env: TrainEnv, env_state, normalizer, networks: nets.PPONetwor
     steps = []
     state = env_state
     for t in range(noise.shape[0]):
-        action, raw, log_prob = nets.sample_actions(networks, normalizer, state.obs, noise[t])
+        with profiling.span("policy", noise.device):
+            action, raw, log_prob = nets.sample_actions(networks, normalizer, state.obs, noise[t])
         nstate = train_env.step(state, action)
         steps.append(Transition(
             observation=state.obs, action=action, reward=nstate.reward,
@@ -314,6 +316,8 @@ class CapturedRollout:
                              "for: restore into them, do not rebind")
         T = noise.shape[0]
         span = self.span or T
+        dev = noise.device
+        copy_state = False
         if self.graph is None:
             state, static_noise, out = clone_tree(env_state), noise[:span].clone(), {}
             self.state, self.noise, self._out, self.unroll = state, static_noise, out, T
@@ -323,15 +327,20 @@ class CapturedRollout:
                 out["data"] = rollout_into(te, state, norm, nw, static_noise)[1]
 
             self.graph = GraphedBody(body, tree_leaves(state).values(), self.generators,
-                                     self.physics, noise.device, "[ppo] rollout", self.log,
+                                     self.physics, dev, "[ppo] rollout", self.log,
                                      extra={"env_steps_per_replay": span})
         elif T != self.unroll:
             raise ValueError(f"the captured rollout unrolls {self.unroll} steps, not {T}")
-        elif env_state is not self.state:
-            copy_into(self.state, env_state)
+        else:
+            copy_state = env_state is not self.state
         for t in range(0, T, span):
-            self.noise.copy_(noise[t:t + span])
-            self.graph.replay()
+            with profiling.span("ppo.rollout.copy_in", dev):
+                if copy_state:
+                    copy_into(self.state, env_state)
+                    copy_state = False
+                self.noise.copy_(noise[t:t + span])
+            with profiling.span("ppo.rollout.replay"):
+                self.graph.replay()
             if span < T:
                 if self.data is None:
                     self.data = tree_map(lambda x: x.new_empty((T,) + x.shape[1:]),
@@ -572,10 +581,13 @@ class CapturedSGDStep:
                                         name="[ppo] SGD step", log=self.log, extra=extra,
                                         between=between)
         else:
-            copy_into(self.inputs, inputs)
-        self._graphed.replay()
+            with profiling.span("ppo.sgd.copy_in", self.device):
+                copy_into(self.inputs, inputs)
+        with profiling.span("ppo.sgd.replay"):
+            self._graphed.replay()
         self.replays += 1
-        return training_state, {k: v.clone() for k, v in self._out["losses"].items()}
+        with profiling.span("ppo.sgd.losses", self.device):
+            return training_state, {k: v.clone() for k, v in self._out["losses"].items()}
 
 
 def make_sgd_step(training_state: TrainingState, hp: Hyper, shard: Optional[EnvShard] = None,
@@ -626,11 +638,12 @@ def draw_training_step(generator: torch.Generator, hp: Hyper, action_size: int, 
     [T, num_envs, A], the epochs' permutations [E, num_envs], the minibatches'
     entropy noise [E, nmb, T, b, A]."""
     T, E = hp.unroll_length, hp.num_updates_per_batch
-    noise = torch.randn((T, hp.num_envs, action_size), generator=generator, device=device)
-    perms = torch.stack([torch.randperm(hp.num_envs, generator=generator, device=device)
-                         for _ in range(E)])
-    ent = torch.randn((E, hp.num_minibatches, T, hp.batch_size, action_size),
-                      generator=generator, device=device)
+    with profiling.span("ppo.draws", device):
+        noise = torch.randn((T, hp.num_envs, action_size), generator=generator, device=device)
+        perms = torch.stack([torch.randperm(hp.num_envs, generator=generator, device=device)
+                             for _ in range(E)])
+        ent = torch.randn((E, hp.num_minibatches, T, hp.batch_size, action_size),
+                          generator=generator, device=device)
     return noise, perms, ent
 
 
@@ -642,15 +655,18 @@ def training_step(training_state: TrainingState, train_env: TrainEnv, env_state,
     Returns (training_state, env_state, {name: mean loss}). With a shard,
     `env_state` is this rank's rows and `draws` the global draws: the
     rollout takes its rows of the policy noise."""
-    noise, perms, ent = draws
-    if shard is not None:
-        noise = shard.take(noise, dim=1)
-    env_state, data = roll(train_env, env_state, training_state.normalizer,
-                           training_state.params, noise)
-    training_state, aux = sgd(training_state, data, perms, ent, hp, shard)
-    training_state = training_state.replace(
-        env_steps=training_state.env_steps + hp.env_steps_per_training_step)
-    return training_state, env_state, {k: v.mean() for k, v in aux.items()}
+    with profiling.span("ppo.training_step", unit=True):
+        noise, perms, ent = draws
+        if shard is not None:
+            noise = shard.take(noise, dim=1)
+        with profiling.span("ppo.rollout"):
+            env_state, data = roll(train_env, env_state, training_state.normalizer,
+                                   training_state.params, noise)
+        with profiling.span("ppo.sgd"):
+            training_state, aux = sgd(training_state, data, perms, ent, hp, shard)
+        training_state = training_state.replace(
+            env_steps=training_state.env_steps + hp.env_steps_per_training_step)
+        return training_state, env_state, {k: v.mean() for k, v in aux.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -679,7 +695,15 @@ def eval_step(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
               shard: Optional[EnvShard] = None) -> EvalCarry:
     """One step of every eval env, each env's sums masked once it is done.
     The stochastic policy draws its noise from `generator` (at the global
-    shape with a shard)."""
+    shape with a shard). The tracer's span ``ppo.eval_step``, a unit."""
+    with profiling.span("ppo.eval_step", unit=True):
+        return _eval_step(eval_env, normalizer, networks, generator, carry, deterministic, shard)
+
+
+def _eval_step(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
+               generator: torch.Generator, carry: EvalCarry, deterministic: bool,
+               shard: Optional[EnvShard]) -> EvalCarry:
+    """`eval_step`'s body (what CapturedEvalStep records)."""
     state = carry.state
     if deterministic:
         action, _ = networks.make_policy_fn(deterministic=True)((normalizer, networks), state.obs)
@@ -735,20 +759,25 @@ class CapturedEvalStep:
         if not _same_tensors(_policy_tensors(normalizer, networks), self._policy):
             raise ValueError("the captured eval step reads the params and normalizer it was "
                              "made for: restore into them, do not rebind")
-        if self.graph is None:
-            buffers = self.carry = clone_tree(carry)
-            ev, norm, nw, g, det, sh = (self.eval_env, self.normalizer, self.networks,
-                                        self.generator, self.deterministic, self.shard)
+        dev = carry.sums.device
+        with profiling.span("ppo.eval_step", unit=True):
+            if self.graph is None:
+                buffers = self.carry = clone_tree(carry)
+                ev, norm, nw, g, det, sh = (self.eval_env, self.normalizer, self.networks,
+                                            self.generator, self.deterministic, self.shard)
 
-            def body():  # references no `self` (see GraphedBody)
-                copy_into(buffers, eval_step(ev, norm, nw, g, buffers, det, sh))
+                def body():  # references no `self` (see GraphedBody)
+                    with torch.no_grad():
+                        copy_into(buffers, _eval_step(ev, norm, nw, g, buffers, det, sh))
 
-            self.graph = GraphedBody(body, tree_leaves(buffers).values(), self.generators,
-                                     self.physics, carry.sums.device, "[ppo] eval step", self.log)
-        elif carry is not self.carry:
-            copy_into(self.carry, carry)
-        self.graph.replay()
-        return self.carry
+                self.graph = GraphedBody(body, tree_leaves(buffers).values(), self.generators,
+                                         self.physics, dev, "[ppo] eval step", self.log)
+            elif carry is not self.carry:
+                with profiling.span("ppo.eval_step.copy_in", dev):
+                    copy_into(self.carry, carry)
+            with profiling.span("ppo.eval_step.replay"):
+                self.graph.replay()
+            return self.carry
 
     @property
     def replays(self) -> int:
@@ -782,7 +811,16 @@ def run_eval(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
     stochastic policy draws its noise from `generator`. With a shard,
     `eval_env` holds this rank's rows: the noise is drawn at the global
     shape, and the per-env sums are gathered from every rank before the
-    mean and std are taken over all eval envs."""
+    mean and std are taken over all eval envs. The tracer's span
+    ``ppo.run_eval``, a unit."""
+    with profiling.span("ppo.run_eval", unit=True):
+        return _run_eval(eval_env, normalizer, networks, generator, episode_length,
+                         action_repeat, deterministic, shard, step)
+
+
+def _run_eval(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
+              generator: torch.Generator, episode_length: int, action_repeat: int,
+              deterministic: bool, shard: Optional[EnvShard], step) -> Dict[str, torch.Tensor]:
     carry = eval_start(eval_env.reset(generator))
     for _ in range(episode_length // action_repeat):
         carry = step(eval_env, normalizer, networks, generator, carry, deterministic, shard)
@@ -1196,15 +1234,13 @@ def train(
         if isinstance(sgd, CapturedSGDStep):
             bd["sgd_graph"] = sgd.info
         if shard.world > 1:
-            # once more with every collective between two device
-            # synchronizations: their count and time within an SGD step
-            n0, shard.collective_s, shard.timed = shard.collectives, 0.0, True
-            try:
+            # once more under the tracer: the collectives within an SGD step
+            # and the host time of their dist.collective spans
+            n0 = shard.collectives
+            with profiling.sample() as host_ms:
                 sgd(training_state, data0, draws0[1], draws0[2], hp, shard)
-            finally:
-                shard.timed = False
             bd["sgd_collectives"] = shard.collectives - n0
-            bd["sgd_collective_s"] = round(shard.collective_s, 4)
+            bd["sgd_collective_s"] = round(host_ms.get("dist.collective", 0.0) / 1e3, 4)
         t_step, _ = _timed(lambda: training_step(training_state, train_env, env_state, draws0,
                                                  hp, shard, sgd, roll))
         bd["training_step_s"] = round(t_step, 4)

@@ -17,7 +17,9 @@ into the buffers of another of the same structure.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import gc
 import inspect
 import json
@@ -26,6 +28,8 @@ import time
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
+
+from open_duck_playground_tpu_torch.utils import profiling
 
 
 def tree_map(fn, x):
@@ -92,6 +96,42 @@ def clone_tree(x):
 
 
 _END = object()  # what a body's run yields after its last segment
+# CUgraphNodeType (cudaGraphNodeType): the kinds of node a capture makes
+_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+@functools.lru_cache(maxsize=1)
+def _driver():
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.restype = ctypes.c_int
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.restype = ctypes.c_int
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    return cu
+
+
+def node_counts(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:
+    """The nodes of a captured graph (made with keep_graph=True) by kind:
+    kernel, memcpy, memset, other. Read from its cudaGraph_t through the
+    CUDA driver that torch's runtime calls (cuGraphGetNodes,
+    cuGraphNodeGetType: the runtime's cudaGraphGetNodes and
+    cudaGraphNodeGetType are these). A replay launches the kernel nodes,
+    and the CUDA driver runs each device-to-device memcpy node as a kernel of its
+    own too (the profiler's ``memcpy32_post``)."""
+    cu, g = _driver(), ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    err = cu.cuGraphGetNodes(g, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    err = err or cu.cuGraphGetNodes(g, nodes, ctypes.byref(n))
+    kind = ctypes.c_int(0)
+    counts = {k: 0 for k in (*_NODE_KINDS.values(), "other")}
+    for node in nodes:
+        err = err or cu.cuGraphNodeGetType(node, ctypes.byref(kind))
+        counts[_NODE_KINDS.get(kind.value, "other")] += 1
+    if err != 0:
+        raise RuntimeError(f"counting a graph's nodes failed: CUresult {err}")
+    return counts
 
 
 class GraphedBody:
@@ -108,7 +148,9 @@ class GraphedBody:
     FusedPhysics objects whose kernel the body launches. `log`, if given,
     gets one line "<name> captured: {info}" (seconds of the warm-up, the
     capture and the instantiation, the graph pool's bytes, the fused
-    launches per replay, the segments, and `extra`).
+    launches per replay, the kernel, memcpy and memset nodes summed over the
+    segments (`node_counts`; the kernel nodes without the tracer's stamp
+    nodes, counted apart), the segments, and `extra`).
 
     `capture()` (or the first `replay()`): the body runs once eagerly on a
     side stream, as a warm-up (cuBLAS workspaces of that stream, the fused
@@ -129,7 +171,18 @@ class GraphedBody:
     capture (destroying a graph is not permitted while a stream captures).
     For the same reason `body` should not reference the object that owns
     this GraphedBody: the pair would be a cycle that only the collector
-    frees."""
+    frees.
+
+    The tracer (utils/profiling.py): the capture is the span
+    ``graph.capture``, and the seconds of its warm-up, capture and
+    instantiation in `info` are its children ``graph.capture.warmup``,
+    ``.record`` and ``.instantiate`` (`profiling.add`). With the tracer on,
+    the device spans the body opens while a segment is captured become
+    that segment's template of stamps, which each replay of the segment
+    hands to the tracer. The node counts
+    are taken at every capture, the tracer on or off, and noted under
+    `name` (profiling.graphs); ``replays`` is the tracer's
+    ``graph.replays``."""
 
     def __init__(self, body: Callable[[], Any], buffers: Iterable[torch.Tensor],
                  generators: Iterable[torch.Generator] = (), physics: Iterable[Any] = (),
@@ -145,11 +198,13 @@ class GraphedBody:
         self.physics = list(physics)
         self.graphs: List[Any] = []
         self.points: List[Any] = []  # what each segment yields (_END after the last)
+        self.templates: List[Optional[profiling.Template]] = []  # each segment's stamps
         self.segment_capture_s: List[float] = []
         self.replays = 0
         self.launches_per_replay: List[int] = []
         self.info: Dict[str, Any] = {}
         self._extra = dict(extra or {})
+        profiling.watch(self, "replays", "graph.replays")
 
     @property
     def graph(self):
@@ -164,13 +219,17 @@ class GraphedBody:
             yield from out
 
     def capture(self) -> None:
+        with profiling.span("graph.capture"):
+            self._capture()
+
+    def _capture(self) -> None:
         dev = self.device
         with torch.no_grad():
             saved = [t.clone() for t in self.buffers]
         gen_states = [g.get_state() for g in self.generators]
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         with torch.cuda.stream(stream):
             for point in self._run():
                 self.between(point)
@@ -181,43 +240,63 @@ class GraphedBody:
         for g, s in zip(self.generators, gen_states):
             g.set_state(s)
         torch.cuda.synchronize(dev)
-        warmup_s = time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        profiling.add("graph.capture.warmup", t0, t1)
         del saved
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         pool = torch.cuda.graph_pool_handle()
         counts = [p.launches for p in self.physics]
-        graphs, points, seconds = [], [], []
+        graphs, points, seconds, templates = [], [], [], []
         run = self._run()
         gc.collect()
         collecting = gc.isenabled()
         gc.disable()
+        t2 = time.perf_counter_ns()
         try:
             while not points or points[-1] is not _END:
                 graph = torch.cuda.CUDAGraph(keep_graph=True)
                 for g in self.generators:
                     graph.register_generator_state(g)
-                t0 = time.perf_counter()
-                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                tpl = profiling.template(dev)
+                t_seg = time.perf_counter()
+                with torch.cuda.graph(graph, pool=pool, stream=stream), profiling.recording(tpl):
                     points.append(next(run, _END))
-                seconds.append(time.perf_counter() - t0)
+                seconds.append(time.perf_counter() - t_seg)
                 graphs.append(graph)
+                templates.append(tpl if tpl is not None and tpl.entries else None)
         finally:
             if collecting:
                 gc.enable()
+        t3 = time.perf_counter_ns()
+        profiling.add("graph.capture.record", t2, t3)
         self.launches_per_replay = [p.launches - n for p, n in zip(self.physics, counts)]
         for p, n in zip(self.physics, counts):
             p.launches = n  # the capture launched nothing
-        t0 = time.perf_counter()
+        t4 = time.perf_counter_ns()
         for graph in graphs:
             graph.instantiate()
         torch.cuda.synchronize(dev)
+        t5 = time.perf_counter_ns()
+        profiling.add("graph.capture.instantiate", t4, t5)
         self.graphs, self.points, self.segment_capture_s = graphs, points, seconds
-        self.info = {"warmup_s": round(warmup_s, 4), "capture_s": round(sum(seconds), 4),
-                     "instantiate_s": round(time.perf_counter() - t0, 4),
+        self.templates = templates
+        stamps = sum(t.n for t in templates if t is not None)
+        nodes = {f"{k}_nodes": 0 for k in _NODE_KINDS.values()}
+        for graph in graphs:
+            for k, n in node_counts(graph).items():
+                if k in _NODE_KINDS.values():
+                    nodes[f"{k}_nodes"] += n
+        nodes["kernel_nodes"] -= stamps  # the program's kernels, the tracer's left out
+        profiling.note_graph(self.name, **nodes, segments=len(graphs))
+        self.info = {"warmup_s": round((t1 - t0) / 1e9, 4),
+                     "capture_s": round((t3 - t2) / 1e9, 4),
+                     "instantiate_s": round((t5 - t4) / 1e9, 4),
                      "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
                      "fused_launches_per_replay": sum(self.launches_per_replay),
-                     **self._extra}
+                     **nodes, **self._extra}
+        if stamps:
+            self.info["stamp_nodes"] = stamps
         if len(graphs) > 1:
             self.info.update(segments=len(graphs),
                              segment_capture_s_median=round(statistics.median(seconds), 6),
@@ -228,8 +307,10 @@ class GraphedBody:
     def replay(self) -> None:
         if not self.graphs:
             self.capture()
-        for graph, point in zip(self.graphs, self.points):
+        for graph, point, tpl in zip(self.graphs, self.points, self.templates):
             graph.replay()
+            if tpl is not None:
+                profiling.replayed(tpl)
             if point is not _END:
                 self.between(point)
         self.replays += 1

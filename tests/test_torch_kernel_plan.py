@@ -175,10 +175,14 @@ def test_source_model_struct_matches_the_wrapper():
 
 
 def test_source_defines_every_entry_point_the_wrapper_binds():
+    """Every function bound from the library is defined in one of its two
+    sources: the kernel's and the tracer's stamp (csrc/stamp.cu)."""
     with open(cuda_step.__file__) as f:
         bound = set(re.findall(r"lib\.(duck_\w+)", f.read()))
-    defined = set(re.findall(r"^int (duck_\w+)\(", SOURCE, re.M))
-    assert bound and bound <= defined
+    with open(cuda_step._STAMP_SRC) as f:
+        stamp = f.read()
+    defined = set(re.findall(r"^int (duck_\w+)\(", SOURCE + stamp, re.M))
+    assert bound and bound <= defined and "duck_stamp" in bound
 
 
 def test_profile_stage_names_match_the_source():

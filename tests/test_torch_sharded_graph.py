@@ -127,7 +127,8 @@ def test_collective_points_are_fixed_buffers_summed_in_place(ranks):
     """sgd_collectives' count of points (2 per obs key, 3 per minibatch
     step: 28 here), the same buffer objects at the same addresses in two
     runs on one Collectives, one buffer per kind of point; all_reduce_sum_
-    sums in place, counts itself, and adds its time in timed mode."""
+    sums in place, counts itself, and is one dist.collective span of the
+    tracer, with its host time, when the tracer is on."""
     hp = seg_hyper()
     want = 2 * len(SEG_OBS) + 3 * hp.num_updates_per_batch * hp.num_minibatches
     for r in ranks:
@@ -136,7 +137,10 @@ def test_collective_points_are_fixed_buffers_summed_in_place(ranks):
         assert first == second
         assert len(set(first)) == 2 * len(SEG_OBS) + 3
         inp = r["in_place"]
-        assert inp["same"] and inp["counted"] == 2 and inp["timed_s"] > 0
+        assert inp["same"] and inp["counted"] == 2
+        assert list(inp["spans"]) == ["dist.collective"]
+        assert inp["spans"]["dist.collective"]["count"] == 1
+        assert inp["spans"]["dist.collective"]["host_ms"] > 0
         np.testing.assert_array_equal(inp["value"], [6.0, 8.0])  # (1 + 2, 2 + 2), summed twice
 
 

@@ -30,6 +30,7 @@ from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
 from open_duck_playground_tpu_torch.parallel import dist as pdist
 from open_duck_playground_tpu_torch.train import checkpoint as ckpt
 from open_duck_playground_tpu_torch.train import optim, ppo
+from open_duck_playground_tpu_torch.utils import profiling
 from open_duck_playground_tpu_torch.utils.graphs import tree_map
 
 
@@ -524,13 +525,16 @@ def sgd_segment_checks(shard, hp_kw, seed: int) -> Dict[str, Any]:
     buf = torch.tensor([1.0 + shard.rank, 2.0])
     n0 = shard.collectives
     same = shard.all_reduce_sum_(buf) is buf
-    shard.timed, shard.collective_s = True, 0.0
+    profiling.enable()
     try:
+        profiling.reset()
         shard.all_reduce_sum_(buf)
+        spans = profiling.summary()["spans"]
     finally:
-        shard.timed = False
+        profiling.disable()
+        profiling.reset()
     out["in_place"] = {"same": same, "value": buf.numpy(), "counted": shard.collectives - n0,
-                       "timed_s": shard.collective_s}
+                       "spans": spans}
     return out
 
 
