@@ -37,6 +37,12 @@ Phases:
    line's max_abs_err);
 3b. the rough main path: the same with Joystick("rough_terrain_backlash")
    at 8192 envs, through the kernel's heightfield branch;
+4a. the optimizer's kernel (ops/csrc/adam.cu, optim.clip_and_adam) against
+   the plain functions (clip_by_global_norm + adam) at the recipe's 16
+   parameter tensors, bit for bit over 3 steps, with the clip, without it,
+   and on gradient views no tensor of which is 16-byte aligned; its time
+   per launch, the fused and the plain step's and torch.optim.Adam's fused
+   step's, each from calls recorded in one CUDA graph (phase_optimizer);
 4. the trainer: first the captured SGD step against its eager body
    (sgd_graph_vs_eager: SGD_GRAPH_STEPS steps at the recipe's widths,
    equal bit for bit; host launches per minibatch step, capture seconds,
@@ -52,7 +58,8 @@ Phases:
    at every epoch (metrics.jsonl), the normalizer's count and env_steps, the
    kernel launches of the train env and of the eval env against the count
    the code gives, that the last (normalizer, params) checkpoint acts
-   bit-identically, that the exported ONNX (numpy interpreter) matches the
+   bit-identically, the optimizer kernel's launches (one per minibatch
+   step), that the exported ONNX (numpy interpreter) matches the
    policy on the card within 1e-5, and that the last full-state checkpoint
    loads back tensor for tensor; then holds the kernel against its twin on
    this path's inputs (trainer_vs_twin): the train env at 8192 envs with
@@ -165,7 +172,10 @@ and the twin's for one control step, and its bound: the larger of the
 twin's arithmetic (counted per env and substep on the CPU under a torch
 dispatch mode, both sides of every `where` included) over the H100's 67
 TFLOP/s of float32 and the bytes it must move (state, DR fields, table and
-outputs, each once) over 3.35 TB/s.
+outputs, each once) over 3.35 TB/s. Its last entry, duck_adam, is the
+optimizer's kernel: its launches in phases 4 and 6, the largest |kernel -
+plain functions| of phase 4a, its time per launch, the plain and the
+library step's, and its bound by bytes.
 
 Assets: $OPEN_DUCK_ASSETS if set, else the generated stand-in duck
 (tests/duck_standin.py), written into build/standin_assets/.
@@ -249,6 +259,14 @@ PROFILE_WARMUP, PROFILE_STEPS = 10, 20
 # of its one-step graph), and the steps of the eval held against the eager
 # one
 SGD_GRAPH_STEPS = 2
+# phase 4a: the optimizer's kernel against the plain functions, (max grad
+# norm, gradients as views into one flat buffer from a one-float offset: no
+# tensor 16-byte aligned, so every element takes the kernel's scalar path;
+# the env-sharded step hands over such views of its summed buffer), each 3
+# steps with gradient norms ADAM_NORMS; then calls recorded per timed graph
+ADAM_CASES = ((1.0, False), (None, False), (1.0, True))
+ADAM_NORMS = (25.0, 0.5, 3.0)
+ADAM_TIMED_LAUNCHES, ADAM_TIMED_STEPS = 200, 50
 ROLLOUT_GRAPH_ROLLOUTS = 2
 PIPELINE_ROLLOUT_STEPS = 10
 EVAL_CHECK_STEPS = 200
@@ -908,6 +926,135 @@ def phase_pipeline(report: dict) -> dict:
     return dict(ok=ok, runs=runs, trainer=trainer)
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device ms per call of `fn`: `reps` calls recorded in one CUDA graph
+    (after one warm-up call on the capture's stream), its replay timed by
+    CUDA events."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(graph.replay, reps=3) / reps
+    del graph
+    return ms
+
+
+def phase_optimizer() -> dict:
+    """Phase 4a: the optimizer's kernel (ops/csrc/adam.cu, through
+    optim.clip_and_adam) against the plain functions (clip_by_global_norm
+    then adam, the CPU's path) on the card, at the recipe's 16 parameter
+    tensors (both (512, 256, 128) MLPs of the joystick task: 493,469
+    floats). For each of ADAM_CASES, two copies of one state take 3 steps
+    on the same gradients (global norms ADAM_NORMS: the clip taken, not
+    taken, taken): params, count, mu and nu must be equal bit for bit, on
+    the same tensor objects, with one launch per step
+    (cuda_step.ADAM.launches). Then, on copies, device ms per call from
+    calls recorded in one CUDA graph (as the SGD graph runs them): the
+    kernel alone (ms, ADAM_TIMED_LAUNCHES launches), the whole fused step
+    with its norm and bias corrections (ms_step), the plain functions' step
+    (plain_ms) and torch.optim.Adam's fused step (library_ms: capturable,
+    no clip; ADAM_TIMED_STEPS steps each); the bound is the kernel's bytes,
+    p, g, m, v read and p, m, v written (28 B a float), at 3.35 TB/s."""
+    from open_duck_playground_tpu_torch.ops import cuda_step
+    from open_duck_playground_tpu_torch.train import networks as nets
+    from open_duck_playground_tpu_torch.train import optim
+
+    dev = torch.device("cuda")
+    lr = 3e-4
+    net = nets.PPONetworks(OBS_SIZES["joystick"], 14, generator=torch.Generator().manual_seed(0))
+    init = [p.detach().to(dev) for p in net.parameters()]
+    numel = sum(p.numel() for p in init)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def gradients(norm: float, views: bool):
+        g = [torch.randn(p.shape, generator=gen, device=dev) for p in init]
+        g = [x * (norm / float(optim.global_norm(g))) for x in g]
+        if not views:
+            return g
+        flat = torch.cat([g[0].new_zeros(1)] + [x.reshape(-1) for x in g])
+        out, at = [], 1
+        for x in g:
+            out.append(flat[at:at + x.numel()].view_as(x))
+            at += x.numel()
+        return out
+
+    def plain_step(params, grads, state, max_grad_norm):
+        if max_grad_norm is not None:
+            grads = optim.clip_by_global_norm(grads, max_grad_norm)
+        optim.adam(params, grads, state, lr)
+
+    ok, worst, cases = True, 0.0, []
+    for max_grad_norm, views in ADAM_CASES:
+        params = [p.clone() for p in init]
+        state = optim.adam_init(params)
+        ref_params, ref = [p.clone() for p in init], optim.adam_init(init)
+        tensors = [*params, state.count, *state.mu, *state.nu]
+        launches = cuda_step.ADAM.launches
+        for norm in ADAM_NORMS:
+            g = gradients(norm, views)
+            optim.clip_and_adam(params, g, state, lr, max_grad_norm)
+            plain_step(ref_params, g, ref, max_grad_norm)
+        torch.cuda.synchronize()
+        launches = cuda_step.ADAM.launches - launches
+        after = [*params, state.count, *state.mu, *state.nu]
+        want = [*ref_params, ref.count, *ref.mu, *ref.nu]
+        same_objects = all(a is b for a, b in zip(after, tensors))
+        equal = all(bitwise_equal(a, b) for a, b in zip(after, want))
+        err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(after, want))
+        worst = max(worst, err)
+        tag = f"clip {max_grad_norm}, {'unaligned views' if views else 'aligned'}"
+        ok &= passed(f"optimizer kernel vs plain functions ({tag})", equal=equal,
+                     same_tensors=same_objects, one_launch_per_step=launches == len(ADAM_NORMS))
+        cases.append({"case": tag, "equal": equal, "max_abs_err": err, "launches": launches})
+        log(f"[optimizer] {tag}: {len(ADAM_NORMS)} steps, bit for bit {equal}, max |d| {err}, "
+            f"launches {launches}")
+
+    # timings on copies; the launches recorded here are no step of the trainer
+    launches = cuda_step.ADAM.launches
+    params = [p.clone() for p in init]
+    state = optim.adam_init(params)
+    g = gradients(ADAM_NORMS[0], False)
+    norm = optim.global_norm(g)
+    bc1, bc2 = torch.full((), 0.1, device=dev), torch.full((), 0.001, device=dev)
+    timed = {
+        "ms": graph_ms(lambda: cuda_step.adam_step(params, g, state.mu, state.nu, norm, bc1, bc2,
+                                                   1.0, 0.9, 0.999, 1e-8, lr),
+                       ADAM_TIMED_LAUNCHES),
+        "ms_step": graph_ms(lambda: optim.clip_and_adam(params, g, state, lr, 1.0),
+                            ADAM_TIMED_STEPS),
+        "plain_ms": graph_ms(lambda: plain_step(params, g, state, 1.0), ADAM_TIMED_STEPS)}
+    cuda_step.ADAM.launches = launches
+    try:
+        lib_params = [torch.nn.Parameter(p.clone()) for p in init]
+        for p, x in zip(lib_params, g):
+            p.grad = x.clone()
+        opt = torch.optim.Adam(lib_params, lr=lr, eps=1e-8, fused=True, capturable=True)
+        for _ in range(3):
+            opt.step()
+        torch.cuda.synchronize()
+        timed["library_ms"] = graph_ms(opt.step, ADAM_TIMED_STEPS)
+        library_error = None
+    except Exception as e:  # a reading, not a check: the PyTorch build may not capture it
+        timed["library_ms"], library_error = None, f"{type(e).__name__}: {e}"
+    bound_ms = 28 * numel / PEAK_BYTES_PER_S * 1e3
+    log(f"[optimizer] {len(init)} tensors, {numel} floats: kernel {timed['ms'] * 1e3:.3f} us a "
+        f"launch ({bound_ms * 1e3:.3f} us bound by bytes, {100 * bound_ms / timed['ms']:.1f}% of "
+        f"it); one step fused {timed['ms_step']:.4f} ms, plain {timed['plain_ms']:.4f} ms, "
+        f"torch.optim.Adam fused {timed['library_ms']} ms"
+        f"{'' if library_error is None else f' ({library_error})'}; gpu {gpu_line()}")
+    ok &= passed("optimizer kernel", tensors=len(init) == 16, floats=numel == 493469)
+    log(f"[optimizer] {'OK' if ok else 'FAIL'}")
+    del params, state, g, net
+    torch.cuda.empty_cache()
+    return dict(ok=ok, cases=cases, max_abs_err=worst, numel=numel, bound_ms=bound_ms,
+                library_error=library_error, **timed)
+
+
 def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> dict:
     """ppo.train through the runner on the card at the recipe's widths, with
     every kernel launch counted from 0 just before the call; then the kernel
@@ -919,6 +1066,7 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
     from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
     from open_duck_playground_tpu_torch.export.onnx_infer import NumpyOnnxSession
     from open_duck_playground_tpu_torch.export.onnx_model import load_model
+    from open_duck_playground_tpu_torch.ops import cuda_step
     from open_duck_playground_tpu_torch.train import checkpoint as ckpt
     from open_duck_playground_tpu_torch.train import networks as nets
     from open_duck_playground_tpu_torch.train import optim, ppo
@@ -958,6 +1106,7 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
 
     runner.env.physics.launches = 0
     runner.eval_env.physics.launches = 0
+    cuda_step.ADAM.launches = 0
     t0 = time.perf_counter()
     with captured_programs() as made:
         make_policy, (normalizer, params), metrics = ppo.train(
@@ -967,6 +1116,10 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
     t_train = time.perf_counter() - t0
     launches = {"train_env": runner.env.physics.launches,
                 "eval_env": runner.eval_env.physics.launches}
+    # the optimizer's kernel: one launch per minibatch step, in the SGD
+    # capture's warm-up and in every replay
+    mb_steps = E * nmb
+    opt_launches, want_opt = cuda_step.ADAM.launches, mb_steps * (1 + want_replays["SGD step"])
     bd = ppo.LAST_PROFILE_BREAKDOWN
     replays = {name: [c.replays for c in made.get(name, [])] for name in want_replays}
     graph_ok = replays == {name: [n] for name, n in want_replays.items()}
@@ -976,6 +1129,9 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
         f"rollout {json.dumps(bd.get('rollout_graph'))}, SGD step "
         f"{json.dumps(bd.get('sgd_graph'))}, eval step {json.dumps(bd.get('eval_graph'))}")
     log(f"[{label}] profile_breakdown {json.dumps(bd)}")
+    log(f"[{label}] optimizer kernel launches {opt_launches} (want {want_opt}: {mb_steps} per "
+        f"SGD replay and in the capture's warm-up); recorded per SGD replay "
+        f"{bd.get('sgd_graph', {}).get('fused_launches_per_replay')}")
     log(f"[{label}] rollout_s {bd['rollout_s']}, training_step_s {bd['training_step_s']}, "
         f"eval_s {bd['eval_s']}, sgd_s {bd['sgd_s']}; gpu {gpu_line()}")
 
@@ -1061,9 +1217,10 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
                 kernel_vs_twin=parity_ok, sgd_graph_vs_eager=graph["ok"],
                 rollout_graph_vs_eager=roll_graph["ok"], eval_graph_vs_eager=evals["ok"],
                 graph_replays=graph_ok, resume=resumed["ok"],
-                launches=launches == want_launches)
+                launches=launches == want_launches, optimizer_launches=opt_launches == want_opt)
     log(f"[{label}] {'OK' if ok else 'FAIL'}")
-    return dict(ok=ok, launches=launches, breakdown=bd, onnx=onnx_path, sgd_graph=graph,
+    return dict(ok=ok, launches=launches, optimizer_launches=opt_launches, breakdown=bd,
+                onnx=onnx_path, sgd_graph=graph,
                 rollout_graph=roll_graph, eval_graph=evals,
                 sps=[line["training/sps"] for line in lines if "training/sps" in line])
 
@@ -2534,6 +2691,36 @@ def sharded_entry(run: dict, eager: dict) -> dict:
     }
 
 
+def optimizer_entry(opt: dict, trainer: dict, standing: dict) -> dict:
+    """The kernels line's entry of the optimizer's kernel: launches on the
+    trainer's path (phase 4; launches_standing: phase 6) and per SGD
+    replay; max_abs_err against the plain functions and the times from
+    phase 4a (ms: one launch; ms_step: one fused clip + Adam step, norm and
+    bias corrections included; plain_ms: the plain functions' step;
+    library_ms: torch.optim.Adam's fused step, no clip)."""
+    return {
+        "name": "duck_adam",
+        "route": "cuda",
+        "source": "open_duck_playground_tpu_torch/ops/csrc/adam.cu",
+        "replaces": "none: the counterpart of XLA's fusion of optax's clip_by_global_norm + adam "
+                    "in open_duck_playground_tpu/train/ppo.py:263 (sgd_step)",
+        "launches": trainer["optimizer_launches"],
+        "launches_standing": standing["optimizer_launches"],
+        "launches_per_replay_sgd_step": trainer["breakdown"]["sgd_graph"][
+            "fused_launches_per_replay"],
+        "max_abs_err": opt["max_abs_err"],
+        "max_abs_err_of": f"phase 4a: params, count, mu, nu after {len(ADAM_NORMS)} steps; "
+                          f"{'; '.join(c['case'] for c in opt['cases'])}",
+        "ms": opt["ms"],
+        "ms_step": opt["ms_step"],
+        "plain_ms": opt["plain_ms"],
+        "bound_ms": opt["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": opt["library_ms"],
+        "library_of": "torch.optim.Adam(fused=True, capturable=True).step(), no clip",
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2562,6 +2749,7 @@ def main() -> int:
     ok = timed("2 kernel vs twin", phase_kernel_vs_twin, CASES, report, SIDE_SUBSTEPS)
     flat = timed("3 flat main path", phase_main_path, *FLAT_MAIN, report)
     rough = timed("3b rough main path", phase_main_path, *ROUGH_MAIN, report)
+    optimizer = timed("4a optimizer kernel", phase_optimizer)
     trainer = timed("4 trainer", phase_trainer, report)
     torch.cuda.empty_cache()  # phase 5's ranks share the card with this process
     sharded = timed("5 sharded trainer", phase_sharded)
@@ -2570,11 +2758,12 @@ def main() -> int:
     pipeline = timed("8 pipeline", phase_pipeline, report)
     profiled = timed("9 profile and deploy tools", phase_profile, trainer["onnx"])
     log(f"[chip_smoke] seconds per phase {json.dumps(seconds)}")
-    if not (ok and flat["ok"] and rough["ok"] and trainer["ok"]
+    if not (ok and flat["ok"] and rough["ok"] and optimizer["ok"] and trainer["ok"]
             and all(run["ok"] for run in sharded) and standing["ok"] and deploy["ok"]
             and pipeline["ok"] and profiled["ok"]):
         phases = {"2 kernel vs twin": ok, "3 flat main path": flat["ok"],
-                  "3b rough main path": rough["ok"], "4 trainer": trainer["ok"],
+                  "3b rough main path": rough["ok"], "4a optimizer kernel": optimizer["ok"],
+                  "4 trainer": trainer["ok"],
                   "5 sharded trainer": all(run["ok"] for run in sharded),
                   "6 standing trainer": standing["ok"], "7 deploy": deploy["ok"],
                   "8 pipeline": pipeline["ok"], "9 profile and deploy tools": profiled["ok"]}
@@ -2621,6 +2810,7 @@ def main() -> int:
                      "open_duck_playground_tpu/ops/pallas_step.py:225 (has_hf=True)",
                      rough, report, f"{ROUGH_MAIN[0]} B={ROUGH_MAIN[1]} dr=1 step"),
         sharded_entry(sharded[0], sharded[1]),
+        optimizer_entry(optimizer, trainer, standing),
     ]}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,6 +20,10 @@ the last substep, taken before its integration.
   (the tracer's ``physics.launches``); each call is the tracer's span
   ``physics`` (utils/profiling.py).
 
+The same library holds the optimizer's kernel (``csrc/adam.cu``, launched by
+``adam_step`` for ``train/optim.py``'s ``clip_and_adam``) and the tracer's
+stamp kernel (``csrc/stamp.cu``).
+
 The model is data, not code: the structural arrays (and a rough scene's
 heightfield table) are packed once per device into tensors whose pointers
 the kernel reads at run time. Every scene of the duck runs through it:
@@ -53,8 +57,10 @@ from open_duck_playground_tpu_torch.ops.types import JointType, Model, PairType
 from open_duck_playground_tpu_torch.utils import profiling
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "physics_step.cu")
-# the tracer's device time stamps (utils/profiling.py), built into the same library
+# built into the same library: the tracer's device time stamps (utils/profiling.py)
+# and the trainer's clip + Adam step (train/optim.py clip_and_adam)
 _STAMP_SRC = os.path.join(os.path.dirname(_SRC), "stamp.cu")
+_ADAM_SRC = os.path.join(os.path.dirname(_SRC), "adam.cu")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "kernels")
 NVCC_FLAGS = (
@@ -237,13 +243,15 @@ def _nvcc() -> str:
 
 
 def build_library(profile: bool = False) -> str:
-    """Compile the kernel and the tracer's stamp kernel (``csrc/stamp.cu``)
-    into one library, or reuse an earlier build of the same sources;
-    returns the path of the shared library. Its ptxas report (registers,
-    stack, spills) is written beside it as ``.log``. ``profile`` builds the
-    variant that counts each stage's clock cycles (``-DDUCK_PROFILE``)."""
+    """Compile the kernel, the tracer's stamp kernel (``csrc/stamp.cu``) and
+    the optimizer's kernel (``csrc/adam.cu``) into one library, or reuse an
+    earlier build of the same sources; returns the path of the shared
+    library. Its ptxas report (registers, stack, spills) is written beside
+    it as ``.log``. ``profile`` builds the variant that counts each stage's
+    clock cycles (``-DDUCK_PROFILE``)."""
     src = b""
-    for path in (_SRC, _STAMP_SRC):
+    sources = (_SRC, _STAMP_SRC, _ADAM_SRC)
+    for path in sources:
         with open(path, "rb") as f:
             src += f.read()
     flags = NVCC_FLAGS + (("-DDUCK_PROFILE",) if profile else ())
@@ -253,7 +261,7 @@ def build_library(profile: bool = False) -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, _SRC, _STAMP_SRC],
+    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, *sources],
                           capture_output=True, text=True)
     with open(so + ".log", "w") as f:
         f.write(proc.stdout + proc.stderr)
@@ -318,6 +326,10 @@ def _library(profile: bool = False):
     lib.duck_stamp.restype = ctypes.c_int
     lib.duck_stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong,
                                ctypes.c_void_p]
+    lib.duck_adam.restype = ctypes.c_int
+    lib.duck_adam.argtypes = ([ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 4
+                              + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 3
+                              + [ctypes.c_float] * 7 + [ctypes.c_void_p])
     return lib
 
 
@@ -327,6 +339,63 @@ def _stamp(ring: int, count: int, capacity: int, stream: int) -> int:
 
 
 profiling.stamp_with(_stamp)
+
+
+# the most tensors one launch of the optimizer's kernel takes (DUCK_ADAM_LEAVES)
+ADAM_MAX_TENSORS = 32
+
+
+class KernelLaunches:
+    """The launches of a hand-written kernel, kept as FusedPhysics keeps its
+    own (`launches`; a CUDA graph's replay adds those its capture recorded,
+    utils.graphs.GraphedBody)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+# the optimizer's kernel: one launch is one fused step (the tracer's optim.fused_steps)
+ADAM = KernelLaunches()
+
+
+def adam_step(params, grads, mu, nu, norm: Optional[torch.Tensor], bc1: torch.Tensor,
+              bc2: torch.Tensor, max_norm: Optional[float], b1: float, b2: float, eps: float,
+              learning_rate: float) -> None:
+    """The optimizer's kernel (``csrc/adam.cu``) on the current stream: the
+    clip's select (where `norm`, the global norm as a device scalar, is
+    given), both Adam moments and the update, in place on `params`, `mu`
+    and `nu`, every tensor (1 to ADAM_MAX_TENSORS) in one launch, counted in
+    ``ADAM.launches``. `bc1` and `bc2` are the bias corrections as device
+    scalars. The Python constants go over as the float32 values torch casts
+    them to. Raises ValueError on what the kernel does not take."""
+    if not 1 <= len(params) <= ADAM_MAX_TENSORS:
+        raise ValueError(f"{len(params)} tensors: one launch takes 1 to {ADAM_MAX_TENSORS}")
+    dev = params[0].device
+    if not len(params) == len(grads) == len(mu) == len(nu):
+        raise ValueError(f"{len(params)} params, {len(grads)} grads, {len(mu)} + {len(nu)} "
+                         "moments")
+    scalars = [("bc1", bc1), ("bc2", bc2)] + ([("norm", norm)] if norm is not None else [])
+    for name, t in scalars:
+        if t.device != dev or t.dtype != torch.float32 or t.numel() != 1:
+            raise ValueError(f"{name} must be one float32 on {dev}")
+    for i, group in enumerate(zip(params, grads, mu, nu)):
+        for t in group:
+            if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+                raise ValueError(f"tensor {i}: params, grads and moments must be contiguous "
+                                 f"float32 on {dev}")
+            if t.shape != group[0].shape:
+                raise ValueError(f"tensor {i}: shape {tuple(t.shape)}, param "
+                                 f"{tuple(group[0].shape)}")
+    ptrs = [(ctypes.c_void_p * len(params))(*[t.data_ptr() for t in ts])
+            for ts in (params, grads, mu, nu)]
+    numel = (ctypes.c_longlong * len(params))(*[p.numel() for p in params])
+    err = _library().duck_adam(
+        len(params), *ptrs, numel, None if norm is None else norm.data_ptr(), bc1.data_ptr(),
+        bc2.data_ptr(), 0.0 if max_norm is None else max_norm, b1, 1 - b1, b2, 1 - b2, eps,
+        -learning_rate, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"optimizer kernel launch failed: cudaError {err}")
+    ADAM.launches += 1
 
 
 def kernel_limits() -> Dict[str, int]:

@@ -21,14 +21,27 @@ for term, every product and sum rounded on its own (a fused
 ``m.mul_(b1).add_(g, alpha=1-b1)`` or ``lerp`` could round as one FMA), so
 the result is the functional one bit for bit. A restore copies into the
 buffers (``copy_state_``); it does not rebind them.
+
+The trainer's step is `clip_and_adam`, chosen by the tensors' device: on
+the CPU the two plain functions, on CUDA the norm and the bias corrections
+as torch ops and then one launch of the hand-written kernel
+(``ops/csrc/adam.cu``) that does the clip's select, both moments and the
+update for every tensor, rounded as the plain functions round: the same
+result bit for bit. The tracer counts the steps of each kind:
+``optim.plain_steps`` (``PLAIN``) and ``optim.fused_steps``, the kernel's
+launches (``cuda_step.ADAM``, to which a CUDA graph's replay adds the
+launches its capture recorded: utils.graphs.GraphedBody).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
+
+from open_duck_playground_tpu_torch.ops import cuda_step
+from open_duck_playground_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,12 +76,51 @@ def adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], state: A
     for g, m, v in zip(grads, state.mu, state.nu):
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * (g * g))
-    state.count.add_(1)
-    bc1 = 1 - b1 ** state.count.to(torch.float32)
-    bc2 = 1 - b2 ** state.count.to(torch.float32)
+    bc1, bc2 = _count_step(state, b1, b2)
     for p, m, v in zip(params, state.mu, state.nu):
         update = (m / bc1) / (torch.sqrt(v / bc2) + eps)
         p.copy_(p + (-learning_rate) * update)
+    return state
+
+
+def _count_step(state: AdamState, b1: float, b2: float):
+    """Increment the count; the bias corrections by it, as device scalars."""
+    state.count.add_(1)
+    return (1 - b1 ** state.count.to(torch.float32), 1 - b2 ** state.count.to(torch.float32))
+
+
+class PlainSteps:
+    """Steps of `clip_and_adam` on the plain functions (the CPU's path)."""
+
+    def __init__(self):
+        self.steps = 0
+
+
+PLAIN = PlainSteps()
+profiling.watch(PLAIN, "steps", "optim.plain_steps")
+# a fused step is one launch of the optimizer's kernel, counted where it launches
+profiling.watch(cuda_step.ADAM, "launches", "optim.fused_steps")
+
+
+@torch.no_grad()
+def clip_and_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+                  state: AdamState, learning_rate: float, max_grad_norm: Optional[float],
+                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> AdamState:
+    """optax's ``chain(clip_by_global_norm(max_grad_norm), adam(lr))``, one
+    step (no clip when `max_grad_norm` is None): updates `params` and
+    `state` in place, returns `state`. CPU tensors run `clip_by_global_norm`
+    and `adam`; CUDA tensors the norm (`global_norm`) and the bias
+    corrections as those do, then the optimizer's kernel
+    (`cuda_step.adam_step`) for the rest, with the same result bit for bit."""
+    if params[0].device.type != "cuda":
+        if max_grad_norm is not None:
+            grads = clip_by_global_norm(grads, max_grad_norm)
+        PLAIN.steps += 1
+        return adam(params, grads, state, learning_rate, b1, b2, eps)
+    norm = None if max_grad_norm is None else global_norm(grads)
+    bc1, bc2 = _count_step(state, b1, b2)
+    cuda_step.adam_step(params, grads, state.mu, state.nu, norm, bc1, bc2, max_grad_norm, b1,
+                        b2, eps, learning_rate)
     return state
 
 

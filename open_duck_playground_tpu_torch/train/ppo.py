@@ -50,6 +50,7 @@ import torch
 from open_duck_playground_tpu_torch import interop
 from open_duck_playground_tpu_torch.envs.types import State
 from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv, capture_parts, eager_reason
+from open_duck_playground_tpu_torch.ops import cuda_step
 from open_duck_playground_tpu_torch.parallel.dist import (
     Collectives,
     EnvShard,
@@ -455,9 +456,7 @@ def sgd_points(training_state: TrainingState, data: Transition, perms: torch.Ten
             grads = torch.autograd.grad(total, params)
             if points is not None:
                 grads, mb_aux = yield from _sum_over_ranks(grads, mb_aux, points)
-            if hp.max_grad_norm is not None:
-                grads = optim.clip_by_global_norm(grads, hp.max_grad_norm)
-            optim.adam(params, grads, opt_state, hp.learning_rate)
+            optim.clip_and_adam(params, grads, opt_state, hp.learning_rate, hp.max_grad_norm)
             aux.append(mb_aux)
     return {k: torch.stack([a[k] for a in aux]).reshape(E, nmb) for k in aux[0]}
 
@@ -498,10 +497,11 @@ class CapturedSGDStep:
     device: the JAX package's jitted SGD step (normalizer + epochs x
     minibatches in one program, its collectives placed inside by XLA).
 
-    At world size 1 the body (`sgd_points`) is one graph, here ~88,000
-    kernel launches recorded once and replayed by one host call. With a
-    `shard` of world > 1 it is a fixed chain of `sgd_collectives` + 1 graph
-    segments, one per stretch between two collective points (3 per
+    At world size 1 the body (`sgd_points`) is one graph, here ~53,000
+    kernel launches (one per minibatch step the optimizer's, through
+    optim.clip_and_adam) recorded once and replayed by one host call. With
+    a `shard` of world > 1 it is a fixed chain of `sgd_collectives` + 1
+    graph segments, one per stretch between two collective points (3 per
     minibatch step at the recipe), all in one memory pool: a call replays
     them in order and sums each point's fixed buffer over the ranks in
     place between two of them (EnvShard.all_reduce_sum_, eagerly: gloo
@@ -578,6 +578,7 @@ class CapturedSGDStep:
                 extra["collectives_per_replay"] = sgd_collectives(
                     hp, len(training_state.normalizer.mean))
             self._graphed = GraphedBody(body, self._learner, device=self.device,
+                                        kernels=[cuda_step.ADAM],
                                         name="[ppo] SGD step", log=self.log, extra=extra,
                                         between=between)
         else:

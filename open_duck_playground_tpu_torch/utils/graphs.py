@@ -144,8 +144,10 @@ class GraphedBody:
     order captured, with `between(x)` run eagerly at each point (the
     collective, in place on that buffer). A plain function is one segment.
     `buffers`: the tensors the body overwrites that outlive it (its state);
-    `generators`: every torch.Generator the body draws from; `physics`: the
-    FusedPhysics objects whose kernel the body launches. `log`, if given,
+    `generators`: every torch.Generator the body draws from; `kernels`: the
+    objects that count the launches (`launches`) of each hand-written
+    kernel the body launches (the env's FusedPhysics, the optimizer's
+    ``ops.cuda_step.ADAM``). `log`, if given,
     gets one line "<name> captured: {info}" (seconds of the warm-up, the
     capture and the instantiation, the graph pool's bytes, the fused
     launches per replay, the kernel, memcpy and memset nodes summed over the
@@ -162,8 +164,8 @@ class GraphedBody:
     replay then reads each generator's state as it stands (a `set_state`
     is obeyed) and advances it as the eager body would. The warm-up's
     kernel launches are real and stay counted; the capture's are taken off
-    each physics object's `launches`, and each replay adds back the number
-    of fused launches its capture recorded. A capture or replay that fails
+    each kernel's `launches`, and each replay adds back the number of
+    fused launches its capture recorded. A capture or replay that fails
     raises: nothing falls back to the eager body.
 
     Python's cyclic collector is run before the capture and kept off during
@@ -185,7 +187,7 @@ class GraphedBody:
     ``graph.replays``."""
 
     def __init__(self, body: Callable[[], Any], buffers: Iterable[torch.Tensor],
-                 generators: Iterable[torch.Generator] = (), physics: Iterable[Any] = (),
+                 generators: Iterable[torch.Generator] = (), kernels: Iterable[Any] = (),
                  device=None, name: str = "body", log=None,
                  extra: Optional[Dict[str, Any]] = None,
                  between: Optional[Callable[[Any], Any]] = None):
@@ -195,7 +197,7 @@ class GraphedBody:
         self.body, self.name, self.log, self.between = body, name, log, between
         self.buffers: List[torch.Tensor] = list(buffers)
         self.generators = list(generators)
-        self.physics = list(physics)
+        self.kernels = list(kernels)
         self.graphs: List[Any] = []
         self.points: List[Any] = []  # what each segment yields (_END after the last)
         self.templates: List[Optional[profiling.Template]] = []  # each segment's stamps
@@ -246,7 +248,7 @@ class GraphedBody:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         pool = torch.cuda.graph_pool_handle()
-        counts = [p.launches for p in self.physics]
+        counts = [k.launches for k in self.kernels]
         graphs, points, seconds, templates = [], [], [], []
         run = self._run()
         gc.collect()
@@ -270,9 +272,9 @@ class GraphedBody:
                 gc.enable()
         t3 = time.perf_counter_ns()
         profiling.add("graph.capture.record", t2, t3)
-        self.launches_per_replay = [p.launches - n for p, n in zip(self.physics, counts)]
-        for p, n in zip(self.physics, counts):
-            p.launches = n  # the capture launched nothing
+        self.launches_per_replay = [k.launches - n for k, n in zip(self.kernels, counts)]
+        for k, n in zip(self.kernels, counts):
+            k.launches = n  # the capture launched nothing
         t4 = time.perf_counter_ns()
         for graph in graphs:
             graph.instantiate()
@@ -314,5 +316,5 @@ class GraphedBody:
             if point is not _END:
                 self.between(point)
         self.replays += 1
-        for p, n in zip(self.physics, self.launches_per_replay):
-            p.launches += n
+        for k, n in zip(self.kernels, self.launches_per_replay):
+            k.launches += n

@@ -654,3 +654,106 @@ def test_sharded_step_replays_match_eager_at_world_2(card, root, tmp_path):
         # the graphs' first call adds its capture's eager warm-up, collectives included
         assert r["collectives"] == [[28, 28], [56, 28]]
         assert r["segments"] == 29 and r["replays"] == [2, 2] and r["fused_per_replay"] == 4
+
+
+def _recipe_learner(dev, seed=0):
+    """The recipe's 16 parameter tensors (both MLPs (512, 256, 128), obs 101
+    and 212, 14 actions: 493,469 floats) and a fresh Adam state, on `dev`."""
+    from open_duck_playground_tpu_torch.train import networks as nets
+    from open_duck_playground_tpu_torch.train import optim
+
+    net = nets.PPONetworks({"state": 101, "privileged_state": 212}, 14,
+                           generator=torch.Generator().manual_seed(seed))
+    params = [p.detach().to(dev) for p in net.parameters()]
+    return params, optim.adam_init(params)
+
+
+def _gradients(params, norm, gen, views=False):
+    """Seeded gradients of global norm `norm`; with `views`, views into one
+    flat buffer from a one-float offset, as the env-sharded step's sum over
+    the ranks hands them over (most not 16-byte aligned)."""
+    from open_duck_playground_tpu_torch.train import optim
+
+    g = [torch.randn(p.shape, generator=gen).to(p.device) for p in params]
+    g = [x * (norm / float(optim.global_norm(g))) for x in g]
+    if not views:
+        return g
+    flat = torch.cat([g[0].new_zeros(1)] + [x.reshape(-1) for x in g])
+    out, at = [], 1
+    for x in g:
+        out.append(flat[at:at + x.numel()].view_as(x))
+        at += x.numel()
+    return out
+
+
+def _plain_step(params, grads, state, max_grad_norm):
+    from open_duck_playground_tpu_torch.train import optim
+
+    if max_grad_norm is not None:
+        grads = optim.clip_by_global_norm(grads, max_grad_norm)
+    optim.adam(params, grads, state, 3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_grad_norm,views", [(1.0, False), (None, False), (1.0, True)])
+def test_fused_clip_and_adam_equals_the_plain_functions(card, max_grad_norm, views):
+    """optim.clip_and_adam on the card (the optimizer's kernel) against
+    clip_by_global_norm + adam on the card, on the recipe's 16 shapes, 3
+    steps with the clip taken on the first and last: params, count, mu and
+    nu bit for bit, on the same tensor objects; the tracer counts 3 fused
+    steps and no plain one."""
+    from open_duck_playground_tpu_torch.train import optim
+    from open_duck_playground_tpu_torch.utils import profiling
+
+    params, state = _recipe_learner(card)
+    ref_params, ref = [p.clone() for p in params], optim.clone_state(state)
+    tensors = [*params, state.count, *state.mu, *state.nu]
+    gen = torch.Generator().manual_seed(1)
+    profiling.reset()
+    for norm in (25.0, 0.5, 3.0):
+        g = _gradients(params, norm, gen, views)
+        assert optim.clip_and_adam(params, g, state, 3e-4, max_grad_norm) is state
+        _plain_step(ref_params, g, ref, max_grad_norm)
+    torch.cuda.synchronize()
+    counters = profiling.summary()["counters"]
+    assert counters["optim.fused_steps"] == 3 and counters["optim.plain_steps"] == 0
+    assert all(a is b for a, b in zip([*params, state.count, *state.mu, *state.nu], tensors))
+    for x, y in zip(tensors, [*ref_params, ref.count, *ref.mu, *ref.nu]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_grad_norm", [1.0, None])
+def test_fused_clip_and_adam_in_a_captured_graph(card, max_grad_norm):
+    """The same step recorded as a CUDA graph (utils.graphs.GraphedBody, as
+    the SGD step's body is) and replayed twice on new gradients copied into
+    its inputs (the clip taken, then not), against the plain functions run
+    eagerly: bit for bit after each replay. One fused step recorded per
+    replay; the tracer counts the warm-up's and the two replays'; the
+    graph holds at most 60 kernel and memcpy nodes (the plain functions
+    record 347 at these shapes: 331 kernel and 16 memcpy nodes)."""
+    from open_duck_playground_tpu_torch.ops import cuda_step
+    from open_duck_playground_tpu_torch.train import optim
+    from open_duck_playground_tpu_torch.utils import profiling
+    from open_duck_playground_tpu_torch.utils.graphs import GraphedBody
+
+    params, state = _recipe_learner(card)
+    ref_params, ref = [p.clone() for p in params], optim.clone_state(state)
+    tensors = [*params, state.count, *state.mu, *state.nu]
+    static = [torch.zeros_like(p) for p in params]
+    graphed = GraphedBody(lambda: optim.clip_and_adam(params, static, state, 3e-4, max_grad_norm),
+                          tensors, device=card, kernels=[cuda_step.ADAM])
+    gen = torch.Generator().manual_seed(2)
+    profiling.reset()
+    for norm in (25.0, 0.5):
+        g = _gradients(params, norm, gen)
+        for s, x in zip(static, g):
+            s.copy_(x)
+        graphed.replay()
+        _plain_step(ref_params, g, ref, max_grad_norm)
+        torch.cuda.synchronize()
+        for x, y in zip(tensors, [*ref_params, ref.count, *ref.mu, *ref.nu]):
+            assert torch.equal(x, y)
+    assert profiling.summary()["counters"]["optim.fused_steps"] == 3
+    assert graphed.info["fused_launches_per_replay"] == 1
+    assert graphed.info["kernel_nodes"] + graphed.info["memcpy_nodes"] <= 60, graphed.info

@@ -175,14 +175,37 @@ def test_source_model_struct_matches_the_wrapper():
 
 
 def test_source_defines_every_entry_point_the_wrapper_binds():
-    """Every function bound from the library is defined in one of its two
-    sources: the kernel's and the tracer's stamp (csrc/stamp.cu)."""
+    """Every function bound from the library is defined in one of its three
+    sources: the kernel's, the tracer's stamp (csrc/stamp.cu) and the
+    optimizer's (csrc/adam.cu)."""
     with open(cuda_step.__file__) as f:
         bound = set(re.findall(r"lib\.(duck_\w+)", f.read()))
-    with open(cuda_step._STAMP_SRC) as f:
-        stamp = f.read()
-    defined = set(re.findall(r"^int (duck_\w+)\(", SOURCE + stamp, re.M))
-    assert bound and bound <= defined and "duck_stamp" in bound
+    others = ""
+    for path in (cuda_step._STAMP_SRC, cuda_step._ADAM_SRC):
+        with open(path) as f:
+            others += f.read()
+    defined = set(re.findall(r"^int (duck_\w+)\(", SOURCE + others, re.M))
+    assert bound and bound <= defined and {"duck_stamp", "duck_adam"} <= bound
+
+
+def test_adam_tensor_limit_matches_the_source():
+    """The optimizer's kernel takes at most DUCK_ADAM_LEAVES tensors per
+    launch, the wrapper's ADAM_MAX_TENSORS."""
+    with open(cuda_step._ADAM_SRC) as f:
+        leaves = re.search(r"#define DUCK_ADAM_LEAVES (\d+)", f.read())
+    assert leaves and int(leaves.group(1)) == cuda_step.ADAM_MAX_TENSORS
+
+
+@pytest.mark.parametrize("n", [0, cuda_step.ADAM_MAX_TENSORS + 1])
+def test_adam_step_raises_beyond_one_launch(n):
+    """More tensors than one launch takes, or none: a ValueError before
+    anything is built or launched, and no launch counted."""
+    ts = [torch.zeros(3) for _ in range(n)]
+    s = torch.ones(())
+    before = cuda_step.ADAM.launches
+    with pytest.raises(ValueError, match="one launch takes"):
+        cuda_step.adam_step(ts, ts, ts, ts, None, s, s, None, 0.9, 0.999, 1e-8, 3e-4)
+    assert cuda_step.ADAM.launches == before
 
 
 def test_profile_stage_names_match_the_source():

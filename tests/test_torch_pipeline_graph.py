@@ -209,7 +209,7 @@ class _EagerBody:
     """utils.graphs.GraphedBody's interface, its body run eagerly at each
     replay: the CPU has no CUDA graph."""
 
-    def __init__(self, body, buffers, generators=(), physics=(), device=None, name="body",
+    def __init__(self, body, buffers, generators=(), kernels=(), device=None, name="body",
                  log=None, extra=None):
         self.body, self.replays, self.info = body, 0, dict(extra or {})
 

@@ -22,6 +22,7 @@ from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
 from open_duck_playground_tpu_torch.parallel.dist import EnvShard
 from open_duck_playground_tpu_torch.train import networks as nets
 from open_duck_playground_tpu_torch.train import optim, ppo
+from open_duck_playground_tpu_torch.utils import profiling
 from open_duck_playground_tpu_torch.utils.graphs import tree_map
 from tests.duck_standin import write_standin
 
@@ -143,6 +144,33 @@ def test_adam_in_place_equals_functional():
     assert int(state.count) == 3 and state.count.dtype == torch.int32
     for x, y in zip([*params, state.count, *state.mu, *state.nu],
                     [*ref_params, ref.count, *ref.mu, *ref.nu]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("max_grad_norm", [1.0, None])
+def test_clip_and_adam_runs_the_plain_functions_on_the_cpu(max_grad_norm):
+    """optim.clip_and_adam on CPU tensors is clip_by_global_norm (unless
+    None) then adam, bit for bit, on the state's own tensors, over 3 steps
+    with the clip taken on the first and last; the tracer counts each as a
+    plain step and none as fused."""
+    ts = _state(7)
+    params = list(ts.params.parameters())
+    ref_params = [p.detach().clone() for p in params]
+    state, ref = ts.opt_state, optim.clone_state(ts.opt_state)
+    tensors = [*params, state.count, *state.mu, *state.nu]
+    rng = np.random.RandomState(8)
+    profiling.reset()
+    for norm in (25.0, 0.5, 3.0):
+        g = [torch.from_numpy(rng.randn(*p.shape).astype(np.float32)) for p in params]
+        g = [x * (norm / float(optim.global_norm(g))) for x in g]
+        assert optim.clip_and_adam(params, g, state, 3e-4, max_grad_norm) is state
+        if max_grad_norm is not None:
+            g = optim.clip_by_global_norm(g, max_grad_norm)
+        optim.adam(ref_params, g, ref, 3e-4)
+    counters = profiling.summary()["counters"]
+    assert counters["optim.plain_steps"] == 3 and counters["optim.fused_steps"] == 0
+    assert all(a is b for a, b in zip([*params, state.count, *state.mu, *state.nu], tensors))
+    for x, y in zip(tensors, [*ref_params, ref.count, *ref.mu, *ref.nu]):
         assert torch.equal(x, y)
 
 
