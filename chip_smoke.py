@@ -43,6 +43,11 @@ Phases:
    and on gradient views no tensor of which is 16-byte aligned; its time
    per launch, the fused and the plain step's and torch.optim.Adam's fused
    step's, each from calls recorded in one CUDA graph (phase_optimizer);
+   then the GAE kernel (ops/csrc/gae.cu, ppo.gae) against the plain
+   compute_gae on the same card tensors at the recipe's unroll x batch and
+   an unaligned shape, with both kinds of episode end and a NaN, bit for bit
+   eagerly and replayed in a graph; its time per launch and the plain
+   path's, from calls recorded in one CUDA graph (phase_gae);
 4. the trainer: first the captured SGD step against its eager body
    (sgd_graph_vs_eager: SGD_GRAPH_STEPS steps at the recipe's widths,
    equal bit for bit; host launches per minibatch step, capture seconds,
@@ -58,8 +63,8 @@ Phases:
    at every epoch (metrics.jsonl), the normalizer's count and env_steps, the
    kernel launches of the train env and of the eval env against the count
    the code gives, that the last (normalizer, params) checkpoint acts
-   bit-identically, the optimizer kernel's launches (one per minibatch
-   step), that the exported ONNX (numpy interpreter) matches the
+   bit-identically, the optimizer and GAE kernels' launches (one each per
+   minibatch step), that the exported ONNX (numpy interpreter) matches the
    policy on the card within 1e-5, and that the last full-state checkpoint
    loads back tensor for tensor; then holds the kernel against its twin on
    this path's inputs (trainer_vs_twin): the train env at 8192 envs with
@@ -175,7 +180,8 @@ TFLOP/s of float32 and the bytes it must move (state, DR fields, table and
 outputs, each once) over 3.35 TB/s. Its last entry, duck_adam, is the
 optimizer's kernel: its launches in phases 4 and 6, the largest |kernel -
 plain functions| of phase 4a, its time per launch, the plain and the
-library step's, and its bound by bytes.
+library step's, and its bound by bytes; duck_gae, the GAE kernel, the
+same from phase 4a's GAE half, bound by its dependent chain.
 
 Assets: $OPEN_DUCK_ASSETS if set, else the generated stand-in duck
 (tests/duck_standin.py), written into build/standin_assets/.
@@ -267,6 +273,14 @@ SGD_GRAPH_STEPS = 2
 ADAM_CASES = ((1.0, False), (None, False), (1.0, True))
 ADAM_NORMS = (25.0, 0.5, 3.0)
 ADAM_TIMED_LAUNCHES, ADAM_TIMED_STEPS = 200, 50
+# phase 4a: the GAE kernel against compute_gae at these (T, b), each with
+# these reward scalings; then calls recorded per timed graph at the first
+GAE_SHAPES = ((20, 256), (5, 17))
+GAE_SCALINGS = (1.0, 0.37)
+GAE_TIMED_LAUNCHES, GAE_TIMED_STEPS = 200, 50
+# the H100 SXM's boost clock (GHz) and the latency in cycles of a dependent
+# float32 multiply or add: the GAE kernel's bound by its chain
+SM_GHZ, FLOP_LATENCY_CYCLES = 1.98, 4
 ROLLOUT_GRAPH_ROLLOUTS = 2
 PIPELINE_ROLLOUT_STEPS = 10
 EVAL_CHECK_STEPS = 200
@@ -414,7 +428,7 @@ def phase_build():
     log(f"[build] {os.path.relpath(so, ROOT)} in {time.perf_counter() - t0:.2f} s")
     with open(so + ".log") as f:
         for line in f.read().splitlines():
-            if "registers" in line or "stack" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "stack", "spill")):
                 log(f"[build] ptxas: {line.strip()}")
     log(f"[build] limits {cuda_step.kernel_limits()}")
     for task, B in (FLAT_MAIN, ROUGH_MAIN):
@@ -1055,6 +1069,125 @@ def phase_optimizer() -> dict:
                 library_error=library_error, **timed)
 
 
+def gae_inputs(T: int, b: int, gen: torch.Generator) -> dict:
+    """ppo.gae's arguments for one minibatch as the rollout makes it, drawn
+    on the card: [T, b] reward, discount (1 - done) and truncation (done
+    envs only) in data, the [T, b] baseline, the [b] bootstrap value; ~20%
+    of the steps end an episode, half of those by truncation; a NaN reward
+    at (T // 2, b // 3)."""
+    from open_duck_playground_tpu_torch.train import ppo
+
+    dev = torch.device("cuda")
+    draw = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    reward = draw(T, b) * 3
+    done = (torch.rand((T, b), generator=gen, device=dev) < 0.2).float()
+    truncation = (torch.rand((T, b), generator=gen, device=dev) < 0.5).float() * done
+    reward[T // 2, b // 3] = float("nan")
+    data = ppo.Transition(observation=None, action=None, reward=reward, discount=1 - done,
+                          next_observation=None, truncation=truncation, raw_action=None,
+                          log_prob=None)
+    return {"data": data, "baseline": draw(T, b) * 5, "bootstrap_value": draw(b) * 5}
+
+
+def plain_gae(data, baseline, bootstrap_value, hp):
+    """The CPU's path of ppo.gae: loss_points' inputs, then compute_gae."""
+    from open_duck_playground_tpu_torch.train import ppo
+
+    termination = (1 - data.discount) * (1 - data.truncation)
+    return ppo.compute_gae(data.truncation, termination, data.reward * hp.reward_scaling,
+                           baseline, bootstrap_value, lambda_=hp.gae_lambda,
+                           discount=hp.discounting)
+
+
+def phase_gae() -> dict:
+    """Phase 4a, second half: the GAE kernel (ops/csrc/gae.cu, through
+    ppo.gae) against the plain compute_gae on the same card tensors
+    (gae_inputs: both kinds of episode end, a NaN reward) at each of
+    GAE_SHAPES and GAE_SCALINGS: vs and advantages equal bit for bit, the
+    NaN in its column alone, one launch a call (cuda_step.GAE.launches);
+    then the same with the call recorded in a graph (utils.graphs
+    .GraphedBody, as the SGD step records it) and replayed on two new
+    minibatches. Then, at the recipe's (20, 256), device ms per call from
+    calls recorded in one CUDA graph: the kernel (ms, GAE_TIMED_LAUNCHES
+    launches) and the plain path (plain_ms, GAE_TIMED_STEPS calls; the
+    outputs of both graphs' last calls compared bit for bit too). Its
+    bounds: bytes (4 [T, b] inputs, the bootstrap and 2 outputs, once, at
+    3.35 TB/s) and the dependent chain (T steps of the recursion's multiply
+    and add, FLOP_LATENCY_CYCLES each at SM_GHZ)."""
+    import types
+
+    from open_duck_playground_tpu_torch.ops import cuda_step
+    from open_duck_playground_tpu_torch.train import ppo
+    from open_duck_playground_tpu_torch.utils.graphs import GraphedBody, copy_into
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ok, worst, cases = True, 0.0, []
+
+    def compare(got, want, b):
+        equal = bitwise_equal(dict(zip(("vs", "adv"), got)), dict(zip(("vs", "adv"), want)))
+        nan_cols = [torch.isnan(x).any(0).nonzero().flatten().tolist() for x in got]
+        err = max(float((x.double() - y.double()).nan_to_num().abs().max())
+                  for x, y in zip(got, want))
+        return equal, nan_cols == [[b // 3]] * 2, err
+
+    for T, b in GAE_SHAPES:
+        for scaling in GAE_SCALINGS:
+            hp = types.SimpleNamespace(reward_scaling=scaling, discounting=0.97, gae_lambda=0.95)
+            inputs = gae_inputs(T, b, gen)
+            launches = cuda_step.GAE.launches
+            got = ppo.gae(**inputs, hp=hp)
+            launches = cuda_step.GAE.launches - launches
+            equal, nan_ok, err = compare(got, plain_gae(**inputs, hp=hp), b)
+            static, out = gae_inputs(T, b, gen), {}
+            graphed = GraphedBody(lambda: out.update(gae=ppo.gae(**static, hp=hp)), [],
+                                  device="cuda", kernels=[cuda_step.GAE])
+            for _ in range(2):
+                fresh = gae_inputs(T, b, gen)
+                copy_into(static, fresh)
+                graphed.replay()
+                g_equal, g_nan_ok, g_err = compare(out["gae"], plain_gae(**fresh, hp=hp), b)
+                equal, nan_ok, err = equal and g_equal, nan_ok and g_nan_ok, max(err, g_err)
+            torch.cuda.synchronize()
+            worst = max(worst, err)
+            tag = f"T={T} b={b} reward_scaling={scaling}"
+            ok &= passed(f"GAE kernel vs compute_gae ({tag})", equal=equal,
+                         nan_in_its_column=nan_ok, one_launch=launches == 1,
+                         one_node=graphed.info["kernel_nodes"] == 1
+                         and graphed.info["fused_launches_per_replay"] == 1)
+            cases.append({"case": tag, "equal": equal, "max_abs_err": err})
+            log(f"[gae] {tag}: eager and 2 replays, bit for bit {equal}, NaN in its column "
+                f"{nan_ok}, max |d| {err}; graph {graphed.info['kernel_nodes']} kernel node(s)")
+            del graphed, static, out
+
+    # timings; the launches recorded here are no step of the trainer
+    launches = cuda_step.GAE.launches
+    T, b = GAE_SHAPES[0]
+    hp = types.SimpleNamespace(reward_scaling=1.0, discounting=0.97, gae_lambda=0.95)
+    inputs, last = gae_inputs(T, b, gen), {}
+    timed = {"ms": graph_ms(lambda: last.update(kernel=ppo.gae(**inputs, hp=hp)),
+                            GAE_TIMED_LAUNCHES),
+             "plain_ms": graph_ms(lambda: last.update(plain=plain_gae(**inputs, hp=hp)),
+                                  GAE_TIMED_STEPS)}
+    torch.cuda.synchronize()
+    cuda_step.GAE.launches = launches
+    timed_equal, _, timed_err = compare(last["kernel"], last["plain"], b)
+    worst = max(worst, timed_err)
+    bound_bytes = (6 * T * b + b) * 4
+    bound_ms = {"bytes": bound_bytes / PEAK_BYTES_PER_S * 1e3,
+                "chain": T * 2 * FLOP_LATENCY_CYCLES / (SM_GHZ * 1e9) * 1e3}
+    bound_by = max(bound_ms, key=bound_ms.get)
+    log(f"[gae] T={T} b={b}: kernel {timed['ms'] * 1e3:.3f} us a launch (bounds: bytes "
+        f"{bound_ms['bytes'] * 1e3:.4f} us for {bound_bytes} B, chain "
+        f"{bound_ms['chain'] * 1e3:.4f} us; {100 * bound_ms[bound_by] / timed['ms']:.2f}% of the larger, {bound_by}); plain "
+        f"compute_gae {timed['plain_ms'] * 1e3:.3f} us a call; in graphs of {GAE_TIMED_STEPS}, "
+        f"bit for bit {timed_equal}; gpu {gpu_line()}")
+    ok &= passed("GAE kernel in timed graphs", equal=timed_equal)
+    log(f"[gae] {'OK' if ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return dict(ok=ok, cases=cases, max_abs_err=worst, bound_ms=bound_ms[bound_by],
+                bound_by=bound_by, bound_bytes=bound_bytes, **timed)
+
+
 def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> dict:
     """ppo.train through the runner on the card at the recipe's widths, with
     every kernel launch counted from 0 just before the call; then the kernel
@@ -1107,6 +1240,7 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
     runner.env.physics.launches = 0
     runner.eval_env.physics.launches = 0
     cuda_step.ADAM.launches = 0
+    cuda_step.GAE.launches = 0
     t0 = time.perf_counter()
     with captured_programs() as made:
         make_policy, (normalizer, params), metrics = ppo.train(
@@ -1116,10 +1250,13 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
     t_train = time.perf_counter() - t0
     launches = {"train_env": runner.env.physics.launches,
                 "eval_env": runner.eval_env.physics.launches}
-    # the optimizer's kernel: one launch per minibatch step, in the SGD
-    # capture's warm-up and in every replay
+    # the optimizer's and the GAE kernel: one launch each per minibatch
+    # step, in the SGD capture's warm-up and in every replay
     mb_steps = E * nmb
     opt_launches, want_opt = cuda_step.ADAM.launches, mb_steps * (1 + want_replays["SGD step"])
+    gae_launches = cuda_step.GAE.launches
+    sgd_per_replay = {name: (n - mb_steps) / want_replays["SGD step"]
+                      for name, n in (("duck_adam", opt_launches), ("duck_gae", gae_launches))}
     bd = ppo.LAST_PROFILE_BREAKDOWN
     replays = {name: [c.replays for c in made.get(name, [])] for name in want_replays}
     graph_ok = replays == {name: [n] for name, n in want_replays.items()}
@@ -1129,8 +1266,9 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
         f"rollout {json.dumps(bd.get('rollout_graph'))}, SGD step "
         f"{json.dumps(bd.get('sgd_graph'))}, eval step {json.dumps(bd.get('eval_graph'))}")
     log(f"[{label}] profile_breakdown {json.dumps(bd)}")
-    log(f"[{label}] optimizer kernel launches {opt_launches} (want {want_opt}: {mb_steps} per "
-        f"SGD replay and in the capture's warm-up); recorded per SGD replay "
+    log(f"[{label}] optimizer and GAE kernel launches {opt_launches} and {gae_launches} (want "
+        f"{want_opt} each: {mb_steps} per SGD replay and in the capture's warm-up); per SGD "
+        f"replay {json.dumps(sgd_per_replay)}, both recorded per SGD replay "
         f"{bd.get('sgd_graph', {}).get('fused_launches_per_replay')}")
     log(f"[{label}] rollout_s {bd['rollout_s']}, training_step_s {bd['training_step_s']}, "
         f"eval_s {bd['eval_s']}, sgd_s {bd['sgd_s']}; gpu {gpu_line()}")
@@ -1217,9 +1355,11 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
                 kernel_vs_twin=parity_ok, sgd_graph_vs_eager=graph["ok"],
                 rollout_graph_vs_eager=roll_graph["ok"], eval_graph_vs_eager=evals["ok"],
                 graph_replays=graph_ok, resume=resumed["ok"],
-                launches=launches == want_launches, optimizer_launches=opt_launches == want_opt)
+                launches=launches == want_launches, optimizer_launches=opt_launches == want_opt,
+                gae_launches=gae_launches == want_opt)
     log(f"[{label}] {'OK' if ok else 'FAIL'}")
-    return dict(ok=ok, launches=launches, optimizer_launches=opt_launches, breakdown=bd,
+    return dict(ok=ok, launches=launches, optimizer_launches=opt_launches,
+                gae_launches=gae_launches, sgd_per_replay=sgd_per_replay, breakdown=bd,
                 onnx=onnx_path, sgd_graph=graph,
                 rollout_graph=roll_graph, eval_graph=evals,
                 sps=[line["training/sps"] for line in lines if "training/sps" in line])
@@ -2706,8 +2846,7 @@ def optimizer_entry(opt: dict, trainer: dict, standing: dict) -> dict:
                     "in open_duck_playground_tpu/train/ppo.py:263 (sgd_step)",
         "launches": trainer["optimizer_launches"],
         "launches_standing": standing["optimizer_launches"],
-        "launches_per_replay_sgd_step": trainer["breakdown"]["sgd_graph"][
-            "fused_launches_per_replay"],
+        "launches_per_replay_sgd_step": trainer["sgd_per_replay"]["duck_adam"],
         "max_abs_err": opt["max_abs_err"],
         "max_abs_err_of": f"phase 4a: params, count, mu, nu after {len(ADAM_NORMS)} steps; "
                           f"{'; '.join(c['case'] for c in opt['cases'])}",
@@ -2718,6 +2857,31 @@ def optimizer_entry(opt: dict, trainer: dict, standing: dict) -> dict:
         "bound_by": "bytes",
         "library_ms": opt["library_ms"],
         "library_of": "torch.optim.Adam(fused=True, capturable=True).step(), no clip",
+    }
+
+
+def gae_entry(gae: dict, trainer: dict, standing: dict) -> dict:
+    """The kernels line's entry of the GAE kernel: launches on the trainer's
+    path (phase 4; launches_standing: phase 6) and per SGD replay;
+    max_abs_err against compute_gae and the times from phase 4a (ms: one
+    launch at the recipe's T=20, b=256; plain_ms: the plain path's call)."""
+    return {
+        "name": "duck_gae",
+        "route": "cuda",
+        "source": "open_duck_playground_tpu_torch/ops/csrc/gae.cu",
+        "replaces": "none: the counterpart of XLA's fusion of the reverse lax.scan of "
+                    "open_duck_playground_tpu/train/ppo.py compute_gae in its jitted sgd_step",
+        "launches": trainer["gae_launches"],
+        "launches_standing": standing["gae_launches"],
+        "launches_per_replay_sgd_step": trainer["sgd_per_replay"]["duck_gae"],
+        "max_abs_err": gae["max_abs_err"],
+        "max_abs_err_of": f"phase 4a: vs and advantages, eager and replayed; "
+                          f"{'; '.join(c['case'] for c in gae['cases'])}",
+        "ms": gae["ms"],
+        "plain_ms": gae["plain_ms"],
+        "bound_ms": gae["bound_ms"],
+        "bound_by": gae["bound_by"],
+        "library_ms": None,  # no PyTorch call computes GAE
     }
 
 
@@ -2750,6 +2914,7 @@ def main() -> int:
     flat = timed("3 flat main path", phase_main_path, *FLAT_MAIN, report)
     rough = timed("3b rough main path", phase_main_path, *ROUGH_MAIN, report)
     optimizer = timed("4a optimizer kernel", phase_optimizer)
+    gae = timed("4a GAE kernel", phase_gae)
     trainer = timed("4 trainer", phase_trainer, report)
     torch.cuda.empty_cache()  # phase 5's ranks share the card with this process
     sharded = timed("5 sharded trainer", phase_sharded)
@@ -2758,11 +2923,12 @@ def main() -> int:
     pipeline = timed("8 pipeline", phase_pipeline, report)
     profiled = timed("9 profile and deploy tools", phase_profile, trainer["onnx"])
     log(f"[chip_smoke] seconds per phase {json.dumps(seconds)}")
-    if not (ok and flat["ok"] and rough["ok"] and optimizer["ok"] and trainer["ok"]
+    if not (ok and flat["ok"] and rough["ok"] and optimizer["ok"] and gae["ok"] and trainer["ok"]
             and all(run["ok"] for run in sharded) and standing["ok"] and deploy["ok"]
             and pipeline["ok"] and profiled["ok"]):
         phases = {"2 kernel vs twin": ok, "3 flat main path": flat["ok"],
                   "3b rough main path": rough["ok"], "4a optimizer kernel": optimizer["ok"],
+                  "4a GAE kernel": gae["ok"],
                   "4 trainer": trainer["ok"],
                   "5 sharded trainer": all(run["ok"] for run in sharded),
                   "6 standing trainer": standing["ok"], "7 deploy": deploy["ok"],
@@ -2811,6 +2977,7 @@ def main() -> int:
                      rough, report, f"{ROUGH_MAIN[0]} B={ROUGH_MAIN[1]} dr=1 step"),
         sharded_entry(sharded[0], sharded[1]),
         optimizer_entry(optimizer, trainer, standing),
+        gae_entry(gae, trainer, standing),
     ]}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -21,8 +21,9 @@ the last substep, taken before its integration.
   ``physics`` (utils/profiling.py).
 
 The same library holds the optimizer's kernel (``csrc/adam.cu``, launched by
-``adam_step`` for ``train/optim.py``'s ``clip_and_adam``) and the tracer's
-stamp kernel (``csrc/stamp.cu``).
+``adam_step`` for ``train/optim.py``'s ``clip_and_adam``), the trainer's GAE
+(``csrc/gae.cu``, launched by ``gae_step`` for ``train/ppo.py``'s ``gae``)
+and the tracer's stamp kernel (``csrc/stamp.cu``).
 
 The model is data, not code: the structural arrays (and a rough scene's
 heightfield table) are packed once per device into tensors whose pointers
@@ -57,10 +58,12 @@ from open_duck_playground_tpu_torch.ops.types import JointType, Model, PairType
 from open_duck_playground_tpu_torch.utils import profiling
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "physics_step.cu")
-# built into the same library: the tracer's device time stamps (utils/profiling.py)
-# and the trainer's clip + Adam step (train/optim.py clip_and_adam)
+# built into the same library: the tracer's device time stamps (utils/profiling.py),
+# the trainer's clip + Adam step (train/optim.py clip_and_adam) and its GAE
+# (train/ppo.py gae)
 _STAMP_SRC = os.path.join(os.path.dirname(_SRC), "stamp.cu")
 _ADAM_SRC = os.path.join(os.path.dirname(_SRC), "adam.cu")
+_GAE_SRC = os.path.join(os.path.dirname(_SRC), "gae.cu")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "kernels")
 NVCC_FLAGS = (
@@ -243,14 +246,14 @@ def _nvcc() -> str:
 
 
 def build_library(profile: bool = False) -> str:
-    """Compile the kernel, the tracer's stamp kernel (``csrc/stamp.cu``) and
-    the optimizer's kernel (``csrc/adam.cu``) into one library, or reuse an
-    earlier build of the same sources; returns the path of the shared
-    library. Its ptxas report (registers, stack, spills) is written beside
-    it as ``.log``. ``profile`` builds the variant that counts each stage's
+    """Compile the kernel, the tracer's stamp kernel (``csrc/stamp.cu``), the
+    optimizer's kernel (``csrc/adam.cu``) and the GAE kernel (``csrc/gae.cu``)
+    into one library, or reuse an earlier build of the same sources; returns
+    the path of the shared library. Its ptxas report (registers, stack,
+    spills) is written beside it as ``.log``. ``profile`` builds the variant that counts each stage's
     clock cycles (``-DDUCK_PROFILE``)."""
     src = b""
-    sources = (_SRC, _STAMP_SRC, _ADAM_SRC)
+    sources = (_SRC, _STAMP_SRC, _ADAM_SRC, _GAE_SRC)
     for path in sources:
         with open(path, "rb") as f:
             src += f.read()
@@ -330,6 +333,9 @@ def _library(profile: bool = False):
     lib.duck_adam.argtypes = ([ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 4
                               + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 3
                               + [ctypes.c_float] * 7 + [ctypes.c_void_p])
+    lib.duck_gae.restype = ctypes.c_int
+    lib.duck_gae.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_float] * 3
+                             + [ctypes.c_void_p])
     return lib
 
 
@@ -396,6 +402,47 @@ def adam_step(params, grads, mu, nu, norm: Optional[torch.Tensor], bc1: torch.Te
     if err != 0:
         raise RuntimeError(f"optimizer kernel launch failed: cudaError {err}")
     ADAM.launches += 1
+
+
+# the GAE kernel: one launch is one fused GAE (the tracer's gae.fused_steps)
+GAE = KernelLaunches()
+
+
+def gae_step(reward: torch.Tensor, discount: torch.Tensor, truncation: torch.Tensor,
+             values: torch.Tensor, bootstrap_value: torch.Tensor, reward_scaling: float,
+             discounting: float, gae_lambda: float):
+    """The GAE kernel (``csrc/gae.cu``) on the current stream: ppo.compute_gae
+    of `values` [T, b] and `bootstrap_value` [b], on the rewards
+    ``reward * reward_scaling`` and the termination ``(1 - discount) * (1 -
+    truncation)``, as ppo.loss_points makes them, rounded as those torch ops
+    round; returns (vs, advantages) [T, b], new tensors, after one launch
+    counted in ``GAE.launches``. The Python constants go over as the float32
+    values torch casts them to. Raises ValueError on what the kernel does not
+    take: anything but contiguous float32 tensors of those shapes on one
+    CUDA device."""
+    if values.dim() != 2 or values.shape[0] < 1 or values.shape[1] < 1:
+        raise ValueError(f"values must be [T, b] with T, b >= 1, not {tuple(values.shape)}")
+    T, b = values.shape
+    dev = values.device
+    named = {"reward": reward, "discount": discount, "truncation": truncation,
+             "values": values, "bootstrap_value": bootstrap_value}
+    for name, t in named.items():
+        want = (b,) if name == "bootstrap_value" else (T, b)
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, want {want}")
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32 on {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"the GAE kernel runs on a CUDA device, not {dev}")
+    vs, advantages = torch.empty_like(values), torch.empty_like(values)
+    err = _library().duck_gae(
+        T, b, reward.data_ptr(), discount.data_ptr(), truncation.data_ptr(), values.data_ptr(),
+        bootstrap_value.data_ptr(), vs.data_ptr(), advantages.data_ptr(), reward_scaling,
+        discounting, gae_lambda, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"GAE kernel launch failed: cudaError {err}")
+    GAE.launches += 1
+    return vs, advantages
 
 
 def kernel_limits() -> Dict[str, int]:

@@ -90,7 +90,8 @@ def _count_step(state: AdamState, b1: float, b2: float):
 
 
 class PlainSteps:
-    """Steps of `clip_and_adam` on the plain functions (the CPU's path)."""
+    """Steps of a trainer function on its plain functions (the CPU's path):
+    `clip_and_adam`'s here, ppo.gae's there."""
 
     def __init__(self):
         self.steps = 0

@@ -12,7 +12,9 @@ per-minibatch entropy noise, as tensors. ``train`` makes them from its own
 ``torch.Generator``s on the device, one per purpose, seeded from ``seed``
 (``draw_training_step``), and reseeds the envs' own generators from it too.
 
-The learner's products, its Adam and its GAE are plain PyTorch; every env
+The learner's products are plain PyTorch, and so are its clip + Adam and
+its GAE on the CPU; on the card each of those two is one launch of a
+hand-written kernel (``optim.clip_and_adam``, ``gae``). Every env
 step goes through the env's physics (the fused CUDA kernel on the card, or
 the general pipeline with physics="pipeline"). The JAX package jits its
 rollout scan, its eval scan and its SGD step, one SPMD program at any
@@ -149,6 +151,34 @@ def compute_gae(truncation, termination, rewards, values, bootstrap_value,
     return vs, advantages
 
 
+# gae's steps on compute_gae (the CPU's path); a fused step is one launch of
+# the GAE kernel, counted where it launches
+GAE_PLAIN = optim.PlainSteps()
+profiling.watch(GAE_PLAIN, "steps", "gae.plain_steps")
+profiling.watch(cuda_step.GAE, "launches", "gae.fused_steps")
+
+
+@torch.no_grad()
+def gae(data: Transition, baseline: torch.Tensor, bootstrap_value: torch.Tensor, hp: Hyper):
+    """compute_gae over one minibatch (leaves [T, b]) on the rewards
+    ``data.reward * hp.reward_scaling`` and the termination ``(1 -
+    data.discount) * (1 - data.truncation)``; returns (vs, advantages),
+    outside autograd. CPU tensors run those torch ops and compute_gae (the
+    tracer's ``gae.plain_steps``); CUDA tensors one launch of the GAE kernel
+    (``cuda_step.gae_step``, ``gae.fused_steps``), with the same result bit
+    for bit."""
+    if baseline.device.type != "cuda":
+        GAE_PLAIN.steps += 1
+        rewards = data.reward * hp.reward_scaling
+        termination = (1 - data.discount) * (1 - data.truncation)
+        return compute_gae(data.truncation, termination, rewards, baseline, bootstrap_value,
+                           lambda_=hp.gae_lambda, discount=hp.discounting)
+    return cuda_step.gae_step(data.reward.contiguous(), data.discount.contiguous(),
+                              data.truncation.contiguous(), baseline.contiguous(),
+                              bootstrap_value.contiguous(), hp.reward_scaling, hp.discounting,
+                              hp.gae_lambda)
+
+
 def loss_fn(networks: nets.PPONetworks, normalizer, data: Transition,
             entropy_noise: torch.Tensor, hp: Hyper):
     """The PPO loss over one minibatch (leaves [T, b, ...]); `entropy_noise`
@@ -186,16 +216,10 @@ def loss_points(networks: nets.PPONetworks, normalizer, data: Transition,
     terminal_obs = {k: v[-1] for k, v in data.next_observation.items()}
     bootstrap_value = networks.value_fn(normalizer, terminal_obs)
 
-    rewards = data.reward * hp.reward_scaling
-    truncation = data.truncation
-    termination = (1 - data.discount) * (1 - truncation)
-
     target_lp = nets.dist_log_prob(loc, scale, data.raw_action)
     rho = torch.exp(target_lp - data.log_prob)
 
-    vs, advantages = compute_gae(truncation, termination, rewards, baseline.detach(),
-                                 bootstrap_value.detach(), lambda_=hp.gae_lambda,
-                                 discount=hp.discounting)
+    vs, advantages = gae(data, baseline.detach(), bootstrap_value.detach(), hp)
     if hp.normalize_advantage and sharded:
         adv_sum = yield from points.total("advantage/sum",
                                           torch.sum(torch.where(mask, advantages, 0.0)))
@@ -497,12 +521,13 @@ class CapturedSGDStep:
     device: the JAX package's jitted SGD step (normalizer + epochs x
     minibatches in one program, its collectives placed inside by XLA).
 
-    At world size 1 the body (`sgd_points`) is one graph, here ~53,000
-    kernel launches (one per minibatch step the optimizer's, through
-    optim.clip_and_adam) recorded once and replayed by one host call. With
-    a `shard` of world > 1 it is a fixed chain of `sgd_collectives` + 1
-    graph segments, one per stretch between two collective points (3 per
-    minibatch step at the recipe), all in one memory pool: a call replays
+    At world size 1 the body (`sgd_points`) is one graph, here ~35,000
+    kernel launches (per minibatch step one of the GAE kernel, through
+    `gae`, and one of the optimizer's, through optim.clip_and_adam)
+    recorded once and replayed by one host call. With a `shard` of world >
+    1 it is a fixed chain of `sgd_collectives` + 1 graph segments, one per
+    stretch between two collective points (3 per minibatch step at the
+    recipe), all in one memory pool: a call replays
     them in order and sums each point's fixed buffer over the ranks in
     place between two of them (EnvShard.all_reduce_sum_, eagerly: gloo
     cannot be captured, and NCCL's capture needs a card per rank to check).
@@ -578,7 +603,7 @@ class CapturedSGDStep:
                 extra["collectives_per_replay"] = sgd_collectives(
                     hp, len(training_state.normalizer.mean))
             self._graphed = GraphedBody(body, self._learner, device=self.device,
-                                        kernels=[cuda_step.ADAM],
+                                        kernels=[cuda_step.ADAM, cuda_step.GAE],
                                         name="[ppo] SGD step", log=self.log, extra=extra,
                                         between=between)
         else:

@@ -147,9 +147,9 @@ class GraphedBody:
     `generators`: every torch.Generator the body draws from; `kernels`: the
     objects that count the launches (`launches`) of each hand-written
     kernel the body launches (the env's FusedPhysics, the optimizer's
-    ``ops.cuda_step.ADAM``). `log`, if given,
-    gets one line "<name> captured: {info}" (seconds of the warm-up, the
-    capture and the instantiation, the graph pool's bytes, the fused
+    ``ops.cuda_step.ADAM``, the GAE kernel's ``ops.cuda_step.GAE``). `log`,
+    if given, gets one line "<name> captured: {info}" (seconds of the
+    warm-up, the capture and the instantiation, the graph pool's bytes, the fused
     launches per replay, the kernel, memcpy and memset nodes summed over the
     segments (`node_counts`; the kernel nodes without the tracer's stamp
     nodes, counted apart), the segments, and `extra`).

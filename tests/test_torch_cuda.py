@@ -757,3 +757,103 @@ def test_fused_clip_and_adam_in_a_captured_graph(card, max_grad_norm):
     assert profiling.summary()["counters"]["optim.fused_steps"] == 3
     assert graphed.info["fused_launches_per_replay"] == 1
     assert graphed.info["kernel_nodes"] + graphed.info["memcpy_nodes"] <= 60, graphed.info
+
+
+def _gae_inputs(T, b, dev, seed):
+    """ppo.gae's arguments for a minibatch as the rollout makes it, seeded:
+    data's [T, b] reward, discount (1 - done) and truncation (done envs
+    only), the [T, b] baseline and [b] bootstrap value; ends of both kinds
+    mixed (~20% done, half of them truncated) and a NaN reward at (T // 2,
+    b // 3)."""
+    from open_duck_playground_tpu_torch.train import ppo
+
+    gen = torch.Generator().manual_seed(seed)
+    reward = torch.randn(T, b, generator=gen) * 3
+    done = (torch.rand(T, b, generator=gen) < 0.2).float()
+    truncation = (torch.rand(T, b, generator=gen) < 0.5).float() * done
+    reward[T // 2, b // 3] = float("nan")
+    data = ppo.Transition(observation=None, action=None, reward=reward.to(dev),
+                          discount=(1 - done).to(dev), next_observation=None,
+                          truncation=truncation.to(dev), raw_action=None, log_prob=None)
+    return {"data": data, "baseline": (torch.randn(T, b, generator=gen) * 5).to(dev),
+            "bootstrap_value": (torch.randn(b, generator=gen) * 5).to(dev)}
+
+
+def _plain_gae(data, baseline, bootstrap_value, hp):
+    """compute_gae on loss_points' inputs, as the CPU's path runs it."""
+    from open_duck_playground_tpu_torch.train import ppo
+
+    termination = (1 - data.discount) * (1 - data.truncation)
+    return ppo.compute_gae(data.truncation, termination, data.reward * hp.reward_scaling,
+                           baseline, bootstrap_value, lambda_=hp.gae_lambda,
+                           discount=hp.discounting)
+
+
+def _same_gae(got, want, b):
+    """vs and advantages equal bit for bit, the NaN in column b // 3 alone."""
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               and torch.isnan(x).any(0).nonzero().flatten().tolist() == [b // 3]
+               for x, y in zip(got, want))
+
+
+GAE_SHAPES = [(20, 256), (5, 17)]  # the recipe's unroll x batch, and an unaligned one
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,b", GAE_SHAPES)
+@pytest.mark.parametrize("reward_scaling", [1.0, 0.37])
+def test_gae_kernel_equals_compute_gae(card, T, b, reward_scaling):
+    """ppo.gae on the card (one launch of the GAE kernel) against the plain
+    compute_gae on the same CUDA tensors: vs and advantages bit for bit,
+    the NaN kept in its column; the tracer counts one fused step and no
+    plain one."""
+    import types
+
+    from open_duck_playground_tpu_torch.train import ppo
+    from open_duck_playground_tpu_torch.utils import profiling
+
+    hp = types.SimpleNamespace(reward_scaling=reward_scaling, discounting=0.97, gae_lambda=0.95)
+    inputs = _gae_inputs(T, b, card, seed=T + b)
+    profiling.reset()
+    got = ppo.gae(**inputs, hp=hp)
+    want = _plain_gae(**inputs, hp=hp)
+    torch.cuda.synchronize()
+    counters = profiling.summary()["counters"]
+    assert counters["gae.fused_steps"] == 1 and counters["gae.plain_steps"] == 0
+    assert _same_gae(got, want, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,b", GAE_SHAPES)
+def test_gae_kernel_in_a_captured_graph(card, T, b):
+    """ppo.gae recorded as a CUDA graph (utils.graphs.GraphedBody, as the SGD
+    step's body is), its outputs in the graph's pool, replayed on two new
+    minibatches copied into its inputs, against compute_gae run eagerly:
+    bit for bit after each replay. The graph is the kernel's one node; one
+    fused step recorded per replay, the warm-up's and the replays' counted."""
+    import types
+
+    from open_duck_playground_tpu_torch.ops import cuda_step
+    from open_duck_playground_tpu_torch.train import ppo
+    from open_duck_playground_tpu_torch.utils import profiling
+    from open_duck_playground_tpu_torch.utils.graphs import GraphedBody, copy_into
+
+    hp = types.SimpleNamespace(reward_scaling=0.37, discounting=0.97, gae_lambda=0.95)
+    static = _gae_inputs(T, b, card, seed=0)
+    out = {}
+
+    def body():
+        out["gae"] = ppo.gae(**static, hp=hp)
+
+    graphed = GraphedBody(body, [], device=card, kernels=[cuda_step.GAE])
+    profiling.reset()
+    for seed in (1, 2):
+        fresh = _gae_inputs(T, b, card, seed)
+        copy_into(static, fresh)
+        graphed.replay()
+        want = _plain_gae(**fresh, hp=hp)
+        torch.cuda.synchronize()
+        assert _same_gae(out["gae"], want, b), seed
+    assert profiling.summary()["counters"]["gae.fused_steps"] == 3
+    assert graphed.info["fused_launches_per_replay"] == 1
+    assert graphed.info["kernel_nodes"] == 1 and graphed.info["memcpy_nodes"] == 0, graphed.info

@@ -175,17 +175,17 @@ def test_source_model_struct_matches_the_wrapper():
 
 
 def test_source_defines_every_entry_point_the_wrapper_binds():
-    """Every function bound from the library is defined in one of its three
-    sources: the kernel's, the tracer's stamp (csrc/stamp.cu) and the
-    optimizer's (csrc/adam.cu)."""
+    """Every function bound from the library is defined in one of its four
+    sources: the kernel's, the tracer's stamp (csrc/stamp.cu), the
+    optimizer's (csrc/adam.cu) and the GAE kernel's (csrc/gae.cu)."""
     with open(cuda_step.__file__) as f:
         bound = set(re.findall(r"lib\.(duck_\w+)", f.read()))
     others = ""
-    for path in (cuda_step._STAMP_SRC, cuda_step._ADAM_SRC):
+    for path in (cuda_step._STAMP_SRC, cuda_step._ADAM_SRC, cuda_step._GAE_SRC):
         with open(path) as f:
             others += f.read()
     defined = set(re.findall(r"^int (duck_\w+)\(", SOURCE + others, re.M))
-    assert bound and bound <= defined and {"duck_stamp", "duck_adam"} <= bound
+    assert bound and bound <= defined and {"duck_stamp", "duck_adam", "duck_gae"} <= bound
 
 
 def test_adam_tensor_limit_matches_the_source():
@@ -206,6 +206,44 @@ def test_adam_step_raises_beyond_one_launch(n):
     with pytest.raises(ValueError, match="one launch takes"):
         cuda_step.adam_step(ts, ts, ts, ts, None, s, s, None, 0.9, 0.999, 1e-8, 3e-4)
     assert cuda_step.ADAM.launches == before
+
+
+def _gae_inputs(T=5, b=3):
+    """reward, discount, truncation, values [T, b] and bootstrap [b]."""
+    return [torch.zeros(T, b) for _ in range(4)] + [torch.zeros(b)]
+
+
+def _bad_gae_inputs(case: str):
+    ins = _gae_inputs()
+    if case == "values_1d":
+        ins[3] = torch.zeros(15)
+    elif case == "empty_T":
+        ins = _gae_inputs(T=0)
+    elif case == "reward_shape":
+        ins[0] = torch.zeros(5, 4)
+    elif case == "bootstrap_shape":
+        ins[4] = torch.zeros(1, 3)
+    elif case == "discount_float64":
+        ins[1] = ins[1].double()
+    elif case == "truncation_view":
+        ins[2] = torch.zeros(3, 5).t()
+    return ins
+
+
+@pytest.mark.parametrize("case,match", [
+    ("values_1d", "values must be"), ("empty_T", "values must be"),
+    ("reward_shape", "reward: shape"), ("bootstrap_shape", "bootstrap_value: shape"),
+    ("discount_float64", "discount must be"), ("truncation_view", "truncation must be"),
+    ("cpu", "CUDA device")])
+def test_gae_step_raises_on_what_the_kernel_does_not_take(case, match):
+    """The GAE kernel's launcher checks shapes ([T, b] with T, b >= 1, the
+    bootstrap [b]), float32, contiguity and the device before anything is
+    built or launched: a ValueError, and no launch counted. CPU tensors of
+    the right shapes are refused too: the kernel has no CPU mode."""
+    before = cuda_step.GAE.launches
+    with pytest.raises(ValueError, match=match):
+        cuda_step.gae_step(*_bad_gae_inputs(case), 1.0, 0.97, 0.95)
+    assert cuda_step.GAE.launches == before
 
 
 def test_profile_stage_names_match_the_source():

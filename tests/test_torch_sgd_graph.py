@@ -14,6 +14,8 @@ eager body on the card is `tests/test_torch_cuda.py`
 (test_captured_sgd_step_matches_eager_body).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -172,6 +174,32 @@ def test_clip_and_adam_runs_the_plain_functions_on_the_cpu(max_grad_norm):
     assert all(a is b for a, b in zip([*params, state.count, *state.mu, *state.nu], tensors))
     for x, y in zip(tensors, [*ref_params, ref.count, *ref.mu, *ref.nu]):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("reward_scaling", [1.0, 0.37])
+def test_gae_runs_compute_gae_on_the_cpu(reward_scaling):
+    """ppo.gae on CPU tensors is compute_gae on the rewards and termination
+    loss_points made before it, bit for bit (a NaN stays in its column);
+    the tracer counts each call as a plain step and none as fused."""
+    hp = dataclasses.replace(_hyper(), reward_scaling=reward_scaling)
+    ts = _state(3)
+    data, _, _ = _inputs(ts, 4)
+    data = dataclasses.replace(data, reward=data.reward.clone())
+    data.reward[2, 5] = float("nan")
+    rng = np.random.RandomState(5)
+    values = torch.from_numpy(rng.randn(T, N).astype(np.float32))
+    boot = torch.from_numpy(rng.randn(N).astype(np.float32))
+    profiling.reset()
+    vs, adv = ppo.gae(data, values, boot, hp)
+    counters = profiling.summary()["counters"]
+    assert counters["gae.plain_steps"] == 1 and counters["gae.fused_steps"] == 0
+    termination = (1 - data.discount) * (1 - data.truncation)
+    ref_vs, ref_adv = ppo.compute_gae(data.truncation, termination,
+                                      data.reward * reward_scaling, values, boot,
+                                      lambda_=hp.gae_lambda, discount=hp.discounting)
+    for x, y in ((vs, ref_vs), (adv, ref_adv)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+        assert torch.isnan(x).any(0).nonzero().flatten().tolist() == [5]
 
 
 @pytest.mark.parametrize("normalize_observations,max_grad_norm", [(True, 1.0), (False, None)])
