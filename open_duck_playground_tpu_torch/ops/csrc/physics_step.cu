@@ -22,9 +22,13 @@
 //   M and the Newton Hessian as packed lower triangles, the constraint
 //   Jacobian stored over each row's support only (efc_off / efc_col, the
 //   twin's column order), and per-stage scratch that later stages reuse.
-//   Nothing is sized by compile-time maxima and no thread keeps a work array
-//   (ptxas: 32 bytes of stack, 0 spills). The stand-in duck needs 12,224
-//   bytes per env flat and 16,032 rough: 18 and 14 envs resident per SM.
+//   Nothing is sized by compile-time maxima but the LDL's rows: each lane
+//   keeps one row of the factor in registers, unrolled to a ceiling (24 or
+//   32, one kernel instantiation each, duck_step_kernel; the wrapper takes
+//   the least that holds nv). ptxas: 80 and 96 registers, 32 bytes of
+//   stack, 0 spills. The stand-in duck needs 12,224 bytes per env flat and
+//   16,032 backlash or rough: 18 and 14 envs resident per SM, bound by
+//   shared memory, not registers (up to 112 and 144 would keep them).
 // - Lanes split independent outputs, never the terms of one sum: one
 //   constraint row, dof, M or H entry, hull vertex, separating axis, body or
 //   spatial component per lane. Every float sum keeps the twin's order term
@@ -49,14 +53,20 @@
 // What bounds it on an H100: the instructions each warp issues along its
 // env's dependent chain, not memory (a few hundred bytes of state per env
 // and control step) and not the arithmetic (~45x the float32 bound). With
-// 14-18 warps per SM the schedulers are mostly busy; the longest chains are
-// the two column-by-column LDL factorizations (nv columns, two warp
-// barriers each), the row-ordered sums of the costs and line search on one
-// lane, the tree walks down 7 levels, and the collision's warp scans. A
-// next redesign would cut instructions there: keep rows and the pivot row
-// in registers, fold the factor's two barriers per column into one, and
-// (only with the twin changed alike) sum rows in a tree instead of in order.
-// Built with -DDUCK_PROFILE the kernel reports each stage's clock cycles.
+// 14-18 warps per SM the schedulers are mostly busy, so a stage costs what
+// it issues. The two LDL factorizations took ~30% of the cycles at nv = 30
+// with three shared loads per term and two warp barriers per column; with
+// the rows in registers and the column by shuffle (one shuffle, two
+// products and a subtraction per term, no barrier per column) the kernel
+// runs 13% faster at 8192 backlash envs (8.30 -> 7.23 ms a launch), the two
+// LDL stages 22% of the cycles. A test per term or per step costs more than
+// it saves: a version that left the triangle at nv by two branches per term
+// was slower than the shared-memory one. By share now: the Newton Hessian
+// and gradient and the primal costs (14% each), H's factor and solve (12%),
+// the line search, M's factor and make_efc (9-10% each), the collision
+// (7%); the row-ordered sums on one lane (costs, line search) could be cut
+// only with the twin changed alike (a tree instead of order). Built with
+// -DDUCK_PROFILE the kernel reports each stage's clock cycles.
 //
 // NaN is never clamped away: min/max/clip propagate NaN like jax.numpy and
 // torch do, so a NaN action still terminates the env.
@@ -108,11 +118,11 @@ enum {
   // com_vel, rne, actuation
   L_VPRE, L_CACC, L_CFRC, L_BIAS, L_QFRC_ACT,
   // smooth acceleration (overlays the kinematics-to-bias arrays)
-  L_LDLM, L_DINV,
+  L_LDLM,
   // make_efc
   L_CMETA, L_JNT,
   // solver
-  L_H, L_SOL_DINV, L_GRAD, L_MAERR, L_DIR, L_TMP, L_TMP2, L_EFC_F, L_EFC_W, L_TERMS,
+  L_H, L_GRAD, L_MAERR, L_DIR, L_TMP, L_TMP2, L_EFC_F, L_EFC_W, L_TERMS,
   // derived outputs
   L_SPOS, L_SMAT, L_PCACC,
   L_COUNT
@@ -685,64 +695,86 @@ __device__ __forceinline__ void actuation(const DuckModel& m, const DuckDR& dr, 
   __syncwarp();
 }
 
-// sparse LDL^T of A (packed lower triangle) on the pattern given by masks,
-// column by column: lane j forms d[j] while each lane i > j forms its row's
-// sum for L[i][j], each over k in the twin's order. The factor goes into L's
-// strict lower part and 1 / d into dinv; A may be L (in place). nv <= 32.
-__device__ __forceinline__ void ldl_factor(int nv, const uint32_t* mask, const float* A, float* L,
-                                           float* dinv, int lane) {
-  const uint32_t ri = lane < nv ? G(mask[lane]) : 0u;
-  for (int j = 0; j < nv; ++j) {
-    const uint32_t rj = G(mask[j]);
-    const bool row = lane > j && lane < nv && (ri >> j & 1u);
-    float t = 0.0f;
-    // row `lane`'s sum over k < j, and its diagonal's when lane == j: the
-    // dense pattern (every k < j) without a mask test; otherwise
-    // branch-free, a term outside the pattern formed (from whatever the slot
-    // holds) and not taken, so the loads of later terms can be issued
-    if (lane == j || row) {
-      const uint32_t below = j ? 0xffffffffu >> (32 - j) : 0u;
-      const uint32_t both = ri & rj & below;
-      const float* Li = L + TRI(lane, 0);
-      const float* Lj = L + TRI(j, 0);
-      const float* d = dinv + nv;
-      float acc = A[TRI(lane, j)];
-      if (both == below) {
-#pragma unroll 4
-        for (int k = 0; k < j; ++k) acc = acc - Li[k] * Lj[k] * d[k];
-      } else {
-#pragma unroll 4
-        for (int k = 0; k < j; ++k) {
-          float p = Li[k] * Lj[k] * d[k];
-          acc = (both >> k & 1u) ? acc - p : acc;
-        }
-      }
-      if (lane == j) {
-        dinv[nv + j] = acc;
-        dinv[j] = 1.0f / acc;
-      } else {
-        t = acc;
-      }
+// Sparse LDL^T of A (packed lower triangle) on the pattern given by masks
+// (bit k < i of mask[i]: (i, k) in the pattern), and the solve of L D L^T x
+// = b. Lane i keeps row i of A, then of L, in registers (`LdlRow::r`,
+// indexed by compile-time constants: the triangle is unrolled to the
+// ceiling NVC >= nv). The factor is right-looking: step j takes d[j] from
+// lane j's diagonal by shuffle, every lane forms 1 / d[j] itself (the same
+// bits on every lane), scales its entry j into L[i][j], and subtracts
+// (L[i][j] L[k][j]) d[j] from its entry k for each k > j, with L[k][j] from
+// lane k by shuffle. Entry (i, k) so takes its terms in ascending j with the
+// twin's rounding (LDLTree.factor), its diagonal as well, and no step
+// touches shared memory. The lanes past nv hold identity rows and every step
+// runs to the ceiling, with no test per step or term: a row's entries are
+// changed only by the steps before them, so the rows past nv leave the
+// model's rows alone, and the entries above a row's diagonal take
+// whatever comes and are never read.
+template <int NVC>
+struct LdlRow {
+  float r[NVC];  // row `lane` of A, then L's strict lower part (entries past it unused)
+  float dinv;    // 1 / d[lane]
+  uint32_t ri;   // mask[lane], 0 past nv
+};
+
+// every step's updates, each entry over its pattern: DENSE (every mask
+// holds every k < i) without a test per term
+template <int NVC, bool DENSE>
+__device__ __forceinline__ void ldl_steps(int nv, const uint32_t* mask, LdlRow<NVC>& row,
+                                          int lane) {
+#pragma unroll
+  for (int j = 0; j < NVC; ++j) {
+    const float dj = __shfl_sync(FULL, row.r[j], j);  // d[j]: lane j's diagonal, all its terms in
+    const float inv = 1.0f / dj;
+    if (lane == j) row.dinv = inv;
+    row.r[j] = row.r[j] * inv;  // L[lane][j] on lanes > j; the others' entry j is not read again
+#pragma unroll
+    for (int k = j + 1; k < NVC; ++k) {
+      const float p = row.r[j] * __shfl_sync(FULL, row.r[j], k) * dj;
+      if (DENSE)
+        row.r[k] = row.r[k] - p;
+      else
+        row.r[k] = ((row.ri & (k < nv ? G(mask[k]) : 0u)) >> j & 1u) ? row.r[k] - p : row.r[k];
     }
-    __syncwarp();
-    if (row) L[TRI(lane, j)] = t * dinv[j];
-    __syncwarp();
   }
 }
 
+// factor A into `row` (registers) and L's strict lower part into shared L,
+// written once, for ldl_solve's backward pass; A may be L (in place): a lane
+// reads and writes only its own row
+template <int NVC>
+__device__ __forceinline__ void ldl_factor(int nv, const uint32_t* mask, const float* A, float* L,
+                                           LdlRow<NVC>& row, int lane) {
+  row.ri = lane < nv ? G(mask[lane]) : 0u;
+  row.dinv = 0.0f;
+#pragma unroll
+  for (int k = 0; k < NVC; ++k)
+    row.r[k] = lane >= nv ? (k == lane ? 1.0f : 0.0f) : (k <= lane ? A[TRI(lane, k)] : 0.0f);
+  if (__all_sync(FULL, lane >= nv || row.ri == (1u << lane) - 1u))
+    ldl_steps<NVC, true>(nv, mask, row, lane);
+  else
+    ldl_steps<NVC, false>(nv, mask, row, lane);
+#pragma unroll
+  for (int k = 0; k < NVC; ++k)
+    if (k < lane && lane < nv) L[TRI(lane, k)] = row.r[k];
+  __syncwarp();
+}
+
 // L D L^T x = b with lane i holding b[i] (returns x[i]): the forward solve
-// runs k outer with rows in parallel, the backward one i outer with columns
-// in parallel; each entry sees its updates in the twin's order
+// runs k outer with rows in parallel (L's rows from the registers), the
+// backward one i outer with columns in parallel (L's columns from shared
+// memory); each entry sees its updates in the twin's order
+template <int NVC>
 __device__ __forceinline__ float ldl_solve(int nv, const uint32_t* mask, const float* L,
-                                           const float* dinv, float z, int lane) {
-  const uint32_t ri = lane < nv ? G(mask[lane]) : 0u;
-  for (int k = 0; k < nv; ++k) {
-    float zk = __shfl_sync(FULL, z, k);
-    if (lane > k && lane < nv && (ri >> k & 1u)) z = z - L[TRI(lane, k)] * zk;
+                                           const LdlRow<NVC>& row, float z, int lane) {
+#pragma unroll
+  for (int k = 0; k < NVC; ++k) {  // row.ri holds no bit past nv
+    const float zk = __shfl_sync(FULL, z, k);
+    if (row.ri >> k & 1u) z = z - row.r[k] * zk;
   }
-  if (lane < nv) z = z * dinv[lane];
+  if (lane < nv) z = z * row.dinv;
   for (int i = nv - 1; i >= 0; --i) {
-    float zi = __shfl_sync(FULL, z, i);
+    const float zi = __shfl_sync(FULL, z, i);
     if (lane < i && (G(mask[i]) >> lane & 1u)) z = z - L[TRI(i, lane)] * zi;
   }
   return z;
@@ -1202,6 +1234,7 @@ __device__ __forceinline__ void dphi(const DuckModel& m, float* sm, float alpha,
 }
 
 // Newton solve with warm start by primal cost; result in QACC
+template <int NVC>
 __device__ __forceinline__ void solve_constraints(const DuckModel& m, float* sm, int lane) {
   const int nv = m.nv, nefc = m.nefc, ntri = nv * (nv + 1) / 2, nfl = m.nfri + m.nlim;
   const float *warm = SA(WARM), *qs = SA(QACC_SMOOTH), *M = SA(M), *J = SA(EFC_J),
@@ -1310,8 +1343,9 @@ __device__ __forceinline__ void solve_constraints(const DuckModel& m, float* sm,
     }
     PROF(PROF_GRAD_H);
     // factor the lower triangle in place: H's strict lower part becomes L
-    ldl_factor(nv, m.ldlh_mask, H, H, SA(SOL_DINV), lane);
-    float z = ldl_solve(nv, m.ldlh_mask, H, SA(SOL_DINV), lane < nv ? -grad[lane] : 0.0f, lane);
+    LdlRow<NVC> row;
+    ldl_factor(nv, m.ldlh_mask, H, H, row, lane);
+    float z = ldl_solve(nv, m.ldlh_mask, H, row, lane < nv ? -grad[lane] : 0.0f, lane);
     if (lane < nv) dir[lane] = z;
     __syncwarp();
 
@@ -1456,6 +1490,7 @@ __device__ __forceinline__ void write_derived(const DuckModel& m, int env, int n
 // one substep (lane_physics.LanePhysics.substep)
 // ---------------------------------------------------------------------------
 
+template <int NVC>
 __device__ __forceinline__ void substep(const DuckModel& m, const DuckDR& dr, int env, float* sm,
                                        int lane) {
   const int nv = m.nv;
@@ -1477,13 +1512,14 @@ __device__ __forceinline__ void substep(const DuckModel& m, const DuckDR& dr, in
   float z = 0.0f;
   if (lane < nv) z = qfrc_act[lane] - bias[lane] - G(m.dof_damping[lane]) * qvel[lane];
   __syncwarp();  // the factor's arrays may overlay the bias forces
-  ldl_factor(nv, m.ldl_mask, SA(M), SA(LDLM), SA(DINV), lane);
-  z = ldl_solve(nv, m.ldl_mask, SA(LDLM), SA(DINV), z, lane);
+  LdlRow<NVC> row;
+  ldl_factor(nv, m.ldl_mask, SA(M), SA(LDLM), row, lane);
+  z = ldl_solve(nv, m.ldl_mask, SA(LDLM), row, z, lane);
   if (lane < nv) qs[lane] = z;
   PROF(PROF_SMOOTH_SOLVE);
   make_efc(m, dr, env, sm, lane);
   PROF(PROF_MAKE_EFC);
-  solve_constraints(m, sm, lane);
+  solve_constraints<NVC>(m, sm, lane);
 }
 
 __device__ __forceinline__ void integrate(const DuckModel& m, float* sm, int lane) {
@@ -1513,7 +1549,9 @@ __device__ __forceinline__ void integrate(const DuckModel& m, float* sm, int lan
   __syncwarp();
 }
 
-// one warp per env: blockDim.x = 32 k, env = blockIdx.x * k + warp
+// one warp per env: blockDim.x = 32 k, env = blockIdx.x * k + warp; NVC is
+// the LDL's unroll ceiling, nv <= NVC (duck_step_kernel)
+template <int NVC>
 __global__ void physics_step_kernel(const __grid_constant__ DuckModel m,
                                     const __grid_constant__ DuckDR dr, int B, int n_substeps,
                                     int nsensordata, const float* __restrict__ qpos_in,
@@ -1535,7 +1573,7 @@ __global__ void physics_step_kernel(const __grid_constant__ DuckModel m,
   LANES(i, m.nu) ctrl[i] = ctrl_in[(size_t)env * m.nu + i];
   __syncwarp();
   for (int k = 0; k < n_substeps; ++k) {
-    substep(m, dr, env, sm, lane);
+    substep<NVC>(m, dr, env, sm, lane);
     PROF_START();
     if (k == n_substeps - 1)
       write_derived(m, env, nsensordata, sm, sensordata, actuator_force, contact_dist, site_xpos,
@@ -1546,6 +1584,18 @@ __global__ void physics_step_kernel(const __grid_constant__ DuckModel m,
   LANES(i, m.nq) qpos_out[(size_t)env * m.nq + i] = qpos[i];
   LANES(i, m.nv) qvel_out[(size_t)env * m.nv + i] = qvel[i];
   LANES(i, m.nv) warm_out[(size_t)env * m.nv + i] = warm[i];
+}
+
+// The kernel instantiated for LDL ceiling `ceiling`, or null: the wrapper
+// takes the least of these cases that holds the model's nv
+// (cuda_step.LDL_CEILINGS). The instantiations differ in that constant alone.
+typedef decltype(&physics_step_kernel<MAX_NV>) StepKernel;
+inline StepKernel duck_step_kernel(int ceiling) {
+  switch (ceiling) {
+    case 24: return physics_step_kernel<24>;
+    case MAX_NV: return physics_step_kernel<MAX_NV>;
+  }
+  return nullptr;
 }
 
 #ifdef __CUDACC__  // the host entry points (the device code above also builds as C++)
@@ -1559,19 +1609,21 @@ int duck_limits(int* out) {
 
 // Let the kernel's blocks use up to `smem` bytes of dynamic shared memory,
 // and prefer shared memory to L1 in the SM's split.
-int duck_configure(int smem) {
-  cudaError_t e = cudaFuncSetAttribute(physics_step_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+int duck_configure(int smem, int ceiling) {
+  StepKernel kernel = duck_step_kernel(ceiling);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaFuncSetAttribute(physics_step_kernel,
-                                   cudaFuncAttributePreferredSharedMemoryCarveout,
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                    (int)cudaSharedmemCarveoutMaxShared);
 }
 
 // How many blocks of `threads` threads and `smem` bytes fit one SM (out[0]),
 // and the card's SM count (out[1]).
-int duck_occupancy(int threads, int smem, int* out) {
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, physics_step_kernel, threads,
+int duck_occupancy(int threads, int smem, int ceiling, int* out) {
+  StepKernel kernel = duck_step_kernel(ceiling);
+  if (!kernel) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads,
                                                                 (size_t)smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0;
@@ -1598,10 +1650,13 @@ int duck_physics_step(const DuckModel* m, const DuckDR* dr, int B, int n_substep
                       int nsensordata, const float* qpos, const float* qvel, const float* warm,
                       const float* ctrl, float* qpos_out, float* qvel_out, float* warm_out,
                       float* sensordata, float* actuator_force, float* contact_dist,
-                      float* site_xpos, float* site_xmat, int envs_per_block, void* stream) {
+                      float* site_xpos, float* site_xmat, int envs_per_block, int ceiling,
+                      void* stream) {
+  StepKernel kernel = duck_step_kernel(ceiling);
+  if (!kernel) return (int)cudaErrorInvalidValue;
   const int blocks = (B + envs_per_block - 1) / envs_per_block;
   const size_t smem = (size_t)envs_per_block * m->env_floats * sizeof(float);
-  physics_step_kernel<<<blocks, 32 * envs_per_block, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, 32 * envs_per_block, smem, (cudaStream_t)stream>>>(
       *m, *dr, B, n_substeps, nsensordata, qpos, qvel, warm, ctrl, qpos_out, qvel_out, warm_out,
       sensordata, actuator_force, contact_dist, site_xpos, site_xmat);
   return (int)cudaGetLastError();

@@ -86,6 +86,8 @@ _DR_SHAPES = {
 }
 # dof masks are 32-bit words; one lane per hull vertex
 _LIMIT_NAMES = ("nv", "hv")
+# the LDL unroll ceilings the kernel is instantiated for (duck_step_kernel)
+LDL_CEILINGS = (24, 32)
 # shared memory one block may use on an H100 (sm_90): 227 KB
 MAX_SHARED_BYTES = 232448
 _ALIGN = 4  # floats: every array starts on a 16-byte boundary
@@ -140,7 +142,6 @@ def _layout_groups(s: Dict[str, int]):
         )),
         ("smooth_acceleration", "B", (
             ("LDLM", tri, "LDL factor of M, packed lower triangle"),
-            ("DINV", 2 * nv, "LDL of M: 1 / d, then d"),
         )),
         ("make_efc", "B", (
             ("CMETA", 16 * npair, "per candidate: imp, D, pos_neg, mu"),
@@ -148,7 +149,6 @@ def _layout_groups(s: Dict[str, int]):
         )),
         ("solve_constraints", "B", (
             ("H", tri, "Newton Hessian, then its LDL factor, packed lower triangle"),
-            ("SOL_DINV", 2 * nv, "LDL of H: 1 / d, then d"),
             ("GRAD", nv, "grad"), ("MAERR", nv, "Ma_err"), ("DIR", nv, "search direction"),
             ("TMP", nv, "q - qacc_smooth, M dir"), ("TMP2", nv, "M (q - qacc_smooth)"),
             ("EFC_F", nefc, "row forces"), ("EFC_W", nefc, "row Hessian weights"),
@@ -215,6 +215,16 @@ def launch_geometry(B: int, env_bytes: int, sms: int, blocks_per_sm) -> dict:
     blocks = -(-B // k)
     return dict(envs_per_block=k, blocks=blocks, blocks_per_sm=n, warps_per_sm=n * k,
                 waves=-(-blocks // (n * sms)), sms=sms)
+
+
+def ldl_ceiling(nv: int) -> int:
+    """The kernel instantiation for a model of `nv` dofs: the least of
+    LDL_CEILINGS that holds nv (each lane keeps one row of the LDL factor in
+    registers, unrolled to the ceiling)."""
+    for c in LDL_CEILINGS:
+        if nv <= c:
+            return c
+    raise ValueError(f"model does not fit the fused kernel: nv={nv} > {LDL_CEILINGS[-1]}")
 
 
 def dr_rows(m: Model, field: str) -> int:
@@ -317,14 +327,14 @@ def _library(profile: bool = False):
     lib.duck_limits.restype = ctypes.c_int
     lib.duck_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.duck_configure.restype = ctypes.c_int
-    lib.duck_configure.argtypes = [ctypes.c_int]
+    lib.duck_configure.argtypes = [ctypes.c_int] * 2
     lib.duck_occupancy.restype = ctypes.c_int
-    lib.duck_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.duck_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.duck_physics_step.restype = ctypes.c_int
     lib.duck_physics_step.argtypes = (
         [ctypes.POINTER(_DuckModel), ctypes.POINTER(_DuckDR), ctypes.c_int, ctypes.c_int,
          ctypes.c_int]
-        + [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
     lib.duck_stamp.restype = ctypes.c_int
     lib.duck_stamp.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong,
@@ -452,17 +462,18 @@ def kernel_limits() -> Dict[str, int]:
     return dict(zip(_LIMIT_NAMES, buf[:n]))
 
 
-def card_occupancy(env_bytes: int, device, profile: bool = False):
-    """(SM count, {k: resident blocks per SM}) for blocks of k envs of this
-    kernel on `device`, from the runtime, after raising the kernel's dynamic
-    shared-memory limit once to the largest block considered."""
+def card_occupancy(env_bytes: int, device, ceiling: int, profile: bool = False):
+    """(SM count, {k: resident blocks per SM}) for blocks of k envs of the
+    kernel instantiated for LDL ceiling `ceiling` on `device`, from the
+    runtime, after raising its dynamic shared-memory limit once to the
+    largest block considered."""
     lib = _library(profile)
     ks = [k for k in _ENVS_PER_BLOCK if k * env_bytes <= MAX_SHARED_BYTES]
     occ, out = {}, (ctypes.c_int * 2)()
     with torch.cuda.device(device):
-        err = lib.duck_configure(ks[-1] * env_bytes) if ks else 0
+        err = lib.duck_configure(ks[-1] * env_bytes, ceiling) if ks else 0
         for k in ks:
-            err = err or lib.duck_occupancy(32 * k, k * env_bytes, out)
+            err = err or lib.duck_occupancy(32 * k, k * env_bytes, ceiling, out)
             occ[k] = out[0]
     if err != 0:
         raise RuntimeError(f"fused physics kernel: shared-memory set-up failed: cudaError {err}")
@@ -758,9 +769,13 @@ class FusedPhysics:
                 setattr(cm, k, v)
             for k, t in tensors.items():
                 setattr(cm, k, t.data_ptr())
-            sms, occ = card_occupancy(lay["env_bytes"], device, self.profile)
+            sms, occ = card_occupancy(lay["env_bytes"], device, self.ceiling(), self.profile)
             self._device_model[key] = (cm, tensors, sms, occ)
         return self._device_model[key]
+
+    def ceiling(self) -> int:
+        """The LDL ceiling of the kernel instantiation this model runs."""
+        return ldl_ceiling(self.model.nv)
 
     def stage_cycles(self) -> Dict[str, int]:
         """Clock cycles per stage, summed over warps and substeps since the
@@ -815,7 +830,7 @@ class FusedPhysics:
             outs["qacc_warmstart"].data_ptr(), outs["sensordata"].data_ptr(),
             outs["actuator_force"].data_ptr(), outs["contact_dist"].data_ptr(),
             outs["site_xpos"].data_ptr(), outs["site_xmat"].data_ptr(),
-            geo["envs_per_block"], stream)
+            geo["envs_per_block"], self.ceiling(), stream)
         if err != 0:
             raise RuntimeError(f"fused physics kernel launch failed: cudaError {err}")
         self.launches += 1

@@ -36,15 +36,20 @@ OUTS = ("qpos", "qvel", "qacc_warmstart", "sensordata", "actuator_force", "conta
         "site_xpos", "site_xmat")
 
 
-def build(src: str) -> ctypes.CDLL:
-    with open(src, "rb") as f:
-        key = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(ROOT, "build", "emulator", f"libduck_emu_{key}.so")
+def build(src: str, single: bool = False, entry: str = "emulate.cpp",
+          out_dir: str = os.path.join(ROOT, "build", "emulator")) -> ctypes.CDLL:
+    """g++ build of `entry` (a file of the emulator) over the kernel source
+    `src`, cached in `out_dir` by their contents; `single`: a source older
+    than the kernel's per-ceiling instantiations (one kernel)."""
+    with open(src, "rb") as f, open(os.path.join(EMU, entry), "rb") as g:
+        key = hashlib.sha256(f.read() + g.read() + bytes([single])).hexdigest()[:16]
+    out = os.path.join(out_dir, f"libduck_emu_{entry.split('.')[0]}_{key}.so")
     if not os.path.exists(out):
-        os.makedirs(os.path.dirname(out), exist_ok=True)
+        os.makedirs(out_dir, exist_ok=True)
         subprocess.run(["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
                         "-pthread", "-w", f"-I{EMU}", f'-DKERNEL_SRC="{src}"',
-                        os.path.join(EMU, "emulate.cpp"), "-o", out], check=True)
+                        *(["-DDUCK_SINGLE_KERNEL"] if single else []),
+                        os.path.join(EMU, entry), "-o", out], check=True)
     return ctypes.CDLL(out)
 
 
@@ -53,10 +58,12 @@ class Emulated:
 
     def __init__(self, cs, model):
         self.cs, self.fp = cs, cs.FusedPhysics(model)
-        self.lib = build(cs._SRC)
+        single = not hasattr(cs, "ldl_ceiling")
+        self.ceiling = 0 if single else cs.ldl_ceiling(model.nv)
+        self.lib = build(cs._SRC, single)
         self.lib.emu_physics_step.argtypes = (
             [ctypes.POINTER(cs._DuckModel), ctypes.POINTER(cs._DuckDR)] + [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * 12 + [ctypes.c_int])
+            + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 2)
         packed = self.fp.packed()
         self.keep = {k: np.ascontiguousarray(v) for k, v in packed["arrays"].items()}
         self.cm = cs._DuckModel()
@@ -80,7 +87,7 @@ class Emulated:
         ins = [np.ascontiguousarray(x, np.float32) for x in (qpos, qvel, warm, ctrl)]
         err = self.lib.emu_physics_step(
             ctypes.byref(self.cm), ctypes.byref(cdr), B, n, m.nsensordata,
-            *[x.ctypes.data for x in ins], *[outs[f].ctypes.data for f in OUTS], k)
+            *[x.ctypes.data for x in ins], *[outs[f].ctypes.data for f in OUTS], k, self.ceiling)
         if err != 0:
             raise RuntimeError(f"emulated launch refused ({err})")
         return outs

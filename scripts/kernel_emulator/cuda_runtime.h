@@ -2,7 +2,8 @@
 // its device code (ops/csrc/physics_step.cu) builds with g++ and runs on the
 // CPU: one OS thread per lane, a barrier per warp for __syncwarp, shuffles
 // through a per-warp exchange buffer; blocks run one after another.
-// Used by scripts/kernel_emulate.py.
+// Used by scripts/kernel_emulate.py (emulate.cpp) and tests/test_torch_kernel_ldl.py
+// (ldl.cpp).
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -61,5 +62,6 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   emu_warp->bar.arrive_and_wait();
   return r;
 }
+inline bool __all_sync(unsigned mask, int pred) { return __ballot_sync(mask, pred) == 0xffffffffu; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }

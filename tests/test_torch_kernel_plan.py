@@ -254,4 +254,20 @@ def test_profile_stage_names_match_the_source():
 def test_launch_is_one_warp_per_env():
     """The kernel launches 32 threads per env; no thread-per-env sizing is left."""
     assert not hasattr(cuda_step, "block_threads")
-    assert "physics_step_kernel<<<blocks, 32 * envs_per_block" in SOURCE
+    assert "StepKernel kernel = duck_step_kernel(ceiling);" in SOURCE
+    assert "kernel<<<blocks, 32 * envs_per_block" in SOURCE
+
+
+def test_ldl_ceilings_match_the_source():
+    """The wrapper's LDL ceilings are the kernel's instantiations
+    (duck_step_kernel's cases), the largest MAX_NV; a model takes the least
+    that holds its nv, and one past the largest raises."""
+    body = SOURCE[SOURCE.index("inline StepKernel duck_step_kernel"):]
+    body = body[:body.index("return nullptr")]
+    max_nv = int(re.search(r"#define MAX_NV (\d+)", SOURCE).group(1))
+    cases = [int(c.replace("MAX_NV", str(max_nv)))
+             for c in re.findall(r"case (\w+): return physics_step_kernel<\1>;", body)]
+    assert tuple(cases) == cuda_step.LDL_CEILINGS and cases[-1] == max_nv
+    assert [cuda_step.ldl_ceiling(nv) for nv in (1, 20, 24, 25, 30, 32)] == [24, 24, 24, 32, 32, 32]
+    with pytest.raises(ValueError, match="nv=33"):
+        cuda_step.ldl_ceiling(33)
