@@ -26,7 +26,7 @@ Phases:
 3. the flat main path: TrainEnv(Joystick("flat_terrain", device="cuda"),
    num_envs=4096, DR on), reset, then 100 steps of random actions, first
    eagerly (TrainEnv.step), then from the same reset and generator states
-   through a CapturedEnvStep (one CUDA graph replay per step). Checks the
+   through an EnvStepProgram (one CUDA graph replay per step). Checks the
    kernel's launch count in each run (1 for the reset + 100), the two final
    states and the env generator's states equal bit for bit, the obs
    shapes, that everything is finite, one graph launch per captured step;
@@ -73,7 +73,7 @@ Phases:
    and a control step after 20 steps of the trained policy), within
    duck_standin.TRAINER_PARITY_LIMITS; every rollout, SGD
    step and eval step of the run is one replay of train()'s
-   CapturedRollout, CapturedSGDStep and CapturedEvalStep; the first
+   RolloutProgram, SGDStepProgram and EvalStepProgram; the first
    EVAL_CHECK_STEPS steps of one eval of the trained policy by run_eval,
    eager against captured (eval_graph_vs_eager), have every metric equal;
    then exact resume through
@@ -126,7 +126,7 @@ Phases:
    printing ms per control step, the kernel's launches on that env (must be
    0) and the peak of torch.cuda.max_memory_allocated, beside the same run
    of the kernel's env (physics="kernel"); the pipeline run again from the
-   same reset and generator states as replays of a CapturedEnvStep (one
+   same reset and generator states as replays of an EnvStepProgram (one
    CUDA graph per control step): final states and env generator bit for
    bit, 0 kernel launches, and both ways ms per control step, env-steps/s,
    host calls, kernels and device ms per step (one traced step each way),
@@ -152,7 +152,7 @@ Phases:
    the device time, the device's idle share of the window and its top 10
    operations; exactly one fused launch, no host wait and no pageable copy
    in each annotated step; the same for PROFILE_STEPS replays of a
-   CapturedEnvStep in the same trace (host calls, graph launches, device
+   EnvStepProgram in the same trace (host calls, graph launches, device
    ms, idle share beside the eager step's; one graph launch and one fused
    kernel per replay, the launch count equal to the profiler's); (b) one
    training step at phase 4's configuration through the captured rollout
@@ -395,14 +395,14 @@ def bitwise_equal(a, b) -> bool:
 
 
 def trace_env_steps(out_dir: str, te, cap, actions, n: int):
-    """n replays of the CapturedEnvStep `cap` (each in annotate("graph_step"),
+    """n replays of the EnvStepProgram `cap` (each in annotate("graph_step"),
     from the state it holds) and then n eager TrainEnv.step calls from
     there (each in annotate("eager_step")) under the profiler; returns the
     read_trace of build/.../trace.json."""
     from open_duck_playground_tpu_torch.utils import profiling
 
     shutil.rmtree(out_dir, ignore_errors=True)
-    state = cap.state
+    state = cap.static["state"]
     torch.cuda.synchronize()
     with profiling.trace(out_dir, device=actions.device):
         for i in range(n):
@@ -558,7 +558,7 @@ def step_bound(fp, B: int, n_substeps: int, dr, per_env_substep: float) -> dict:
 def phase_main_path(task: str, B: int, report: dict) -> dict:
     """TrainEnv(Joystick(task), B envs, DR on): reset, then N_STEPS steps of
     random actions, eagerly (TrainEnv.step) and then, from the same reset
-    and the same generator states, through a CapturedEnvStep (one CUDA
+    and the same generator states, through an EnvStepProgram (one CUDA
     graph replay per step, captured beforehand from another reset, which
     the capture leaves as it found it), each run with the kernel's launch
     count set to 0 just before and read just after; the two final states
@@ -569,7 +569,7 @@ def phase_main_path(task: str, B: int, report: dict) -> dict:
     outputs within phase 2's limits, filed in `report`), and its bound."""
     from open_duck_playground_tpu_torch.envs import randomize
     from open_duck_playground_tpu_torch.envs.joystick import Joystick
-    from open_duck_playground_tpu_torch.envs.wrapper import CapturedEnvStep, TrainEnv
+    from open_duck_playground_tpu_torch.envs.wrapper import EnvStepProgram, TrainEnv
     from open_duck_playground_tpu_torch.ops.cuda_step import flatten_dr_fields
 
     dev = torch.device("cuda")
@@ -597,7 +597,7 @@ def phase_main_path(task: str, B: int, report: dict) -> dict:
     launches_eager = env.physics.launches
     eager, g_eager = state, env.generator.get_state()
 
-    cap = CapturedEnvStep(te, log=log)
+    cap = EnvStepProgram(te, log=log)
     cap.capture(reset(), actions[0])
     env.generator.set_state(g_env)
     env.physics.launches = 0
@@ -725,14 +725,14 @@ def run_env(task: str, B: int, physics: str) -> dict:
 def pipeline_graph_vs_eager(task: str, te, actions, eager, g_env, eager_ms: float,
                             eager_peak: int) -> dict:
     """run_env's pipeline run again from the same reset and the same env
-    generator state, each step one replay of a CapturedEnvStep (captured
+    generator state, each step one replay of an EnvStepProgram (captured
     beforehand from another reset, which the capture leaves as it found it):
     the final state and the env generator's state must equal the eager
     run's (`eager`, and the generator's state now) bit for bit, with 0
     kernel launches. Then one eager step and one replay traced, each in a
     window ending in a synchronize: kernels, device ms and host calls per
     step, and the card's idle share of each window."""
-    from open_duck_playground_tpu_torch.envs.wrapper import CapturedEnvStep
+    from open_duck_playground_tpu_torch.envs.wrapper import EnvStepProgram
     from open_duck_playground_tpu_torch.utils import profiling
 
     env, B, dev = te.env, te.num_envs, actions.device
@@ -744,7 +744,7 @@ def pipeline_graph_vs_eager(task: str, te, actions, eager, g_env, eager_ms: floa
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    cap = CapturedEnvStep(te, log=log)
+    cap = EnvStepProgram(te, log=log)
     cap.capture(reset(), actions[0])
     env.generator.set_state(g_env)
     env.physics.launches = 0
@@ -1367,14 +1367,14 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
 
 @contextlib.contextmanager
 def captured_programs():
-    """{name: [object]} of every CapturedRollout ("rollout"), CapturedSGDStep
-    ("SGD step") and CapturedEvalStep ("eval step") made inside (their
+    """{name: [object]} of every RolloutProgram ("rollout"), SGDStepProgram
+    ("SGD step") and EvalStepProgram ("eval step") made inside (their
     replays are the objects' own)."""
     from open_duck_playground_tpu_torch.train import ppo
 
     made = {}
-    inits = {"rollout": ppo.CapturedRollout, "SGD step": ppo.CapturedSGDStep,
-             "eval step": ppo.CapturedEvalStep}
+    inits = {"rollout": ppo.RolloutProgram, "SGD step": ppo.SGDStepProgram,
+             "eval step": ppo.EvalStepProgram}
 
     def recorder(name, init):
         def recorded(self, *a, **k):
@@ -1473,7 +1473,7 @@ def resume_vs_run(args, out_dir: str, last_line: dict, label: str) -> dict:
 def sgd_graph_vs_eager(runner, kw, label: str) -> dict:
     """Phase 4, before ppo.train: the captured SGD step against its eager
     body at the recipe's widths. Two states from train()'s init (the same
-    seed), one run by ppo.sgd_step, the other by a CapturedSGDStep, take
+    seed), one run by ppo.sgd_step, the other by an SGDStepProgram, take
     SGD_GRAPH_STEPS SGD steps on the same data and draws (each a rollout of
     the eager state's policy on the train env, 8192 DR envs); after each,
     the params, Adam count and moments, normalizer and loss terms must be
@@ -1503,7 +1503,7 @@ def sgd_graph_vs_eager(runner, kw, label: str) -> dict:
         return ppo.init_training_state(obs_sizes, env.action_size, kw["network_factory"], g, dev)
 
     eager, graphed = init(), init()
-    cap = ppo.CapturedSGDStep(graphed, hp)
+    cap = ppo.SGDStepProgram(graphed, hp)
     state = te.reset(gens["reset"])
     out_dir = os.path.join(ROOT, "build", "sgd_graph")
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -1536,7 +1536,7 @@ def sgd_graph_vs_eager(runner, kw, label: str) -> dict:
             f"{json.dumps(steps[-1])}")
     split = trace_split(read_trace(os.path.join(out_dir, "trace.json")), ("eager_sgd", "graph_sgd"))
     per_mb = {k: split[f"{k}_sgd"]["host_calls"] / mb_steps for k in ("eager", "graph")}
-    event_ms = cuda_ms(cap.graph.replay, reps=1)
+    event_ms = cuda_ms(cap.graph.graph.replay, reps=1)
     out = {"steps": steps, "capture": cap.info, "replays": cap.replays,
            "host_launches_per_minibatch_step": per_mb,
            "graph_replays_in_traced_call": split["graph_sgd"]["graph_launches"],
@@ -1573,10 +1573,10 @@ def rollout_graph_vs_eager(runner, kw, label: str, rollouts: int = ROLLOUT_GRAPH
     """Phase 4, before ppo.train (and phase 8's pipeline trainer): the
     captured rollout against the eager one at the recipe's widths (8192 DR
     envs on the train env, unroll 20, the policy of train()'s init; on the
-    pipeline one replay per env step, CapturedRollout.span). From one
+    pipeline one replay per env step, RolloutProgram.span). From one
     reset and one state of the env's generator, `rollouts` consecutive
     rollouts run by
-    ppo.rollout, then as many by a CapturedRollout (the first call
+    ppo.rollout, then as many by a RolloutProgram (the first call
     captures), on the same policy noise: every rollout's final env state and
     Transition, and the env generator's state after the last, equal bit for
     bit (limit 0: the same kernels on the same inputs, the same draws).
@@ -1601,7 +1601,7 @@ def rollout_graph_vs_eager(runner, kw, label: str, rollouts: int = ROLLOUT_GRAPH
     noises = [ppo.draw_training_step(gens["epoch"], hp, env.action_size, dev)[0]
               for _ in range(rollouts)]
     g0 = env.generator.get_state()
-    cap = ppo.CapturedRollout(te, ts.normalizer, ts.params)
+    cap = ppo.RolloutProgram(te, ts.normalizer, ts.params, hp)
     out, ok = {}, True
     for name, fn in (("eager", ppo.rollout), ("graph", cap)):
         env.generator.set_state(g0)
@@ -1617,7 +1617,7 @@ def rollout_graph_vs_eager(runner, kw, label: str, rollouts: int = ROLLOUT_GRAPH
     (eager, g_eager), (graph, g_graph) = out["eager"], out["graph"]
     same = [bitwise_equal(a[1], b[1]) for a, b in zip(eager, graph)]
     gens_same = bool(torch.equal(g_eager, g_graph))
-    per_rollout = hp.unroll_length // (cap.span or hp.unroll_length)
+    per_rollout = hp.unroll_length // cap.span
     ok = passed(f"{label} rollout captured vs eager", states_and_transitions_equal=all(same),
                 generators_equal=gens_same,
                 replays=cap.replays == rollouts * per_rollout)
@@ -1635,7 +1635,7 @@ def eval_graph_vs_eager(runner, kw, normalizer, params, label: str) -> dict:
     """Phase 4, after ppo.train: one eval of the trained policy (the eval
     env, num_eval_envs envs, the first EVAL_CHECK_STEPS steps of an episode, train()'s
     stochastic or deterministic policy) by ppo.run_eval with the eager
-    eval_step and twice with a CapturedEvalStep (the first captures), each
+    eval_step and twice with an EvalStepProgram (the first captures), each
     from the same generator states: every eval metric equal to every digit.
     Prints each run's seconds."""
     from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
@@ -1647,7 +1647,7 @@ def eval_graph_vs_eager(runner, kw, normalizer, params, label: str) -> dict:
     steps = EVAL_CHECK_STEPS
     det = kw.get("deterministic_eval", False)
     g = torch.Generator(device=dev)
-    cap = ppo.CapturedEvalStep(te, normalizer, params, g, det)
+    cap = ppo.EvalStepProgram(te, normalizer, params, g, det)
     outs, secs = [], []
     for step in (ppo.eval_step, cap, cap):
         g.manual_seed(5)
@@ -1858,20 +1858,19 @@ def _spy_launches(fp, seen: dict):
 
 @contextlib.contextmanager
 def eager_bodies():
-    """ppo.train's rollout, eval step and SGD step as the eager bodies on
-    the card too: what the trainer ran at world > 1 before its graphs,
+    """ppo.train's rollout, eval step and SGD step programs running their
+    bodies eagerly on the card too (utils.graphs.GraphedBody told the card
+    captures nothing): what the trainer ran at world > 1 before its graphs,
     asked for by phase 5's eager run to time it beside the graphs in one
     call. A choice of this check: the trainer itself never falls back."""
-    from open_duck_playground_tpu_torch.train import ppo
+    from open_duck_playground_tpu_torch.utils.graphs import GraphedBody
 
-    saved = ppo.make_rollout, ppo.make_eval_step, ppo.make_sgd_step
-    ppo.make_rollout = lambda *a, **k: ppo.rollout
-    ppo.make_eval_step = lambda *a, **k: ppo.eval_step
-    ppo.make_sgd_step = lambda *a, **k: ppo.sgd_step
+    saved = GraphedBody.__dict__["captures"]
+    GraphedBody.captures = staticmethod(lambda device: False)
     try:
         yield {}
     finally:
-        ppo.make_rollout, ppo.make_eval_step, ppo.make_sgd_step = saved
+        GraphedBody.captures = saved
 
 
 def sharded_rank(runner, shard, out: str, eager: bool = False) -> dict:
@@ -1954,8 +1953,9 @@ def sharded_rank(runner, shard, out: str, eager: bool = False) -> dict:
         checks["sgd_segments"] = bd["sgd_graph"].get("segments") == n_collectives + 1
     sgd_graph = made.get("SGD step", [None])[0]
     segments = None if sgd_graph is None else {
-        "segments": len(sgd_graph.segment_capture_s), "capture_s": sgd_graph.segment_capture_s,
-        "capture_s_median": float(np.median(sgd_graph.segment_capture_s)),
+        "segments": len(sgd_graph.graph.segment_capture_s),
+        "capture_s": sgd_graph.graph.segment_capture_s,
+        "capture_s_median": float(np.median(sgd_graph.graph.segment_capture_s)),
         "pool_bytes": sgd_graph.info["pool_bytes"]}
 
     # (b) the params every rank ends with (train() checked the replicated
@@ -1988,7 +1988,7 @@ def sharded_rank(runner, shard, out: str, eager: bool = False) -> dict:
         data, state = tree_map(torch.clone, data), tree_map(torch.clone, state)
         ts, losses = sgd(ts, data, perms, ent, hp, env_shard)
         ts = ts.replace(env_steps=ts.env_steps + hp.env_steps_per_training_step)
-        kinds = [type(f).__name__ if isinstance(f, (ppo.CapturedRollout, ppo.CapturedSGDStep))
+        kinds = [type(f).__name__ if isinstance(f, (ppo.RolloutProgram, ppo.SGDStepProgram))
                  else f.__name__ for f in (roll, sgd)]
         return dict(ts=ts, state=state, data=data, te=te, losses=losses, kinds=kinds, roll=roll,
                     sgd=sgd, gens={"epoch": gens["epoch"], "env": env.generator})
@@ -2073,7 +2073,7 @@ def sharded_rank(runner, shard, out: str, eager: bool = False) -> dict:
                              "sgd_capture": graph_w["sgd"].info,
                              "rollout_capture": graph_w["roll"].graph.info}
     checks["graph_vs_eager"] = (all(same.values()) and graph_w["kinds"] ==
-                                ["CapturedRollout", "CapturedSGDStep"])
+                                ["RolloutProgram", "SGDStepProgram"])
     del eager_w
     ts2, state2, data2, te2, gens2 = (graph_w[k] for k in ("ts", "state", "data", "te", "gens"))
 
@@ -2101,8 +2101,8 @@ def sharded_rank(runner, shard, out: str, eager: bool = False) -> dict:
            "count": [float(ts1.normalizer.count), float(ts2.normalizer.count)],
            "env_steps": [int(ts1.env_steps), int(ts2.env_steps)],
            "steps": [one["kinds"], graph_w["kinds"]]}
-    checks["invariance"] = (one["kinds"] == ["rollout", "CapturedSGDStep"]
-                            and graph_w["kinds"] == ["CapturedRollout", "CapturedSGDStep"]
+    checks["invariance"] = (one["kinds"] == ["rollout", "SGDStepProgram"]
+                            and graph_w["kinds"] == ["RolloutProgram", "SGDStepProgram"]
                             and inv["transitions_max"] <= SHARDED_LIMITS["transitions"]
                             and inv["params_q99"] <= SHARDED_LIMITS["params_q99"]
                             and inv["params_max"] <= SHARDED_LIMITS["params_max"]
@@ -2499,7 +2499,7 @@ def profile_env_step(out_dir: str) -> dict:
     env_logic and its physics_step physics (so env_step - env_logic is the
     wrapper and its autoreset, env_logic - physics the task's own logic).
     Before them, in the same trace, PROFILE_STEPS replays of a
-    CapturedEnvStep (captured before the trace), each in
+    EnvStepProgram (captured before the trace), each in
     annotate("graph_step"), in annotate("graph_window"). The same number of steps of each timed
     untraced just before, for the profiler's cost. Checks one fused launch,
     no host wait and no pageable copy in each eager step; one graph launch
@@ -2507,7 +2507,7 @@ def profile_env_step(out_dir: str) -> dict:
     replays equal to the fused kernels the profiler saw in them."""
     from open_duck_playground_tpu_torch.envs import randomize
     from open_duck_playground_tpu_torch.envs.joystick import Joystick
-    from open_duck_playground_tpu_torch.envs.wrapper import CapturedEnvStep, TrainEnv
+    from open_duck_playground_tpu_torch.envs.wrapper import EnvStepProgram, TrainEnv
     from open_duck_playground_tpu_torch.utils import profiling
 
     task, B = FLAT_MAIN
@@ -2522,7 +2522,7 @@ def profile_env_step(out_dir: str) -> dict:
     state = te.reset(torch.Generator(device=dev).manual_seed(1))
     for i in range(PROFILE_WARMUP):
         state = te.step(state, actions[i])
-    cap = CapturedEnvStep(te)
+    cap = EnvStepProgram(te)
     cap.capture(state, actions[0])
     windows = {}
     for name, step, at in (("eager", te.step, PROFILE_WARMUP),
@@ -2588,8 +2588,8 @@ def profile_training_step(out_dir: str) -> dict:
     """Phase 9 (b): one training_step at phase 4's configuration (the
     runner's recipe: flat_terrain_backlash, 8192 DR envs, unroll 20, 256 x 32
     minibatches, 4 updates, (512, 256, 128) networks) with the rollout and
-    the SGD step the trainer runs on the card, a CapturedRollout and a
-    CapturedSGDStep, after a warm-up step (which captures both) and one
+    the SGD step the trainer runs on the card, a RolloutProgram and an
+    SGDStepProgram, after a warm-up step (which captures both) and one
     timed untraced. Each call of the two is wrapped from outside in an
     annotation (rollout, sgd_step): their bodies run in Python only at the
     capture, so each reads as its host calls (the input copies, the
@@ -2613,8 +2613,8 @@ def profile_training_step(out_dir: str) -> dict:
                   randomization_generator=gens["randomization"])
     obs_sizes = {k: v[0] for k, v in env.observation_size.items()}
     ts = ppo.init_training_state(obs_sizes, env.action_size, kw["network_factory"], gens["net"], dev)
-    cap = ppo.CapturedSGDStep(ts, hp)
-    roll = ppo.CapturedRollout(te, ts.normalizer, ts.params)
+    cap = ppo.SGDStepProgram(ts, hp)
+    roll = ppo.RolloutProgram(te, ts.normalizer, ts.params, hp)
     state = te.reset(gens["reset"])
     mb_steps = hp.num_updates_per_batch * hp.num_minibatches
 

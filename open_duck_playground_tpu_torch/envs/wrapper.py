@@ -9,14 +9,14 @@ Counterpart of the JAX package's ``envs/wrapper.py``, in the same order:
 - auto-reset to the episode's FIRST state on done (Brax semantics: envs
   restart from their cached initial state, not a fresh randomized reset).
 
-The JAX package jits ``TrainEnv.step``. Its counterpart on the card is
-``CapturedEnvStep``: the step over fixed buffers (``step_into``, which the
-CPU runs eagerly), replayed as one CUDA graph on a CUDA device, at any
-world size (an env-sharded step draws at the global shape and cuts its
-rows inside the graph; no collective runs in a step), on either engine:
-the fused kernel, or the general pipeline's ``forward.step_n`` that XLA
-compiles into the JAX package's jitted step off the TPU
-(``eager_reason`` says why a step runs eagerly).
+The JAX package jits ``TrainEnv.step``. Its counterpart is
+``EnvStepProgram`` (a utils.graphs.Captured): the step over fixed buffers
+(``step_into``), replayed as one CUDA graph on a CUDA device and run
+eagerly on the CPU, at any world size (an env-sharded step draws at the
+global shape and cuts its rows inside the graph; no collective runs in a
+step), on either engine: the fused kernel, or the general pipeline's
+``forward.step_n`` that XLA compiles into the JAX package's jitted step
+off the TPU.
 """
 
 from __future__ import annotations
@@ -29,12 +29,7 @@ import torch
 from open_duck_playground_tpu_torch.envs import randomize
 from open_duck_playground_tpu_torch.envs.types import State
 from open_duck_playground_tpu_torch.utils import profiling
-from open_duck_playground_tpu_torch.utils.graphs import (
-    GraphedBody,
-    clone_tree,
-    copy_into,
-    tree_leaves,
-)
+from open_duck_playground_tpu_torch.utils.graphs import Captured, copy_into
 
 
 class TrainEnv:
@@ -67,6 +62,17 @@ class TrainEnv:
     def model(self):
         """The (randomized, if DR is on) model the batch steps with."""
         return self._model_v if self._model_v is not None else self._env.model
+
+    @property
+    def generators(self) -> list:
+        """The generators a step draws from (a graph of it registers them)."""
+        return [self._env.generator]
+
+    @property
+    def kernels(self) -> list:
+        """The hand-written kernels a step launches, by their launch counters:
+        the fused physics, or none on the general pipeline."""
+        return [self._env.physics] if getattr(self._env, "physics_mode", None) == "kernel" else []
 
     @property
     def action_size(self) -> int:
@@ -157,29 +163,8 @@ def wrap_for_training(env, num_envs: int, episode_length: int, action_repeat: in
 
 
 # ---------------------------------------------------------------------------
-# the step over fixed buffers, and its CUDA graph
+# the step over fixed buffers, and its program
 # ---------------------------------------------------------------------------
-
-
-def eager_reason(env) -> Optional[str]:
-    """Why the steps of `env` run eagerly, or None where they can be
-    captured as a CUDA graph: on a CUDA device, at any world size (the
-    steps of an env-sharded run hold no collective), with either physics
-    engine."""
-    if env.device.type != "cuda":
-        return f"eager on {env.device} (no CUDA graph on the CPU)"
-    return None
-
-
-def capture_parts(env):
-    """The generators a captured step of `env` draws from and the fused
-    physics whose launches it counts; raises where the step runs eagerly."""
-    why = eager_reason(env)
-    if why is not None:
-        raise ValueError(f"a CUDA graph of the env step needs a CUDA device: this env steps "
-                         f"{why}")
-    physics = [env.physics] if getattr(env, "physics_mode", None) == "kernel" else []
-    return [env.generator], physics
 
 
 @torch.no_grad()
@@ -193,53 +178,25 @@ def step_into(train_env: TrainEnv, buffers: State, action: torch.Tensor) -> Stat
     return buffers
 
 
-class CapturedEnvStep:
-    """`TrainEnv.step` replayed as one CUDA graph: the JAX package's jitted
-    env step. Called as `train_env.step` is, `(state, action) -> state`.
-
-    The graph records `step_into` over fixed buffers: the env state, made
-    at the first call as distinct copies of the state given, and the
-    action. A call copies its state into the buffers unless it is the state
-    the last call returned, copies its action unless it is `self.action`,
-    and replays. The state returned is the buffers themselves: the next
-    call overwrites it (clone it to keep it). The first call captures
-    (utils.graphs.GraphedBody: warm-up from snapshots of the state and of
-    the env's generator, restored, then capture); `capture` does that
-    ahead of the first step. Every draw comes from the env's generator,
-    registered with the graph, so replays draw what eager steps draw."""
+class EnvStepProgram(Captured):
+    """`TrainEnv.step` as a device program (utils.graphs.Captured), called
+    as `train_env.step` is: the JAX package's jitted env step, one CUDA
+    graph replay per step on the card. Its body is `step_into` over static
+    copies of the state and the action, made at the first call (or at
+    `capture`); the state returned is the static buffers, which the next
+    call overwrites (clone it to keep it). Every draw comes from the env's
+    generator, registered with the graph."""
 
     def __init__(self, train_env: TrainEnv, log=None):
-        self.generators, self.physics = capture_parts(train_env.env)
-        self.train_env, self.log = train_env, log
-        self.state: Optional[State] = None
-        self.action: Optional[torch.Tensor] = None
-        self.graph: Optional[GraphedBody] = None
-
-    def _load(self, state: State, action: torch.Tensor) -> None:
-        if self.state is None:
-            te, buffers, act = self.train_env, clone_tree(state), action.clone()
-            self.state, self.action = buffers, act
-            self.graph = GraphedBody(lambda: step_into(te, buffers, act),
-                                     tree_leaves(buffers).values(), self.generators,
-                                     self.physics, act.device, "[env] TrainEnv.step", self.log)
-            return
-        if state is not self.state:
-            copy_into(self.state, state)
-        if action is not self.action:
-            self.action.copy_(action)
+        super().__init__(lambda s: step_into(train_env, s["state"], s["action"]), (),
+                         train_env.generators, train_env.kernels, train_env.env.device,
+                         "[env] TrainEnv.step", "env.step", "one replay per env step", log)
 
     def capture(self, state: State, action: torch.Tensor) -> None:
         """Capture from `state` and `action` (their values are kept for the
         next call), without stepping."""
-        self._load(state, action)
-        if self.graph.graph is None:
-            self.graph.capture()
+        self.load({"state": state, "action": action})
+        self.graph.capture()
 
     def __call__(self, state: State, action: torch.Tensor) -> State:
-        self._load(state, action)
-        self.graph.replay()
-        return self.state
-
-    @property
-    def replays(self) -> int:
-        return 0 if self.graph is None else self.graph.replays
+        return self.run({"state": state, "action": action})

@@ -16,7 +16,7 @@ a step makes no tensor from host memory and reads nothing back (the
 index and constant tables are made once, ``smooth.index`` and
 ``smooth.constant``), so on the card a
 control step can be recorded as one CUDA graph and replayed
-(``envs/wrapper.CapturedEnvStep``, ``train/ppo.CapturedRollout``): the
+(``envs/wrapper.EnvStepProgram``, ``train/ppo.RolloutProgram``): the
 counterpart of the JAX package's ``step_n`` compiled by XLA inside its
 jitted programs.
 """

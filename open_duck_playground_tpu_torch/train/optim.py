@@ -15,7 +15,7 @@ No step reads a value back to the host.
 
 The state's tensors are persistent buffers: ``adam`` updates the count and
 the moments in place, as it does the params, so that a captured CUDA graph
-of the SGD step (``ppo.CapturedSGDStep``) reads and writes the same
+of the SGD step (``ppo.SGDStepProgram``) reads and writes the same
 addresses at every replay. Each moment is still the functional update term
 for term, every product and sum rounded on its own (a fused
 ``m.mul_(b1).add_(g, alpha=1-b1)`` or ``lerp`` could round as one FMA), so

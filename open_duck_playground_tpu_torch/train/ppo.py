@@ -18,16 +18,17 @@ hand-written kernel (``optim.clip_and_adam``, ``gae``). Every env
 step goes through the env's physics (the fused CUDA kernel on the card, or
 the general pipeline with physics="pipeline"). The JAX package jits its
 rollout scan, its eval scan and its SGD step, one SPMD program at any
-device count. On the card each is a CUDA graph here: a training step is
-the replays of ``CapturedRollout`` (one of the unroll_length env steps and
-the policy on the kernel; one per env step on the general pipeline, whose
-control step is ~50,000 kernels) and of ``CapturedSGDStep`` (the
-normalizer update and every minibatch step: one graph at world size 1, a
-chain of graph segments with the collectives between them at world > 1),
-and an eval step one replay of ``CapturedEvalStep``. Each records a body
-over fixed buffers (``rollout_into``, ``sgd_points``, ``eval_step``;
-utils/graphs.py), which is what runs eagerly on the CPU (``make_rollout``,
-``make_sgd_step`` and ``make_eval_step`` pick, and train() logs which).
+device count. Here each is a device program (utils.graphs.Captured), a
+CUDA graph on the card: a training step is the replays of
+``RolloutProgram`` (one of the unroll_length env steps and the policy on
+the kernel; one per env step on the general pipeline, whose control step
+is ~50,000 kernels) and of ``SGDStepProgram`` (the normalizer update and
+every minibatch step: one graph at world size 1, a chain of graph segments
+with the collectives between them at world > 1), and an eval step one
+replay of ``EvalStepProgram``. Each replays a body over fixed buffers
+(``rollout_into``, ``sgd_points``, ``eval_step``), which the CPU runs
+eagerly through the same objects (``make_rollout``, ``make_sgd_step`` and
+``make_eval_step`` make them, and each logs how it runs).
 
 Env-sharded runs (``shard``, ``parallel/dist.py``) keep the JAX package's
 global view: every draw is made at the global shape on every rank, each
@@ -51,7 +52,7 @@ import torch
 
 from open_duck_playground_tpu_torch import interop
 from open_duck_playground_tpu_torch.envs.types import State
-from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv, capture_parts, eager_reason
+from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
 from open_duck_playground_tpu_torch.ops import cuda_step
 from open_duck_playground_tpu_torch.parallel.dist import (
     Collectives,
@@ -65,7 +66,7 @@ from open_duck_playground_tpu_torch.train import networks as nets
 from open_duck_playground_tpu_torch.train import optim
 from open_duck_playground_tpu_torch.utils import profiling
 from open_duck_playground_tpu_torch.utils.graphs import (
-    GraphedBody,
+    Captured,
     clone_tree,
     copy_into,
     tree_leaves,
@@ -277,10 +278,6 @@ def _sharded(shard: Optional[EnvShard]) -> Optional[EnvShard]:
     return shard if shard is not None and shard.world > 1 else None
 
 
-def _same_tensors(a: list, b: list) -> bool:
-    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
-
-
 def _policy_tensors(normalizer, networks: nets.PPONetworks) -> list:
     return [*networks.parameters(), *tree_leaves(normalizer).values()]
 
@@ -290,122 +287,57 @@ def rollout_into(train_env: TrainEnv, buffers: State, normalizer, networks: nets
                  noise: torch.Tensor):
     """`rollout` from the env state `buffers`, whose final state is written
     into `buffers` in place (utils.graphs.copy_into); returns (buffers,
-    Transition). The body CapturedRollout records."""
+    Transition). The body RolloutProgram replays."""
     state, data = rollout(train_env, buffers, normalizer, networks, noise)
     copy_into(buffers, state)
     return buffers, data
 
 
-class CapturedRollout:
-    """`rollout` replayed as a CUDA graph, on a CUDA device at any world size
-    (an env-sharded env draws at the global shape and cuts its rows inside
-    the graph): the JAX package's `lax.scan` of the policy and
-    `train_env.step` (ppo.py rollout). The graph records `span` steps of
-    `nets.sample_actions` and `TrainEnv.step` and their stacked Transition
-    (`rollout_into`), and a call replays it unroll_length / span times. On
-    the fused kernel `span` is the whole unroll (None): one replay per
-    training step. On the
-    general pipeline it is one control step, each replay's Transition
-    copied into stacked buffers: a pipeline control step is ~43,000-56,000
-    small kernels, and a graph of a 20-step unroll would hold ~1M nodes.
-    Called as `rollout` is.
+class RolloutProgram(Captured):
+    """`rollout` as a device program (utils.graphs.Captured), called as
+    `rollout` is: the JAX package's `lax.scan` of the policy and
+    `train_env.step`. Its body, `rollout_into`, runs `span` steps over
+    static copies of the env state and of `span` steps of policy noise; a
+    call replays it unroll_length / span times and returns (the static env
+    state, the Transition). `span` is the whole unroll on the fused kernel
+    (the Transition is the graph's own) and one control step on the
+    general pipeline (~43,000-56,000 small kernels: a 20-step graph would
+    hold ~1M nodes), each replay's Transition then copied into stacked
+    tensors. It reads the env and, by address, the params and normalizer
+    (the SGD step updates them in place)."""
 
-    The graph reads fixed addresses: the params and the normalizer it was
-    made for (those CapturedSGDStep updates in place; every call must hand
-    them, a restore copies into them), a static policy noise [span, N, A]
-    into which each replay copies its slice of the call's `noise` (drawn
-    outside, by draw_training_step), and the env state buffers, made at the
-    first call as distinct copies of the state given. A call copies its env
-    state in unless it is the state the last call returned. It returns (the
-    buffers, the Transition): both are the captured program's own tensors,
-    which the next call overwrites. The env's draws come from its
-    generator, registered with the graph (utils.graphs.GraphedBody, which
-    also captures at the first call and keeps the kernel's launch count)."""
-
-    def __init__(self, train_env: TrainEnv, normalizer, networks: nets.PPONetworks, log=None):
-        self.generators, self.physics = capture_parts(train_env.env)
-        self.train_env, self.log = train_env, log
-        self.span = 1 if getattr(train_env.env, "physics_mode", None) == "pipeline" else None
-        self.normalizer, self.networks = normalizer, networks
-        self._policy = _policy_tensors(self.normalizer, self.networks)
-        self.graph: Optional[GraphedBody] = None
-        self.state: Optional[State] = None
-        self.data: Optional[Transition] = None  # the stacked Transition where span < unroll
+    def __init__(self, train_env: TrainEnv, normalizer, networks: nets.PPONetworks, hp: Hyper,
+                 log=None):
+        pipeline = getattr(train_env.env, "physics_mode", None) == "pipeline"
+        self.span = span = 1 if pipeline else hp.unroll_length
+        what = (f"{hp.unroll_length // span} replays per training step, each {span} env step of "
+                f"the policy and TrainEnv.step (physics='pipeline': ~50,000 kernels per control "
+                f"step, a graph per control step at most)" if pipeline else
+                f"one replay per training step ({span} env steps)")
+        super().__init__(lambda s: rollout_into(train_env, s["state"], normalizer, networks,
+                                                s["noise"]),
+                         [train_env, *_policy_tensors(normalizer, networks)], train_env.generators,
+                         train_env.kernels, train_env.env.device, "[ppo] rollout", "ppo.rollout",
+                         what, log, extra={"env_steps_per_replay": span})
 
     def __call__(self, train_env: TrainEnv, env_state: State, normalizer,
                  networks: nets.PPONetworks, noise: torch.Tensor):
-        if train_env is not self.train_env:
-            raise ValueError("the captured rollout steps the TrainEnv it was made for")
-        if not _same_tensors(_policy_tensors(normalizer, networks), self._policy):
-            raise ValueError("the captured rollout reads the params and normalizer it was made "
-                             "for: restore into them, do not rebind")
-        T = noise.shape[0]
-        span = self.span or T
-        dev = noise.device
-        copy_state = False
-        if self.graph is None:
-            state, static_noise, out = clone_tree(env_state), noise[:span].clone(), {}
-            self.state, self.noise, self._out, self.unroll = state, static_noise, out, T
-            te, norm, nw = self.train_env, self.normalizer, self.networks
-
-            def body():  # references no `self` (see GraphedBody)
-                out["data"] = rollout_into(te, state, norm, nw, static_noise)[1]
-
-            self.graph = GraphedBody(body, tree_leaves(state).values(), self.generators,
-                                     self.physics, dev, "[ppo] rollout", self.log,
-                                     extra={"env_steps_per_replay": span})
-        elif T != self.unroll:
-            raise ValueError(f"the captured rollout unrolls {self.unroll} steps, not {T}")
-        else:
-            copy_state = env_state is not self.state
+        reads = [train_env, *_policy_tensors(normalizer, networks)]
+        T, span, stacked = noise.shape[0], self.span, None
         for t in range(0, T, span):
-            with profiling.span("ppo.rollout.copy_in", dev):
-                if copy_state:
-                    copy_into(self.state, env_state)
-                    copy_state = False
-                self.noise.copy_(noise[t:t + span])
-            with profiling.span("ppo.rollout.replay"):
-                self.graph.replay()
+            env_state, data = self.run({"state": env_state, "noise": noise[t:t + span]}, reads)
             if span < T:
-                if self.data is None:
-                    self.data = tree_map(lambda x: x.new_empty((T,) + x.shape[1:]),
-                                         self._out["data"])
-                for buf, x in zip(tree_leaves(self.data).values(),
-                                  tree_leaves(self._out["data"]).values()):
+                if stacked is None:
+                    stacked = tree_map(lambda x: x.new_empty((T,) + x.shape[1:]), data)
+                for buf, x in zip(tree_leaves(stacked).values(), tree_leaves(data).values()):
                     buf[t:t + span].copy_(x)
-        return self.state, self._out["data"] if span == T else self.data
-
-    @property
-    def replays(self) -> int:
-        return 0 if self.graph is None else self.graph.replays
+        return env_state, data if stacked is None else stacked
 
 
-def _world_note(env) -> str:
-    """What a captured step of an env-sharded `env` holds, for the log."""
-    shard = _sharded(getattr(env, "shard", None))
-    if shard is None:
-        return ""
-    return (f" at world {shard.world} (this rank's rows; the draws made at the global shape "
-            f"and cut inside the graph, no collective in it)")
-
-
-def make_rollout(train_env: TrainEnv, training_state: TrainingState, hp: Hyper, log=None):
-    """The rollout train() runs, and the log line that says which: a
-    CapturedRollout on a CUDA device, at any world size, else `rollout`
-    (wrapper.eager_reason)."""
-    why = eager_reason(train_env.env)
-    fn = (rollout if why is not None else
-          CapturedRollout(train_env, training_state.normalizer, training_state.params, log))
-    if log is not None:
-        if why is None and fn.span is not None:
-            how = (f"{hp.unroll_length // fn.span} CUDA graph replays per training step, each "
-                   f"{fn.span} env step of the policy and TrainEnv.step (physics='pipeline': "
-                   f"~50,000 kernels per control step, a graph per control step at most)")
-        else:
-            how = f"one CUDA graph replay per training step ({hp.unroll_length} env steps)"
-        how += _world_note(train_env.env)
-        log(f"[ppo] rollout: {why or how + ', captured at its first call'}")
-    return fn
+def make_rollout(train_env: TrainEnv, training_state: TrainingState, hp: Hyper,
+                 log=None) -> RolloutProgram:
+    """The rollout train() runs; it logs how it runs."""
+    return RolloutProgram(train_env, training_state.normalizer, training_state.params, hp, log)
 
 
 def sgd_step(training_state: TrainingState, data: Transition, perms: torch.Tensor,
@@ -420,10 +352,10 @@ def sgd_step(training_state: TrainingState, data: Transition, perms: torch.Tenso
     (training_state, {name: [epochs, nmb] losses}).
 
     This runs the one body of the SGD step, `sgd_points`, eagerly, each of
-    its collectives (world > 1) between the segments it separates: what the
-    CPU runs. On the card `CapturedSGDStep` replays the same body, as one
-    CUDA graph at world size 1 and as a chain of graph segments at world
-    > 1. It reads nothing back to the host.
+    its collectives (world > 1) between the segments it separates.
+    `SGDStepProgram` replays the same body, on the card as one CUDA graph
+    at world size 1 and as a chain of graph segments at world > 1. It
+    reads nothing back to the host.
 
     With a shard of world > 1, `data` holds this rank's envs and the draws
     are the global ones: the normalizer takes the global batch's
@@ -516,131 +448,57 @@ def restore_learner(training_state: TrainingState, saved: list) -> None:
         t.copy_(s)
 
 
-class CapturedSGDStep:
-    """`sgd_step` replayed as CUDA graphs once per training step, on a CUDA
-    device: the JAX package's jitted SGD step (normalizer + epochs x
-    minibatches in one program, its collectives placed inside by XLA).
+class SGDStepProgram(Captured):
+    """`sgd_step` as a device program (utils.graphs.Captured), called as
+    `sgd_step` is with the hyperparameters and shard it was made for: the
+    JAX package's jitted SGD step (normalizer + epochs x minibatches, its
+    collectives placed inside by XLA). Its body, `sgd_points`, runs over
+    static copies of the Transition, the permutations and the entropy
+    noise, and updates the params, Adam state and normalizer of the
+    `training_state` it was made for in place (a restore copies into
+    them). On the card at world size 1 it is one CUDA graph of ~35,000
+    kernels (per minibatch step one launch each of the GAE and optimizer
+    kernels). With a `shard` of world > 1 it is a chain of
+    `sgd_collectives` + 1 segments in one memory pool, each point's fixed
+    buffer (dist.Collectives) summed over the ranks in place between two
+    (EnvShard.all_reduce_sum_, eagerly: gloo cannot be captured, and
+    NCCL's capture needs a card per rank to check). The loss terms come
+    back as copies (``ppo.sgd.losses``)."""
 
-    At world size 1 the body (`sgd_points`) is one graph, here ~35,000
-    kernel launches (per minibatch step one of the GAE kernel, through
-    `gae`, and one of the optimizer's, through optim.clip_and_adam)
-    recorded once and replayed by one host call. With a `shard` of world >
-    1 it is a fixed chain of `sgd_collectives` + 1 graph segments, one per
-    stretch between two collective points (3 per minibatch step at the
-    recipe), all in one memory pool: a call replays
-    them in order and sums each point's fixed buffer over the ranks in
-    place between two of them (EnvShard.all_reduce_sum_, eagerly: gloo
-    cannot be captured, and NCCL's capture needs a card per rank to check).
+    def __init__(self, training_state: TrainingState, hp: Hyper,
+                 shard: Optional[EnvShard] = None, log=None):
+        shard = _sharded(shard)
+        points = None if shard is None else Collectives(shard)
 
-    Called as `sgd_step` is, with the shard it was made for. The graphs
-    read and write fixed addresses: the params, Adam state and normalizer
-    of the `training_state` it was made for (every call must hand that
-    state's own tensors; a restore copies into them), the collective
-    points' buffers (dist.Collectives), and static copies of the rollout's
-    Transition, the permutations and the entropy noise, into which each
-    call copies its inputs (one copy per tensor, then the replays; the loss
-    terms come back as copies of the graphs' outputs).
+        def body(s):
+            return (yield from sgd_points(training_state, s["data"], s["perms"],
+                                          s["entropy_noise"], hp, points))
 
-    The first call captures (utils.graphs.GraphedBody): a warm-up runs the
-    body eagerly on a side stream, its collectives included (cuBLAS
-    handles, autograd state, the points' buffers), the learner's tensors
-    are restored from a snapshot taken before it, each segment is captured
-    on that stream (capture executes nothing) and instantiated, and the
-    replays then apply the step, once. A capture or replay that fails
-    raises; nothing falls back to the eager body."""
-
-    def __init__(self, training_state: TrainingState, hp: Hyper, log=None,
-                 shard: Optional[EnvShard] = None):
-        dev = training_state.env_steps.device
-        if dev.type != "cuda":
-            raise ValueError(f"a CUDA graph needs a CUDA device, not {dev}: the CPU runs "
-                             "sgd_step eagerly")
-        self.hp, self.device, self.log = hp, dev, log
-        self.shard = _sharded(shard)
-        self.points = None if self.shard is None else Collectives(self.shard)
-        self._learner = learner_tensors(training_state)
-        self._graphed: Optional[GraphedBody] = None
-        self.replays = 0
-
-    @property
-    def graph(self):
-        """The CUDA graph, the first segment's at world > 1 (None before the
-        first call)."""
-        return None if self._graphed is None else self._graphed.graph
-
-    @property
-    def info(self) -> Dict[str, Any]:
-        return {} if self._graphed is None else self._graphed.info
-
-    @property
-    def segment_capture_s(self) -> list:
-        """Each segment's capture seconds (one at world size 1)."""
-        return [] if self._graphed is None else self._graphed.segment_capture_s
+        what, extra = "one replay per training step", {}
+        if shard is not None:
+            n = extra["collectives_per_replay"] = sgd_collectives(
+                hp, len(training_state.normalizer.mean))
+            what += (f" at world {shard.world} ({shard.backend or 'no process group'}; {n} sums "
+                     f"over the ranks between {n + 1} segments, on fixed buffers"
+                     f"{' in pinned host memory' if shard.stages_on_host else ''})")
+        super().__init__(body, [hp, shard, *learner_tensors(training_state)],
+                         kernels=[cuda_step.ADAM, cuda_step.GAE],
+                         device=training_state.env_steps.device, name="[ppo] SGD step",
+                         prefix="ppo.sgd", what=what, log=log,
+                         between=None if shard is None else shard.all_reduce_sum_, extra=extra)
 
     def __call__(self, training_state: TrainingState, data: Transition, perms: torch.Tensor,
                  entropy_noise: torch.Tensor, hp: Hyper, shard: Optional[EnvShard] = None):
-        if hp != self.hp:
-            raise ValueError("the captured SGD step was made for other hyperparameters")
-        if _sharded(shard) is not self.shard:
-            raise ValueError("the captured SGD step sums over the shard it was made for")
-        if not _same_tensors(learner_tensors(training_state), self._learner):
-            raise ValueError("the captured SGD step updates the tensors of the state it was "
-                             "made for: restore into them (restore_full_state), do not rebind")
-        inputs = {"data": data, "perms": perms, "entropy_noise": entropy_noise}
-        if self._graphed is None:
-            static_inputs, out, hp, points = clone_tree(inputs), {}, self.hp, self.points
-            self.inputs, self._out = static_inputs, out
-
-            def body():  # references no `self` (see GraphedBody)
-                out["losses"] = yield from sgd_points(training_state, **static_inputs, hp=hp,
-                                                      points=points)
-
-            static = tree_leaves(static_inputs).values()
-            extra = {"static_input_bytes": sum(t.numel() * t.element_size() for t in static)}
-            between = None
-            if self.shard is not None:
-                between = self.shard.all_reduce_sum_
-                extra["collectives_per_replay"] = sgd_collectives(
-                    hp, len(training_state.normalizer.mean))
-            self._graphed = GraphedBody(body, self._learner, device=self.device,
-                                        kernels=[cuda_step.ADAM, cuda_step.GAE],
-                                        name="[ppo] SGD step", log=self.log, extra=extra,
-                                        between=between)
-        else:
-            with profiling.span("ppo.sgd.copy_in", self.device):
-                copy_into(self.inputs, inputs)
-        with profiling.span("ppo.sgd.replay"):
-            self._graphed.replay()
-        self.replays += 1
+        losses = self.run({"data": data, "perms": perms, "entropy_noise": entropy_noise},
+                          [hp, _sharded(shard), *learner_tensors(training_state)])
         with profiling.span("ppo.sgd.losses", self.device):
-            return training_state, {k: v.clone() for k, v in self._out["losses"].items()}
+            return training_state, {k: v.clone() for k, v in losses.items()}
 
 
 def make_sgd_step(training_state: TrainingState, hp: Hyper, shard: Optional[EnvShard] = None,
-                  log=None):
-    """The SGD step train() runs, and the log line that says which: on a
-    CUDA device a CapturedSGDStep (one graph at world size 1, a chain of
-    graph segments around the collectives at world > 1), else the eager
-    body (the CPU has no CUDA graph)."""
-    dev = training_state.env_steps.device
-    sharded = _sharded(shard)
-    if sharded is not None:
-        n = sgd_collectives(hp, len(training_state.normalizer.mean))
-        world = (f"at world {sharded.world} ({sharded.backend or 'no process group'}; "
-                 f"{n} sums over the ranks between {n + 1} segments, on fixed buffers"
-                 f"{' in pinned host memory' if sharded.stages_on_host else ''})")
-    if dev.type == "cuda":
-        fn = CapturedSGDStep(training_state, hp, log, shard)
-        how = (f"one CUDA graph replay per training step on {dev}" if sharded is None else
-               f"a chain of CUDA graph segments per training step on {dev} {world}")
-        how += ", captured at its first call"
-    else:
-        fn = sgd_step
-        how = (f"eager on {dev} (no CUDA graph on the CPU)" if sharded is None else
-               f"eager {world} on {dev} (no CUDA graph on the CPU)")
-    if log is not None:
-        log(f"[ppo] SGD step: {how}")
-    return fn
+                  log=None) -> SGDStepProgram:
+    """The SGD step train() runs; it logs how it runs."""
+    return SGDStepProgram(training_state, hp, shard, log)
 
 
 def _sum_over_ranks(grads, aux: Dict[str, torch.Tensor], points: Collectives):
@@ -675,9 +533,9 @@ def draw_training_step(generator: torch.Generator, hp: Hyper, action_size: int, 
 
 def training_step(training_state: TrainingState, train_env: TrainEnv, env_state, draws,
                   hp: Hyper, shard: Optional[EnvShard] = None, sgd=sgd_step, roll=rollout):
-    """The rollout `roll` (`rollout`, or a CapturedRollout of this state)
+    """The rollout `roll` (`rollout`, or a RolloutProgram of this state)
     with the current (normalizer, params), then the SGD step `sgd`
-    (`sgd_step`, or a CapturedSGDStep of this state).
+    (`sgd_step`, or an SGDStepProgram of this state).
     Returns (training_state, env_state, {name: mean loss}). With a shard,
     `env_state` is this rank's rows and `draws` the global draws: the
     rollout takes its rows of the policy noise."""
@@ -729,7 +587,7 @@ def eval_step(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
 def _eval_step(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
                generator: torch.Generator, carry: EvalCarry, deterministic: bool,
                shard: Optional[EnvShard]) -> EvalCarry:
-    """`eval_step`'s body (what CapturedEvalStep records)."""
+    """`eval_step`'s body (what EvalStepProgram replays)."""
     state = carry.state
     if deterministic:
         action, _ = networks.make_policy_fn(deterministic=True)((normalizer, networks), state.obs)
@@ -745,85 +603,48 @@ def _eval_step(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
                      length=carry.length + active, active=active * (1.0 - state.done))
 
 
-class CapturedEvalStep:
-    """`eval_step` replayed as one CUDA graph, on a CUDA device (either
-    physics engine, any world size): the step of the JAX package's jitted
-    eval scan (ppo.py run_eval). Called as `eval_step` is, with the eval
-    env's shard (an env-sharded step draws its policy noise at the global
-    shape and cuts its rows inside the graph; run_eval gathers the sums
-    after the last step); `run_eval` replays it episode_length //
-    action_repeat times after its eager reset.
-
-    The graph reads the params and the normalizer it was made for and the
-    carry's buffers (made at the first call as distinct copies of the carry
-    given), and draws from `generator` and the eval env's own generator,
-    both registered with it. A call copies its carry in unless it is the
-    carry the last call returned, and returns the buffers, which the next
-    call overwrites."""
+class EvalStepProgram(Captured):
+    """`eval_step` as a device program (utils.graphs.Captured; either
+    physics engine, any world size), called as `eval_step` is with the
+    eval env's shard: the step of the JAX package's jitted eval scan.
+    `run_eval` calls it episode_length // action_repeat times after its
+    eager reset. Its body steps a static copy of the carry, which it
+    returns (handed back, nothing is copied in); it reads the eval env,
+    the generator, the policy and, by address, the params and normalizer
+    it was made for, and draws from `generator` (at the global shape with
+    a shard) and the eval env's own generator."""
 
     def __init__(self, eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
                  generator: torch.Generator, deterministic: bool, log=None):
-        gens, self.physics = capture_parts(eval_env.env)
-        self.generators = gens if deterministic else [generator, *gens]
-        self.eval_env, self.generator, self.deterministic = eval_env, generator, deterministic
-        self.shard = _sharded(getattr(eval_env.env, "shard", None))
-        self.normalizer, self.networks = normalizer, networks
-        self._policy = _policy_tensors(self.normalizer, self.networks)
-        self.log = log
-        self.graph: Optional[GraphedBody] = None
-        self.carry: Optional[EvalCarry] = None
+        shard = _sharded(getattr(eval_env.env, "shard", None))
+
+        @torch.no_grad()
+        def body(s):
+            carry = s["carry"]
+            copy_into(carry, _eval_step(eval_env, normalizer, networks, generator, carry,
+                                        deterministic, shard))
+            return carry
+
+        gens = eval_env.generators if deterministic else [generator, *eval_env.generators]
+        super().__init__(body, [eval_env, generator, bool(deterministic), shard,
+                                *_policy_tensors(normalizer, networks)],
+                         gens, eval_env.kernels, eval_env.env.device, "[ppo] eval step",
+                         "ppo.eval_step", "one replay per eval step", log)
 
     def __call__(self, eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
                  generator: torch.Generator, carry: EvalCarry, deterministic: bool = False,
                  shard: Optional[EnvShard] = None) -> EvalCarry:
-        if (eval_env is not self.eval_env or generator is not self.generator
-                or deterministic != self.deterministic):
-            raise ValueError("the captured eval step runs the eval env, generator and policy "
-                             "it was made for")
-        if _sharded(shard) is not self.shard:
-            raise ValueError("the captured eval step draws for the eval env's own shard")
-        if not _same_tensors(_policy_tensors(normalizer, networks), self._policy):
-            raise ValueError("the captured eval step reads the params and normalizer it was "
-                             "made for: restore into them, do not rebind")
-        dev = carry.sums.device
         with profiling.span("ppo.eval_step", unit=True):
-            if self.graph is None:
-                buffers = self.carry = clone_tree(carry)
-                ev, norm, nw, g, det, sh = (self.eval_env, self.normalizer, self.networks,
-                                            self.generator, self.deterministic, self.shard)
-
-                def body():  # references no `self` (see GraphedBody)
-                    with torch.no_grad():
-                        copy_into(buffers, _eval_step(ev, norm, nw, g, buffers, det, sh))
-
-                self.graph = GraphedBody(body, tree_leaves(buffers).values(), self.generators,
-                                         self.physics, dev, "[ppo] eval step", self.log)
-            elif carry is not self.carry:
-                with profiling.span("ppo.eval_step.copy_in", dev):
-                    copy_into(self.carry, carry)
-            with profiling.span("ppo.eval_step.replay"):
-                self.graph.replay()
-            return self.carry
-
-    @property
-    def replays(self) -> int:
-        return 0 if self.graph is None else self.graph.replays
+            return self.run({"carry": carry}, [eval_env, generator, bool(deterministic),
+                                               _sharded(shard),
+                                               *_policy_tensors(normalizer, networks)])
 
 
 def make_eval_step(eval_env: TrainEnv, training_state: TrainingState, generator: torch.Generator,
-                   deterministic: bool, log=None):
-    """The eval step train() runs, and the log line that says which: a
-    CapturedEvalStep on a CUDA device, at any world size, else `eval_step`
-    (wrapper.eager_reason)."""
-    why = eager_reason(eval_env.env)
-    fn = (eval_step if why is not None else
-          CapturedEvalStep(eval_env, training_state.normalizer, training_state.params, generator,
-                           deterministic, log))
-    if log is not None:
-        how = (f"one CUDA graph replay per eval step{_world_note(eval_env.env)}, captured at its "
-               "first call")
-        log(f"[ppo] eval step: {why or how}")
-    return fn
+                   deterministic: bool, log=None) -> EvalStepProgram:
+    """The eval step train() runs; it logs how it runs."""
+    return EvalStepProgram(eval_env, training_state.normalizer, training_state.params, generator,
+                           deterministic, log)
 
 
 @torch.no_grad()
@@ -832,8 +653,8 @@ def run_eval(eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
              deterministic: bool = False, shard: Optional[EnvShard] = None,
              step=eval_step) -> Dict[str, torch.Tensor]:
     """One episode of every eval env: reset from `generator`, then
-    episode_length // action_repeat calls of `step` (`eval_step`, or a
-    CapturedEvalStep), each env's sums masked once it is done. The
+    episode_length // action_repeat calls of `step` (`eval_step`, or an
+    EvalStepProgram), each env's sums masked once it is done. The
     stochastic policy draws its noise from `generator`. With a shard,
     `eval_env` holds this rank's rows: the noise is drawn at the global
     shape, and the per-env sums are gathered from every rank before the
@@ -1052,12 +873,13 @@ def train(
     (a directory every rank reads alike), every rank finds it itself and
     no collective runs.
 
-    On a CUDA device, the rollout, the eval step and the SGD step are each
-    replayed as CUDA graphs, captured at their first call (make_rollout,
-    make_eval_step, make_sgd_step; each logs which path runs): at world > 1
-    the SGD step is a chain of graph segments, its collectives run between
-    them; on the general pipeline no graph spans more than one control step
-    (CapturedRollout.span).
+    The rollout, the eval step and the SGD step are device programs
+    (make_rollout, make_eval_step, make_sgd_step; each logs how it runs):
+    on a CUDA device each is replayed as CUDA graphs, captured at its first
+    call, and on the CPU each runs its body eagerly. At world > 1 the SGD
+    step is a chain of graph segments, its collectives run between them;
+    on the general pipeline no graph spans more than one control step
+    (RolloutProgram.span).
     """
     if num_envs != batch_size * num_minibatches:
         raise ValueError("brax-PPO layout requires num_envs == batch_size * num_minibatches")
@@ -1252,13 +1074,11 @@ def train(
             shard.take(draws0[0], dim=1)))
         bd["rollout_s"] = round(t_roll, 4)
         bd["rollout_env_sps"] = round(num_envs * unroll_length / t_roll, 1)
-        if isinstance(roll, CapturedRollout):
-            bd["rollout_graph"] = roll.graph.info
+        bd["rollout_graph"] = roll.info
         saved = snapshot_learner(training_state)
         t_sgd, _ = _timed(lambda: sgd(training_state, data0, draws0[1], draws0[2], hp, shard))
         bd["sgd_s"] = round(t_sgd, 4)
-        if isinstance(sgd, CapturedSGDStep):
-            bd["sgd_graph"] = sgd.info
+        bd["sgd_graph"] = sgd.info
         if shard.world > 1:
             # once more under the tracer: the collectives within an SGD step
             # and the host time of their dist.collective spans
@@ -1277,8 +1097,7 @@ def train(
             t_eval, _ = _timed(lambda: evaluate((training_state.normalizer,
                                                  training_state.params)))
             bd["eval_s"] = round(t_eval, 4)
-            if isinstance(eval_fn, CapturedEvalStep):
-                bd["eval_graph"] = eval_fn.graph.info
+            bd["eval_graph"] = eval_fn.info
         for k, s in gen_states.items():
             generators[k].set_state(s)
         env_state = saved_env
@@ -1331,7 +1150,7 @@ def train(
             break
 
     for name, fn in (("rollout", roll), ("eval step", eval_fn), ("SGD step", sgd)):
-        if isinstance(fn, (CapturedRollout, CapturedEvalStep, CapturedSGDStep)):
-            log(f"[ppo] {name}: {fn.replays} graph replays")
+        if fn is not None:
+            log(f"[ppo] {name}: {fn.replays} replays")
     full_params = (training_state.normalizer, training_state.params)
     return make_policy, full_params, metrics

@@ -1,14 +1,16 @@
-"""Bodies over fixed buffers, replayed as CUDA graphs.
+"""Bodies over fixed buffers, replayed as CUDA graphs on the card.
 
 The JAX package jits its env step, its rollout (a ``lax.scan``), its eval
 episode and its SGD step: each is one device program. Their counterparts
-here are CUDA graphs. A graph replays fixed addresses, so each program is
-written as a *body*: a function of no arguments that reads fixed tensors
-and writes its results into fixed tensors (its buffers), in place. The
-body is what the CPU runs eagerly; on the card it is recorded once and
-replayed (`GraphedBody`). A body that must stop for a collective (the
-env-sharded SGD step) is a generator: each `yield` ends one graph segment,
-and the collective runs between two replays (`between`).
+here are `Captured` programs. A graph replays fixed addresses, so each
+program is written as a *body*: a function of static copies of its inputs
+that reads fixed tensors and writes its results into fixed tensors (its
+buffers), in place. `GraphedBody` records the body once and replays it on
+a CUDA device, and runs it eagerly at each replay on any other: the one
+place the port chooses between the two. A body that must stop for a
+collective (the env-sharded SGD step) is a generator: each `yield` ends
+one graph segment, and the collective runs between two replays
+(`between`).
 
 Tree helpers for the nested dicts and dataclasses of tensors the bodies
 work on: `tree_map`, `tree_leaves`, and `copy_into`, which copies one tree
@@ -135,7 +137,8 @@ def node_counts(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:
 
 
 class GraphedBody:
-    """`body` recorded once as CUDA graphs and replayed.
+    """`body` recorded once as CUDA graphs and replayed, on a CUDA device;
+    run eagerly at each replay on any other (`captures`).
 
     `body` is a function of no arguments, or a generator function whose
     every `yield x` is a point between two segments of it (the env-sharded
@@ -143,6 +146,8 @@ class GraphedBody:
     then a CUDA graph of its own, all of one memory pool, replayed in the
     order captured, with `between(x)` run eagerly at each point (the
     collective, in place on that buffer). A plain function is one segment.
+    `replay()` returns what the body returned (`result`): at its capture on
+    the card (tensors the graphs write), at this run elsewhere.
     `buffers`: the tensors the body overwrites that outlive it (its state);
     `generators`: every torch.Generator the body draws from; `kernels`: the
     objects that count the launches (`launches`) of each hand-written
@@ -168,6 +173,10 @@ class GraphedBody:
     fused launches its capture recorded. A capture or replay that fails
     raises: nothing falls back to the eager body.
 
+    Off the card `capture()` does nothing, and `replay()` runs the body
+    once, `between(x)` at each point (as dist.run_points does): no
+    warm-up, no snapshot, no node count; `replays` counts all the same.
+
     Python's cyclic collector is run before the capture and kept off during
     it: a CUDA graph it frees while this one captures would invalidate the
     capture (destroying a graph is not permitted while a stream captures).
@@ -192,9 +201,9 @@ class GraphedBody:
                  extra: Optional[Dict[str, Any]] = None,
                  between: Optional[Callable[[Any], Any]] = None):
         self.device = torch.device(device)
-        if self.device.type != "cuda":
-            raise ValueError(f"a CUDA graph needs a CUDA device, not {self.device}")
+        self.eager = not self.captures(self.device)
         self.body, self.name, self.log, self.between = body, name, log, between
+        self.result: Any = None
         self.buffers: List[torch.Tensor] = list(buffers)
         self.generators = list(generators)
         self.kernels = list(kernels)
@@ -208,19 +217,31 @@ class GraphedBody:
         self._extra = dict(extra or {})
         profiling.watch(self, "replays", "graph.replays")
 
+    @staticmethod
+    def captures(device) -> bool:
+        """Whether a body on `device` is recorded as CUDA graphs (a CUDA
+        device) or run eagerly at each replay (any other): the port's one
+        test of that choice."""
+        return torch.device(device).type == "cuda"
+
     @property
     def graph(self):
         """The first segment's graph (a plain body's only one); None before
-        the capture."""
+        the capture, and off the card."""
         return self.graphs[0] if self.graphs else None
 
     def _run(self):
-        """The body, yielding at its points (nothing for a plain function)."""
+        """The body, yielding at its points (nothing for a plain function);
+        what it returns is kept as `result`."""
         out = self.body()
         if inspect.isgenerator(out):
-            yield from out
+            out = yield from out
+        self.result = out
 
     def capture(self) -> None:
+        """Record the body, once (nothing off the card)."""
+        if self.eager or self.graphs:
+            return
         with profiling.span("graph.capture"):
             self._capture()
 
@@ -306,15 +327,100 @@ class GraphedBody:
         if self.log is not None:
             self.log(f"{self.name} captured: {json.dumps(self.info)}")
 
-    def replay(self) -> None:
-        if not self.graphs:
-            self.capture()
-        for graph, point, tpl in zip(self.graphs, self.points, self.templates):
-            graph.replay()
-            if tpl is not None:
-                profiling.replayed(tpl)
-            if point is not _END:
+    def replay(self) -> Any:
+        if self.eager:
+            for point in self._run():
                 self.between(point)
+        else:
+            self.capture()
+            for graph, point, tpl in zip(self.graphs, self.points, self.templates):
+                graph.replay()
+                if tpl is not None:
+                    profiling.replayed(tpl)
+                if point is not _END:
+                    self.between(point)
+            for k, n in zip(self.kernels, self.launches_per_replay):
+                k.launches += n
         self.replays += 1
-        for k, n in zip(self.kernels, self.launches_per_replay):
-            k.launches += n
+        return self.result
+
+
+class Captured:
+    """A device program: `body` over static copies of a call's inputs,
+    replayed by a GraphedBody (CUDA graphs on the card, the body run
+    eagerly elsewhere). The port's env step, rollout, SGD step and eval
+    step are each one, adapted to the signature of the function it
+    replaces (envs/wrapper.py, train/ppo.py).
+
+    `run(inputs, reads)`: `inputs` is a dict of trees. The first call
+    clones it into static buffers (`static`) and builds the GraphedBody of
+    `body(static)` (its info adds `static_input_bytes` to `extra`); a later
+    call copies `inputs` into them under the span ``<prefix>.copy_in``
+    (copy_into: a leaf that is its own buffer is left alone, and a call
+    whose every entry is the static one opens no span). Every call then
+    replays under ``<prefix>.replay`` and returns what the body returned,
+    on the card the tensors its capture wrote: the next call overwrites
+    them. `reads`: what the body reads by reference, not through `inputs` (the
+    params and normalizer, the env, the shard), given at construction and
+    handed again at every call, checked by identity (a graph keeps the
+    addresses it captured: restore into them, do not rebind them); its
+    tensors are snapshotted for the warm-up with the static buffers.
+
+    `body` takes the static dict; it may be a generator function with
+    collective points, and should not reference this object (GraphedBody).
+    `generators`, `kernels`, `device`, `name`, `log`, `between` and `extra`
+    are GraphedBody's. With `log`, the constructor logs one line "<name>:
+    <what>, <how it runs>"."""
+
+    def __init__(self, body: Callable[[Any], Any], reads: Iterable[Any] = (),
+                 generators: Iterable[torch.Generator] = (), kernels: Iterable[Any] = (),
+                 device=None, name: str = "body", prefix: str = "body", what: str = "one replay",
+                 log=None, between: Optional[Callable[[Any], Any]] = None,
+                 extra: Optional[Dict[str, Any]] = None):
+        self.body, self.reads = body, list(reads)
+        self.generators, self.kernels = list(generators), list(kernels)
+        self.device, self.name, self.prefix = torch.device(device), name, prefix
+        self.log, self.between, self.extra = log, between, extra
+        self.static: Any = None
+        self.graph: Optional[GraphedBody] = None
+        if log is not None:
+            how = (f"CUDA graphs on {self.device}, captured at the first call"
+                   if GraphedBody.captures(self.device) else
+                   f"run eagerly on {self.device} (no CUDA graph off the card)")
+            log(f"{name}: {what}, {how}")
+
+    @property
+    def replays(self) -> int:
+        return 0 if self.graph is None else self.graph.replays
+
+    @property
+    def info(self) -> Dict[str, Any]:
+        """The capture's GraphedBody.info ({} before it, and off the card)."""
+        return {} if self.graph is None else self.graph.info
+
+    def load(self, inputs, reads: Iterable[Any] = ()) -> None:
+        """Check `reads`, then the first call's clone or a later call's copy
+        of `inputs` into the static buffers."""
+        reads = list(reads)
+        if len(reads) != len(self.reads) or any(a is not b for a, b in zip(reads, self.reads)):
+            raise ValueError(f"{self.name} reads what it was made for: hand it the same objects "
+                             "(restore into its tensors, do not rebind them)")
+        if self.graph is None:
+            self.static = clone_tree(inputs)
+            leaves = list(tree_leaves(self.static).values())
+            extra = {"static_input_bytes": sum(t.numel() * t.element_size() for t in leaves),
+                     **(self.extra or {})}
+            buffers = leaves + [t for t in self.reads if isinstance(t, torch.Tensor)]
+            self.graph = GraphedBody(functools.partial(self.body, self.static), buffers,
+                                     self.generators, self.kernels, self.device, self.name,
+                                     self.log, extra, self.between)
+            return
+        if inputs.keys() != self.static.keys() or any(v is not self.static[k]
+                                                       for k, v in inputs.items()):
+            with profiling.span(f"{self.prefix}.copy_in", self.device):
+                copy_into(self.static, inputs)
+
+    def run(self, inputs, reads: Iterable[Any] = ()) -> Any:
+        self.load(inputs, reads)
+        with profiling.span(f"{self.prefix}.replay"):
+            return self.graph.replay()

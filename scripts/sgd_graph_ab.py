@@ -13,10 +13,12 @@ training steps, phase 4's eval env of 1024 envs; training/sps counts
 rollout and SGD only) through `ppo.train(..., profile_breakdown=True)`,
 and then times the flat main path's env step untraced (`flat_terrain`,
 4096 DR envs, 20 steps after 10), eagerly and, in a checkout that has it,
-through `wrapper.CapturedEnvStep`. Prints each run's `profile_breakdown`
-(`rollout_s`, `sgd_s`, `training_step_s`, `eval_s`), `training/sps` per
-epoch and ms per env step, the card's name and power limit and the host
-CPU, and writes them all to `build/sgd_graph_ab.json` of this checkout.
+through the env-step program (`wrapper.EnvStepProgram`, or
+`wrapper.CapturedEnvStep` in an older checkout). Prints each run's
+`profile_breakdown` (`rollout_s`, `sgd_s`, `training_step_s`, `eval_s`),
+`training/sps` per epoch and ms per env step, the card's name and power
+limit and the host CPU, and writes them all to `build/sgd_graph_ab.json`
+of this checkout.
 Exits non-zero if CUDA is unavailable or a run fails.
 """
 
@@ -79,8 +81,10 @@ def worker(root: str) -> int:
     for i in range(n_warm):
         state = te.step(state, actions[i])
     steps = {"eager": te.step}
-    if hasattr(wrapper, "CapturedEnvStep"):
-        steps["graph"] = wrapper.CapturedEnvStep(te)
+    # the env-step program's name in this checkout (an older one calls it CapturedEnvStep)
+    graphed = getattr(wrapper, "EnvStepProgram", getattr(wrapper, "CapturedEnvStep", None))
+    if graphed is not None:
+        steps["graph"] = graphed(te)
         steps["graph"].capture(state, actions[0])
     env_step_ms = {}
     for name, step in steps.items():

@@ -332,7 +332,7 @@ def _small_trainer_inputs(card, physics="kernel"):
 
 @pytest.mark.cuda
 def test_captured_sgd_step_matches_eager_body(card, root):
-    """ppo.CapturedSGDStep against the eager ppo.sgd_step on the card, on the
+    """ppo.SGDStepProgram against the eager ppo.sgd_step on the card, on the
     same rollouts and draws for 3 SGD steps: params, Adam state, normalizer
     and loss terms bit for bit, one replay per step. Then both states take a
     full state, are restored from it (into the captured buffers: the graph
@@ -341,7 +341,7 @@ def test_captured_sgd_step_matches_eager_body(card, root):
 
     hp, gens, env, te, init = _small_trainer_inputs(card)
     eager, graphed = init(), init()
-    cap = ppo.CapturedSGDStep(graphed, hp)
+    cap = ppo.SGDStepProgram(graphed, hp)
     state = te.reset(gens["reset"])
 
     def step(state):
@@ -406,13 +406,13 @@ def _bitwise(a, b) -> bool:
 @pytest.mark.cuda
 @pytest.mark.parametrize("task", ["flat_terrain", "rough_terrain_backlash"])
 def test_captured_env_step_matches_eager(card, root, task):
-    """wrapper.CapturedEnvStep against TrainEnv.step on the card, 128 DR envs,
+    """wrapper.EnvStepProgram against TrainEnv.step on the card, 128 DR envs,
     episode_length 4, 7 steps from one reset and one env generator state,
     env 0 given a NaN action at step 1: every step's state bit for bit (NaN
     for NaN), the env generator's state after the run, one fused launch per
     replay. Then the generator and the state are set back and the replays
     repeat the run: a replay obeys set_state."""
-    from open_duck_playground_tpu_torch.envs.wrapper import CapturedEnvStep
+    from open_duck_playground_tpu_torch.envs.wrapper import EnvStepProgram
     from open_duck_playground_tpu_torch.utils.graphs import clone_tree
 
     B = 128
@@ -430,7 +430,7 @@ def test_captured_env_step_matches_eager(card, root, task):
         eager.append(state)
     g_eager = env.generator.get_state()
 
-    cap = CapturedEnvStep(te)
+    cap = EnvStepProgram(te)
     cap.capture(start, actions[0])
     for _ in range(2):
         env.generator.set_state(g0)
@@ -448,7 +448,7 @@ def test_captured_env_step_matches_eager(card, root, task):
 
 @pytest.mark.cuda
 def test_captured_rollout_matches_eager(card, root):
-    """ppo.CapturedRollout against ppo.rollout on the card (64 flat backlash
+    """ppo.RolloutProgram against ppo.rollout on the card (64 flat backlash
     DR envs, unroll 8, (32, 16) networks): 2 consecutive rollouts from one
     reset and one env generator state, the final states, the Transitions
     and the generator's state bit for bit; then a captured SGD step updates
@@ -458,8 +458,8 @@ def test_captured_rollout_matches_eager(card, root):
 
     hp, gens, env, te, init = _small_trainer_inputs(card)
     ts = init()
-    sgd = ppo.CapturedSGDStep(ts, hp)
-    roll = ppo.CapturedRollout(te, ts.normalizer, ts.params)
+    sgd = ppo.SGDStepProgram(ts, hp)
+    roll = ppo.RolloutProgram(te, ts.normalizer, ts.params, hp)
     start = te.reset(gens["reset"])
     draws = [ppo.draw_training_step(gens["epoch"], hp, env.action_size, card) for _ in range(3)]
     g0 = env.generator.get_state()
@@ -488,12 +488,12 @@ def test_captured_rollout_matches_eager(card, root):
 @pytest.mark.cuda
 @pytest.mark.parametrize("task", ["flat_terrain", "rough_terrain_backlash"])
 def test_captured_pipeline_env_step_matches_eager(card, root, task):
-    """wrapper.CapturedEnvStep on physics="pipeline" against TrainEnv.step on
+    """wrapper.EnvStepProgram on physics="pipeline" against TrainEnv.step on
     the card, 64 DR envs, episode_length 2, 3 steps from one reset and one
     env generator state (every env autoresets at step 2): every step's
     state bit for bit, the pipeline's Data and Contact fields included, the
     env generator's state after the run; the kernel is never launched."""
-    from open_duck_playground_tpu_torch.envs.wrapper import CapturedEnvStep
+    from open_duck_playground_tpu_torch.envs.wrapper import EnvStepProgram
 
     B = 64
     env = Joystick(task, device=card, seed=1, physics="pipeline")
@@ -509,7 +509,7 @@ def test_captured_pipeline_env_step_matches_eager(card, root, task):
         eager.append(state)
     g_eager = env.generator.get_state()
 
-    cap = CapturedEnvStep(te)
+    cap = EnvStepProgram(te)
     cap.capture(start, actions[0])
     env.generator.set_state(g0)
     state = start
@@ -524,7 +524,7 @@ def test_captured_pipeline_env_step_matches_eager(card, root, task):
 
 @pytest.mark.cuda
 def test_captured_pipeline_rollout_matches_eager(card, root):
-    """ppo.CapturedRollout on physics="pipeline" (one env step per graph,
+    """ppo.RolloutProgram on physics="pipeline" (one env step per graph,
     replayed unroll_length times a call) against ppo.rollout on the card
     (64 flat backlash DR envs, unroll 8, (32, 16) networks): 2 consecutive
     rollouts from one reset and one env generator state, the final states,
@@ -534,7 +534,7 @@ def test_captured_pipeline_rollout_matches_eager(card, root):
     hp, gens, env, te, init = _small_trainer_inputs(card, physics="pipeline")
     ts = init()
     roll = ppo.make_rollout(te, ts, hp)
-    assert isinstance(roll, ppo.CapturedRollout) and roll.span == 1
+    assert isinstance(roll, ppo.RolloutProgram) and roll.span == 1
     start = te.reset(gens["reset"])
     noises = [ppo.draw_training_step(gens["epoch"], hp, env.action_size, card)[0]
               for _ in range(2)]
@@ -557,7 +557,7 @@ def test_captured_pipeline_rollout_matches_eager(card, root):
 @pytest.mark.cuda
 @pytest.mark.parametrize("deterministic", [False, True])
 def test_captured_eval_matches_run_eval(card, root, deterministic):
-    """ppo.run_eval through a CapturedEvalStep against the eager eval_step on
+    """ppo.run_eval through an EvalStepProgram against the eager eval_step on
     the card (64 flat backlash envs, DR off, 50 steps, episode_length 20 so
     that envs stop counting): every metric and both generators' states
     equal."""
@@ -568,7 +568,7 @@ def test_captured_eval_matches_run_eval(card, root, deterministic):
     eval_env = Joystick("flat_terrain_backlash", device=card)
     ete = TrainEnv(eval_env, num_envs=64, episode_length=20)
     g = torch.Generator(device=card)
-    cap = ppo.CapturedEvalStep(ete, ts.normalizer, ts.params, g, deterministic)
+    cap = ppo.EvalStepProgram(ete, ts.normalizer, ts.params, g, deterministic)
     runs = []
     for step in (ppo.eval_step, cap, cap):
         g.manual_seed(4)
@@ -594,7 +594,7 @@ def test_captured_programs_free_without_the_collector(card, root):
     import gc
     import weakref
 
-    from open_duck_playground_tpu_torch.envs.wrapper import CapturedEnvStep
+    from open_duck_playground_tpu_torch.envs.wrapper import EnvStepProgram
     from open_duck_playground_tpu_torch.train import ppo
 
     hp, gens, env, te, init = _small_trainer_inputs(card)
@@ -607,15 +607,15 @@ def test_captured_programs_free_without_the_collector(card, root):
     gc.collect()
     gc.disable()
     try:
-        roll = ppo.CapturedRollout(te, ts.normalizer, ts.params)
+        roll = ppo.RolloutProgram(te, ts.normalizer, ts.params, hp)
         _, data = roll(te, state, ts.normalizer, ts.params, noise)
-        sgd = ppo.CapturedSGDStep(ts, hp)
+        sgd = ppo.SGDStepProgram(ts, hp)
         sgd(ts, data, perms, ent, hp)
-        step = CapturedEnvStep(te)
+        step = EnvStepProgram(te)
         step(state, torch.zeros(hp.num_envs, env.action_size, device=card))
-        ev = ppo.CapturedEvalStep(ete, ts.normalizer, ts.params, g, False)
+        ev = ppo.EvalStepProgram(ete, ts.normalizer, ts.params, g, False)
         ppo.run_eval(ete, ts.normalizer, ts.params, g, episode_length=2, step=ev)
-        objs = (roll, roll.graph, sgd, sgd._graphed, step, step.graph, ev, ev.graph)
+        objs = (roll, roll.graph, sgd, sgd.graph, step, step.graph, ev, ev.graph)
         refs = [weakref.ref(o) for o in objs]
         del roll, sgd, step, ev, objs, data
         assert [r() is None for r in refs] == [True] * len(refs)
@@ -647,7 +647,7 @@ def test_sharded_step_replays_match_eager_at_world_2(card, root, tmp_path):
     ranks = run_ranks("sharded_graph_vs_eager", tmp_path, "flat_terrain_backlash", 64, 3,
                       timeout_s=600, device="cuda")
     for r in ranks:
-        assert r["kinds"] == ["CapturedRollout", "CapturedSGDStep"]
+        assert r["kinds"] == ["RolloutProgram", "SGDStepProgram"]
         assert r["equal"] == [{p: True for p in ("data", "state", "learner", "losses",
                                                  "generators")}] * 2, r["equal"]
         assert r["want_collectives"] == 28

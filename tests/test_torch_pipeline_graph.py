@@ -2,10 +2,10 @@
 
 On the card at world size 1, an env with physics="pipeline" (ops/forward.py)
 has its control step replayed as a CUDA graph, as the fused kernel's is:
-`wrapper.CapturedEnvStep` records `step_into`, `ppo.CapturedRollout`
+`wrapper.EnvStepProgram` records `step_into`, `ppo.RolloutProgram`
 records one env step of the policy and `TrainEnv.step` per graph (a
 pipeline control step is ~43,000-56,000 small kernels: no graph spans
-more than one), `ppo.CapturedEvalStep` one eval step. Here, without a card:
+more than one), `ppo.EvalStepProgram` one eval step. Here, without a card:
 
 - the body the env-step graph records (`step_into` over buffers) equals
   `TrainEnv.step` bit for bit (NaN for NaN) over 3 steps of a flat DR
@@ -17,12 +17,12 @@ more than one), `ppo.CapturedEvalStep` one eval step. Here, without a card:
   autoreset, and on a second DR model) makes no tensor from host data,
   reads no tensor back to the host and grows none of ops/smooth.py's
   tables: the CPU's proxy for "safe to capture";
-- the rollout make_rollout picks for the pipeline (a CapturedRollout of
-  span 1, its graph replaced by an eager run of its body) equals
+- the rollout program make_rollout makes for the pipeline (a
+  RolloutProgram of span 1, its body run eagerly on the CPU) equals
   ppo.rollout bit for bit over 2 rollouts of 2 steps;
-- a pipeline env on a CUDA device (a stub attribute) is captured:
-  eager_reason is None, the rollout's span is one step, and make_rollout
-  and make_eval_step log the captured forms.
+- a pipeline env on a CUDA device (a stub attribute) is captured: the
+  rollout's span is one step (the kernel's the whole unroll), and
+  make_rollout and make_eval_step log the captured forms.
 
 The replays on the card are tests/test_torch_cuda.py
 (test_captured_pipeline_env_step_matches_eager,
@@ -205,19 +205,6 @@ def test_pipeline_step_is_safe_to_capture(root, task, monkeypatch):
     assert bool(torch.isfinite(out.data.qpos).all() and torch.isfinite(out2.data.qpos).all())
 
 
-class _EagerBody:
-    """utils.graphs.GraphedBody's interface, its body run eagerly at each
-    replay: the CPU has no CUDA graph."""
-
-    def __init__(self, body, buffers, generators=(), kernels=(), device=None, name="body",
-                 log=None, extra=None):
-        self.body, self.replays, self.info = body, 0, dict(extra or {})
-
-    def replay(self):
-        self.body()
-        self.replays += 1
-
-
 def _hyper(num_envs: int, unroll_length: int) -> ppo.Hyper:
     return ppo.Hyper(num_envs=num_envs, unroll_length=unroll_length, num_minibatches=1,
                      batch_size=num_envs, num_updates_per_batch=1, action_repeat=1,
@@ -232,15 +219,14 @@ def _training_state(env, seed=6):
                                    torch.Generator().manual_seed(seed), "cpu")
 
 
-def test_pipeline_rollout_body_equals_rollout(root, monkeypatch):
-    """The rollout make_rollout picks for a pipeline env where it can
-    capture (eager_reason None; the graph replaced by an eager run of the
-    body it records): a CapturedRollout of span 1, whose one-step body runs
-    unroll_length times per call, each step's Transition copied into the
-    stacked buffers. Two consecutive rollouts of 2 steps at 3 envs
-    (episode_length 3: the second rollout autoresets) against ppo.rollout
-    from the same reset and generator state: the final states, the
-    Transitions and the generator states bit for bit."""
+def test_pipeline_rollout_body_equals_rollout(root):
+    """The rollout make_rollout makes for a pipeline env, run on the CPU as
+    on the card but for the graph (its body eagerly): a RolloutProgram of
+    span 1, whose one-step body runs unroll_length times per call, each
+    step's Transition copied into stacked tensors. Two consecutive rollouts
+    of 2 steps at 3 envs (episode_length 3: the second rollout autoresets)
+    against ppo.rollout from the same reset and generator state: the final
+    states, the Transitions and the generator states bit for bit."""
     env, te = _pipeline(B=3, episode_length=3)
     ts = _training_state(env)
     hp = _hyper(3, 2)
@@ -255,46 +241,46 @@ def test_pipeline_rollout_body_equals_rollout(root, monkeypatch):
     g_eager = env.generator.get_state()
     assert bool((eager[-1][1].discount == 0).any())  # episodes end inside the run
 
-    monkeypatch.setattr(ppo, "eager_reason", lambda env: None)
-    monkeypatch.setattr(ppo, "capture_parts", lambda env: ([env.generator], []))
-    monkeypatch.setattr(ppo, "GraphedBody", _EagerBody)
     roll = ppo.make_rollout(te, ts, hp)
-    assert isinstance(roll, ppo.CapturedRollout) and roll.span == 1
+    assert isinstance(roll, ppo.RolloutProgram) and roll.span == 1
     env.generator.set_state(g0)
     state = start
     for k, n in enumerate(noise):
         state, data = roll(te, state, ts.normalizer, ts.params, n)
-        assert state is roll.state and data is roll.data
+        assert state is roll.static["state"]
         _assert_same(state, eager[k][0], f"rollout {k} state")
         _assert_same(data, eager[k][1], f"rollout {k} transition")
     assert torch.equal(env.generator.get_state(), g_eager)
-    assert roll.replays == 4 and roll.graph.info == {"env_steps_per_replay": 1}
+    assert roll.replays == 4 and roll.extra == {"env_steps_per_replay": 1}
 
 
 def test_pipeline_on_a_card_is_captured(root):
     """A pipeline env whose device is a CUDA device (a stub attribute: no
-    card is needed to choose) at world size 1 is captured: eager_reason is
-    None, the rollout's span is one control step (the kernel's, None, is
-    the whole unroll), and make_rollout and make_eval_step log the captured
-    forms.
-    On the CPU the same env runs the eager bodies."""
+    card is needed to decide) at world size 1 is captured: the rollout's
+    span is one control step (the kernel's is the whole unroll), and
+    make_rollout and make_eval_step log the captured forms. Nothing is
+    captured before a program's first call. On the CPU the same env's
+    programs say they run eagerly."""
     env, te = _pipeline(B=2)
     ts = _training_state(env)
     hp = _hyper(2, 20)
-    assert wrapper.eager_reason(env) == "eager on cpu (no CUDA graph on the CPU)"
+    lines = []
+    ppo.make_rollout(te, ts, hp, lines.append)
+    assert lines[0].endswith(", run eagerly on cpu (no CUDA graph off the card)")
     kernel_env = Joystick("flat_terrain", device="cpu")
     for e in (env, kernel_env):
         e.device = torch.device("cuda")
-        assert wrapper.eager_reason(e) is None
     lines = []
     roll = ppo.make_rollout(te, ts, hp, lines.append)
     ev = ppo.make_eval_step(te, ts, torch.Generator(), False, lines.append)
-    assert isinstance(roll, ppo.CapturedRollout) and roll.span == 1 and roll.graph is None
-    assert isinstance(ev, ppo.CapturedEvalStep) and ev.graph is None
+    assert isinstance(roll, ppo.RolloutProgram) and roll.span == 1 and roll.graph is None
+    assert isinstance(ev, ppo.EvalStepProgram) and ev.graph is None
     assert lines == [
-        "[ppo] rollout: 20 CUDA graph replays per training step, each 1 env step of the policy "
-        "and TrainEnv.step (physics='pipeline': ~50,000 kernels per control step, a graph per "
-        "control step at most), captured at its first call",
-        "[ppo] eval step: one CUDA graph replay per eval step, captured at its first call"]
+        "[ppo] rollout: 20 replays per training step, each 1 env step of the policy and "
+        "TrainEnv.step (physics='pipeline': ~50,000 kernels per control step, a graph per "
+        "control step at most), CUDA graphs on cuda, captured at the first call",
+        "[ppo] eval step: one replay per eval step, CUDA graphs on cuda, captured at the "
+        "first call"]
     kernel_roll = ppo.make_rollout(TrainEnv(kernel_env, num_envs=2, episode_length=1000), ts, hp)
-    assert isinstance(kernel_roll, ppo.CapturedRollout) and kernel_roll.span is None
+    assert kernel_roll.span == hp.unroll_length and kernel_roll.kernels == [kernel_env.physics]
+    assert roll.kernels == []  # the pipeline launches no fused kernel

@@ -2,14 +2,18 @@
 rollout and the eval step over fixed buffers.
 
 On the card at world size 1 with the fused kernel, `TrainEnv.step`, the
-rollout and the eval step are each replayed as one CUDA graph
-(`wrapper.CapturedEnvStep`, `ppo.CapturedRollout`, `ppo.CapturedEvalStep`).
-A graph replays fixed addresses, so each records a body that writes its
-results into buffers in place: `wrapper.step_into`, `ppo.rollout_into`,
-and `ppo.eval_step` copied into the carry. These bodies are what the CPU
-runs; here they must give what the functional code gives, bit for bit
-(NaN for NaN), generator states included:
+rollout and the eval step are each replayed as one CUDA graph by a
+device program (`utils.graphs.Captured`: `wrapper.EnvStepProgram`,
+`ppo.RolloutProgram`, `ppo.EvalStepProgram`). A graph replays fixed
+addresses, so each records a body that writes its results into buffers
+in place: `wrapper.step_into`, `ppo.rollout_into`, and `ppo.eval_step`
+copied into the carry. The CPU runs the same programs, each body eagerly;
+here they must give what the functional code gives, bit for bit (NaN for
+NaN), generator states included:
 
+- the program class itself: static buffers cloned at the first call, no
+  copy of a leaf that is its own buffer, a rebound read refused, and
+  `between` at every point of a generator body;
 - the env step over 5 consecutive steps of Joystick("flat_terrain") and of
   Standing, DR on, through the kernel's plain version, with an autoreset
   (episode_length 3) and a NaN action that terminates an env: a buffer that
@@ -23,9 +27,9 @@ runs; here they must give what the functional code gives, bit for bit
 - the env-step body against the JAX package's TrainEnv.step on
   tests/test_torch_env.py's run (8 envs, 5 steps, DR on), to that module's
   test_slice_matches_jax bounds;
-- the choice of path off the card: the CPU (either physics engine) and
-  world 2 run the eager bodies and log why; the captured classes refuse
-  an env that cannot be captured.
+- off the card (either physics engine, world 2 as world 1): the
+  programs the card captures, run eagerly and saying so, against the bare
+  functions over two consecutive calls each.
 
 The replays against the eager bodies on the card are tests/test_torch_cuda.py
 (test_captured_env_step_matches_eager, test_captured_rollout_matches_eager)
@@ -48,7 +52,9 @@ from open_duck_playground_tpu_torch.ops.types import Contact, Data
 from open_duck_playground_tpu_torch.parallel.dist import EnvShard
 from open_duck_playground_tpu_torch.train import networks as nets
 from open_duck_playground_tpu_torch.train import ppo
+from open_duck_playground_tpu_torch.utils import profiling
 from open_duck_playground_tpu_torch.utils.graphs import (
+    Captured,
     GraphedBody,
     clone_tree,
     copy_into,
@@ -102,6 +108,80 @@ def test_clone_tree_makes_distinct_buffers():
     out = clone_tree({"data": x, "info": {"first_data": x}})
     assert out["data"] is not out["info"]["first_data"]
     assert torch.equal(out["data"], x) and out["data"].data_ptr() != x.data_ptr()
+
+
+def test_captured_copies_in_no_leaf_that_is_its_own_buffer(monkeypatch):
+    """A program clones its first call's inputs into static buffers; a later
+    call copies in only the leaves that are not already those buffers (one
+    copy_ for the one new leaf), and a call handed back all that the last
+    one returned copies nothing and opens no ``<prefix>.copy_in`` span."""
+    prog = Captured(lambda s: {k: v.add_(1) for k, v in s.items()}, device="cpu", prefix="t")
+    x = torch.zeros(2)
+    out = prog.run({"x": x, "y": torch.ones(2)})
+    assert out["x"] is prog.static["x"] and out["x"] is not x and torch.equal(x, torch.zeros(2))
+    copied, copy_ = [], torch.Tensor.copy_
+
+    def spy(t, src, *a, **k):
+        copied.append(t)
+        return copy_(t, src, *a, **k)
+
+    monkeypatch.setattr(torch.Tensor, "copy_", spy)
+    profiling.enable()
+    try:
+        profiling.reset()
+        out = prog.run({"x": out["x"], "y": torch.full((2,), 5.0)})
+        assert [s["name"] for s in profiling.spans()] == ["t.copy_in", "t.replay"]
+        assert len(copied) == 1 and copied[0] is prog.static["y"]
+        profiling.reset()
+        out = prog.run(out)
+        assert [s["name"] for s in profiling.spans()] == ["t.replay"] and len(copied) == 1
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert out["x"].tolist() == [3.0, 3.0] and out["y"].tolist() == [7.0, 7.0]
+    assert prog.replays == 3
+
+
+def test_captured_refuses_a_rebound_read():
+    """What a program reads by reference is handed again at every call and
+    checked by identity: another tensor of the same value raises, at the
+    first call as at a later one."""
+    w = torch.ones(2)
+    prog = Captured(lambda s: s["x"] * w, reads=[w], device="cpu")
+    with pytest.raises(ValueError, match="reads what it was made for"):
+        prog.run({"x": torch.ones(2)}, [w.clone()])
+    assert prog.graph is None
+    assert torch.equal(prog.run({"x": torch.full((2,), 3.0)}, [w]), torch.full((2,), 3.0))
+    with pytest.raises(ValueError, match="reads what it was made for"):
+        prog.run({"x": torch.ones(2)}, [w.clone()])
+    with pytest.raises(ValueError, match="reads what it was made for"):
+        prog.run({"x": torch.ones(2)})
+
+
+def test_between_runs_at_every_point_off_the_card():
+    """Off the card a program whose body is a generator runs it whole at
+    each call, `between` at every point it yields, in order, as
+    dist.run_points does (the env-sharded SGD step's collectives), and
+    returns what it returned; no graph is captured."""
+    def body(s):
+        a = s["x"] + 1
+        yield a
+        b = a * 2
+        yield b
+        return b + s["x"]
+
+    seen = []
+
+    def between(buf):
+        seen.append(buf.item())
+        buf.add_(10)
+
+    prog = Captured(body, device="cpu", between=between)
+    assert prog.run({"x": torch.zeros(())}).item() == 32  # (0 + 1 + 10) * 2 + 10
+    assert prog.run({"x": torch.ones(())}).item() == 35  # (1 + 1 + 10) * 2 + 10 + 1
+    assert seen == [1.0, 22.0, 2.0, 24.0]
+    assert prog.replays == 2 and prog.info == {} and prog.graph.graph is None
+    assert GraphedBody(lambda: None, [], device="cpu").eager
 
 
 # ---------------------------------------------------------------------------
@@ -327,45 +407,83 @@ def test_env_step_body_matches_jax(jax_run):
 
 
 def test_eager_path_off_the_card(root):
-    """The CPU, on either physics engine and at world 2 as at world 1, runs
-    the eager rollout and eval step and logs why (world 2 is no reason: on
-    a card it is captured); the captured classes refuse such an env, and a
-    graph refuses the CPU."""
-    env, te = _tipping_duck(2, 10)
+    """Off the card the trainer runs the programs it runs on the card,
+    each body eagerly: make_rollout and make_eval_step give a
+    RolloutProgram and an EvalStepProgram on either physics engine and at
+    world 2 as at world 1, and log that they run eagerly. Over two
+    consecutive calls each (4 envs, episode_length 6, the even envs
+    falling), from the same reset and generator states: the rollout
+    program against ppo.rollout (states, Transitions), the eval-step
+    program against ppo.eval_step (carries) and the env-step program
+    against TrainEnv.step (states), with the generators' states, bit for
+    bit. Each returns its static buffers, counts its replays and captures
+    no graph."""
+    env, te = _tipping_duck(4, 6)
     ts = _training_state(env)
-    hp = ppo.Hyper(num_envs=2, unroll_length=4, num_minibatches=1, batch_size=2,
+    hp = ppo.Hyper(num_envs=4, unroll_length=4, num_minibatches=1, batch_size=4,
                    num_updates_per_batch=1, action_repeat=1, learning_rate=3e-4,
                    entropy_cost=5e-3, discounting=0.97, gae_lambda=0.95, clipping_epsilon=0.2,
                    normalize_advantage=True, reward_scaling=1.0, normalize_observations=True,
                    max_grad_norm=1.0)
     pipeline = TrainEnv(Joystick("flat_terrain", device="cpu", physics="pipeline"),
-                        num_envs=2, episode_length=10)
+                        num_envs=4, episode_length=10)
     g = torch.Generator()
 
-    def choices(train_env):
+    def lines_of(train_env):
         lines = []
-        fns = (ppo.make_rollout(train_env, ts, hp, lines.append),
-               ppo.make_eval_step(train_env, ts, g, False, lines.append))
-        return fns, lines
+        assert isinstance(ppo.make_rollout(train_env, ts, hp, lines.append), ppo.RolloutProgram)
+        assert isinstance(ppo.make_eval_step(train_env, ts, g, False, lines.append),
+                          ppo.EvalStepProgram)
+        return lines
 
-    cpu = "eager on cpu (no CUDA graph on the CPU)"
-    assert choices(te) == ((ppo.rollout, ppo.eval_step),
-                           [f"[ppo] rollout: {cpu}", f"[ppo] eval step: {cpu}"])
+    eager = "run eagerly on cpu (no CUDA graph off the card)"
+    kernel = [f"[ppo] rollout: one replay per training step (4 env steps), {eager}",
+              f"[ppo] eval step: one replay per eval step, {eager}"]
+    assert lines_of(te) == kernel
     env.shard = EnvShard(1, 2)
-    assert choices(te) == ((ppo.rollout, ppo.eval_step),
-                           [f"[ppo] rollout: {cpu}", f"[ppo] eval step: {cpu}"])
-    assert choices(pipeline) == ((ppo.rollout, ppo.eval_step),
-                                 [f"[ppo] rollout: {cpu}", f"[ppo] eval step: {cpu}"])
-    assert wrapper.eager_reason(env) == cpu and wrapper.eager_reason(pipeline.env) == cpu
-
+    assert lines_of(te) == kernel
     env.shard = None
-    for make in (lambda: wrapper.CapturedEnvStep(te),
-                 lambda: ppo.CapturedRollout(te, ts.normalizer, ts.params),
-                 lambda: ppo.CapturedEvalStep(te, ts.normalizer, ts.params, g, False)):
-        with pytest.raises(ValueError, match="eager on cpu"):
-            make()
-    with pytest.raises(ValueError, match="CUDA device"):
-        GraphedBody(lambda: None, [], device="cpu")
+    assert lines_of(pipeline)[0] == (
+        "[ppo] rollout: 4 replays per training step, each 1 env step of the policy and "
+        "TrainEnv.step (physics='pipeline': ~50,000 kernels per control step, a graph per "
+        f"control step at most), {eager}")
+
+    noise = torch.from_numpy(np.random.RandomState(7).randn(2, 4, 4, env.action_size)
+                             .astype(np.float32))
+    start = te.reset(torch.Generator().manual_seed(1))
+    g0 = env.generator.get_state()
+
+    def run(roll, eval_step, env_step):
+        """Two rollouts, two eval steps and two env steps from `start`: what
+        each call returned, and a copy of it."""
+        env.generator.set_state(g0)
+        g.manual_seed(8)
+        out, state = [], start
+        for n in noise:
+            state, data = roll(te, state, ts.normalizer, ts.params, n)
+            out.append((state, clone_tree({"state": state, "data": data})))
+        carry = ppo.eval_start(start)
+        for _ in range(2):
+            carry = eval_step(te, ts.normalizer, ts.params, g, carry, False, None)
+            out.append((carry, clone_tree(carry)))
+        state = start
+        for a in noise[0, :2]:
+            state = env_step(state, a)
+            out.append((state, clone_tree(state)))
+        return out, g.get_state(), env.generator.get_state()
+
+    want = run(ppo.rollout, ppo.eval_step, te.step)
+    programs = (ppo.make_rollout(te, ts, hp), ppo.make_eval_step(te, ts, g, False),
+                wrapper.EnvStepProgram(te))
+    got = run(*programs)
+    for k, ((_, copy), (_, ref)) in enumerate(zip(got[0], want[0])):
+        _assert_same(copy, ref, f"call {k}")
+    roll, ev, step = programs
+    statics = [roll.static["state"]] * 2 + [ev.static["carry"]] * 2 + [step.static["state"]] * 2
+    assert all(r is b for (r, _), b in zip(got[0], statics))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    for p in programs:
+        assert p.replays == 2 and p.info == {} and p.graph.graph is None
 
 
 def test_dr_fields_are_flattened_once_per_model(root):

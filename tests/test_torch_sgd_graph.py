@@ -1,12 +1,13 @@
 """The trainer's SGD step over persistent buffers, on the CPU.
 
 On the card at world size 1 the SGD step is one CUDA graph
-(`ppo.CapturedSGDStep`) over the params, the Adam state and the normalizer,
-updated in place. Its body, `ppo.sgd_step`, is what the CPU runs eagerly;
-it must give what the functional step gave before the buffers became
-persistent, bit for bit, over consecutive steps (a step that aliased or
-rebound a buffer would show on the second). The functional step and Adam
-are kept below as the oracle, as they stood before.
+(`ppo.SGDStepProgram`) over the params, the Adam state and the normalizer,
+updated in place. Its body, `ppo.sgd_step`, is what the same program runs
+eagerly on the CPU; it must give what the functional step gave before the
+buffers became persistent, bit for bit, over consecutive steps (a step
+that aliased or rebound a buffer would show on the second), and so must
+the program. The functional step and Adam are kept below as the oracle,
+as they stood before.
 
 Inputs are seeded numpy at a small size: 64 envs, 4 minibatches of 16, 2
 updates per batch, unroll 5, (32, 16) networks. The replay against the
@@ -264,16 +265,35 @@ def test_snapshot_and_restore_of_the_learner():
 
 
 def test_sgd_step_choice_off_the_card():
-    """On the CPU and in an env-sharded run the trainer runs the eager body,
-    and its log line says so; a captured step refuses a CPU state."""
+    """On the CPU, at world 1 as in an env-sharded run, the trainer runs the
+    same SGD step program as on the card (SGDStepProgram), its body
+    eagerly, and its log line says so. Over two consecutive steps with
+    other inputs, the program and ppo.sgd_step on copies of one state give
+    the learner's tensors and the loss terms bit for bit; the program keeps
+    updating the state's own tensors, refuses a rebound one, and captures
+    no graph."""
     ts, hp = _state(6), _hyper()
     lines = []
-    assert ppo.make_sgd_step(ts, hp, EnvShard(0, 1), lines.append) is ppo.sgd_step
-    assert ppo.make_sgd_step(ts, hp, EnvShard(1, 2), lines.append) is ppo.sgd_step
-    assert lines[0] == "[ppo] SGD step: eager on cpu (no CUDA graph on the CPU)"
-    assert lines[1].startswith("[ppo] SGD step: eager at world 2")
-    with pytest.raises(ValueError, match="CUDA device"):
-        ppo.CapturedSGDStep(ts, hp)
+    sgd = ppo.make_sgd_step(ts, hp, EnvShard(0, 1), lines.append)
+    assert isinstance(ppo.make_sgd_step(ts, hp, EnvShard(1, 2), lines.append), ppo.SGDStepProgram)
+    eager = "run eagerly on cpu (no CUDA graph off the card)"
+    assert lines[0] == f"[ppo] SGD step: one replay per training step, {eager}"
+    assert lines[1] == ("[ppo] SGD step: one replay per training step at world 2 (no process "
+                        "group; 28 sums over the ranks between 29 segments, on fixed buffers), "
+                        f"{eager}")
+    ref = _clone(ts)
+    held = ppo.learner_tensors(ts)
+    for k in range(2):
+        data, perms, ent = _inputs(ts, 40 + k)
+        out, losses = sgd(ts, data, perms, ent, hp, EnvShard(0, 1))
+        _, want = ppo.sgd_step(ref, data, perms, ent, hp)
+        assert out is ts and all(x is y for x, y in zip(ppo.learner_tensors(ts), held))
+        _assert_same_learner(ts, ref)
+        assert losses.keys() == want.keys()
+        assert all(torch.equal(losses[n], want[n]) for n in want)
+    assert sgd.replays == 2 and sgd.info == {} and sgd.graph.graph is None
+    with pytest.raises(ValueError, match="reads what it was made for"):
+        sgd(_state(6), data, perms, ent, hp)
 
 
 def test_env_step_makes_no_tensor_from_host_values(tmp_path, monkeypatch):

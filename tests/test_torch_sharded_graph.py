@@ -9,7 +9,8 @@ so that every minibatch has the world-1 shape; the body is a generator that
 yields a fixed buffer at each collective point, and on the card each
 stretch between two points is a CUDA graph segment
 (`utils.graphs.GraphedBody`). On the CPU the segments run eagerly with the
-collectives between them (`ppo.sgd_step`). Checked here:
+collectives between them (`ppo.sgd_step`, and `ppo.SGDStepProgram`).
+Checked here:
 
 1. the chain against the step as it stood, with host-built member lists
    (`torch_dist_worker._members`): its sums run over other lengths, so the
@@ -23,7 +24,9 @@ collectives between them (`ppo.sgd_step`). Checked here:
 4. no segment reads a tensor back to the host, makes one from host data or
    synchronizes (the host member lists do);
 5. on a sharded CUDA env, make_rollout, make_eval_step and make_sgd_step
-   pick the captured forms and say so, checked without launching anything.
+   make the programs of the shard and say they are captured, checked
+   without launching anything; on the CPU the SGD step program runs the
+   chain eagerly and equals ppo.sgd_step bit for bit over two steps.
 
 Inputs: seeded numpy, 32 envs (16 per rank), unroll 4, 4 minibatches of 8,
 2 epochs, (16, 16) networks. The replays against the eager bodies on the
@@ -173,11 +176,14 @@ class _CardEnv:
         self.physics = types.SimpleNamespace(launches=0)
 
 
-def test_captured_forms_are_chosen_for_a_sharded_cuda_env():
+def test_captured_forms_are_chosen_for_a_sharded_cuda_env(ranks):
     """At world 2 on a (stand-in) CUDA env and learner, make_rollout,
-    make_eval_step and make_sgd_step pick CapturedRollout, CapturedEvalStep
-    and a CapturedSGDStep of the shard, and log what they run and why; the
-    same at world 2 on the CPU stays eager and says so."""
+    make_eval_step and make_sgd_step make the programs of the shard and log
+    that they are captured, and what they run; nothing is captured before
+    a first call, and the SGD step refuses another shard. On the CPU at
+    world 2 (each gloo rank) the same SGD step program runs its body
+    eagerly, says so, and over two consecutive steps equals ppo.sgd_step
+    bit for bit: learner and loss terms."""
     hp = seg_hyper()
     shard = EnvShard(1, 2, "cuda:0", backend="gloo")
     ts = ppo.init_training_state(SEG_OBS, 3, SEG_NF, torch.Generator().manual_seed(0), "cpu")
@@ -188,23 +194,20 @@ def test_captured_forms_are_chosen_for_a_sharded_cuda_env():
     roll = ppo.make_rollout(te, ts, hp, lines.append)
     ev = ppo.make_eval_step(te, ts, g, False, lines.append)
     sgd = ppo.make_sgd_step(card_ts, hp, shard, lines.append)
-    assert isinstance(roll, ppo.CapturedRollout) and roll.graph is None
-    assert isinstance(ev, ppo.CapturedEvalStep) and ev.shard is shard
-    assert isinstance(sgd, ppo.CapturedSGDStep) and sgd.shard is shard and sgd.graph is None
-    note = ("at world 2 (this rank's rows; the draws made at the global shape and cut inside "
-            "the graph, no collective in it)")
-    assert lines[0] == (f"[ppo] rollout: one CUDA graph replay per training step "
-                        f"({hp.unroll_length} env steps) {note}, captured at its first call")
-    assert lines[1] == (f"[ppo] eval step: one CUDA graph replay per eval step {note}, "
-                        "captured at its first call")
-    assert lines[2] == ("[ppo] SGD step: a chain of CUDA graph segments per training step on "
-                        "cuda:0 at world 2 (gloo; 28 sums over the ranks between 29 segments, on "
-                        "fixed buffers in pinned host memory), captured at its first call")
-    with pytest.raises(ValueError, match="shard it was made for"):
+    assert isinstance(roll, ppo.RolloutProgram) and roll.graph is None
+    assert isinstance(ev, ppo.EvalStepProgram) and ev.graph is None
+    assert isinstance(sgd, ppo.SGDStepProgram) and sgd.graph is None and sgd.between is not None
+    card = "CUDA graphs on cuda:0, captured at the first call"
+    sums = "28 sums over the ranks between 29 segments, on fixed buffers"
+    assert lines == [
+        f"[ppo] rollout: one replay per training step ({hp.unroll_length} env steps), {card}",
+        f"[ppo] eval step: one replay per eval step, {card}",
+        f"[ppo] SGD step: one replay per training step at world 2 (gloo; {sums} in pinned host "
+        f"memory), {card}"]
+    with pytest.raises(ValueError, match="reads what it was made for"):
         sgd(card_ts, None, None, None, hp, EnvShard(0, 2, "cuda:0", backend="gloo"))
 
-    cpu = EnvShard(1, 2, "cpu", backend="gloo")
-    lines.clear()
-    assert ppo.make_sgd_step(ts, hp, cpu, lines.append) is ppo.sgd_step
-    assert lines == ["[ppo] SGD step: eager at world 2 (gloo; 28 sums over the ranks between 29 "
-                     "segments, on fixed buffers) on cpu (no CUDA graph on the CPU)"]
+    for r in ranks:
+        assert r["program"] == {"lines": [
+            f"[ppo] SGD step: one replay per training step at world 2 (gloo; {sums}), run "
+            "eagerly on cpu (no CUDA graph off the card)"], "equal": [True, True], "replays": 2}

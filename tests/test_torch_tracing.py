@@ -391,7 +391,7 @@ def test_sgd_kernel_nodes_equal_the_profilers_kernel_count(card, root, tracer, t
     assert profiling.summary()["graphs"]["[ppo] SGD step"]["kernel_nodes"] == nodes
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        sgd._graphed.graphs[0].replay()
+        sgd.graph.graphs[0].replay()
         torch.cuda.synchronize()
     path = str(tmp_path / "trace.json")
     prof.export_chrome_trace(path)

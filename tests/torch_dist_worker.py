@@ -466,11 +466,14 @@ def sgd_segment_checks(shard, hp_kw, seed: int) -> Dict[str, Any]:
     copies of the init; (4) the collective points of two runs of
     sgd_points on one Collectives (their buffers, in order); (5) the host
     spy over each segment of a third run, collectives excluded, and over
-    the host member lists; (6) all_reduce_sum_ in place, counted, timed."""
+    the host member lists; (6) all_reduce_sum_ in place, counted, timed;
+    (7) make_sgd_step's program of the shard (its body run eagerly here)
+    against ppo.sgd_step over two consecutive steps, seed's inputs and then
+    seed + 1's: its log line, and the learner and losses equal or not."""
     hp = ppo.Hyper(**hp_kw)
 
-    def start():
-        ts, data, perms, ent = seg_inputs(hp, seed)
+    def start(s=seed):
+        ts, data, perms, ent = seg_inputs(hp, s)
         return ts, tree_map(lambda x: shard.take(x, dim=1), data), perms, ent
 
     out = {}
@@ -535,6 +538,18 @@ def sgd_segment_checks(shard, hp_kw, seed: int) -> Dict[str, Any]:
         profiling.reset()
     out["in_place"] = {"same": same, "value": buf.numpy(), "counted": shard.collectives - n0,
                        "spans": spans}
+
+    lines, equal = [], []
+    ts, ref = start()[0], start()[0]
+    program = ppo.make_sgd_step(ts, hp, shard, lines.append)
+    for s in (seed, seed + 1):
+        _, data, perms, ent = start(s)
+        got = program(ts, data, perms, ent, hp, shard)[1]
+        want = ppo.sgd_step(ref, data, perms, ent, hp, shard)[1]
+        equal.append(all(torch.equal(a, b) for a, b in zip(ppo.learner_tensors(ts),
+                                                           ppo.learner_tensors(ref)))
+                     and all(torch.equal(got[k], v) for k, v in want.items()))
+    out["program"] = {"lines": lines, "equal": equal, "replays": program.replays}
     return out
 
 
@@ -552,7 +567,7 @@ def sharded_graph_vs_eager(shard, task: str, n_global: int, seed: int) -> Dict[s
     """On the card: two training steps at this world size from train()'s
     init (seed) and the same global draws, once through the eager bodies
     (ppo.rollout, ppo.sgd_step) and once through the graphs (make_rollout's
-    CapturedRollout, make_sgd_step's CapturedSGDStep of the shard: the first
+    RolloutProgram, make_sgd_step's SGDStepProgram of the shard: the first
     call captures, the second replays). Per step, on this rank: the
     Transition, the env state, the learner's tensors, the loss terms and
     the generators' states, each equal bit for bit or not; the replays, the
