@@ -47,7 +47,14 @@ Phases:
    compute_gae on the same card tensors at the recipe's unroll x batch and
    an unaligned shape, with both kinds of episode end and a NaN, bit for bit
    eagerly and replayed in a graph; its time per launch and the plain
-   path's, from calls recorded in one CUDA graph (phase_gae);
+   path's, from calls recorded in one CUDA graph (phase_gae); then the
+   swish's two kernels (ops/csrc/swish.cu, networks.swish) against torch's
+   x * sigmoid(x) and its autograd gradient at the SGD step's largest
+   activation, [5120, 512], with special values, bit for bit; each kernel's
+   time per launch against its bound by bytes and against the plain torch
+   kernels it replaces (2 forward, 4 backward), from calls recorded in one
+   CUDA graph on inputs rotated past the L2 cache; its ptxas report
+   (phase_swish);
 4. the trainer: first the captured SGD step against its eager body
    (sgd_graph_vs_eager: SGD_GRAPH_STEPS steps at the recipe's widths,
    equal bit for bit; host launches per minibatch step, capture seconds,
@@ -64,7 +71,9 @@ Phases:
    kernel launches of the train env and of the eval env against the count
    the code gives, that the last (normalizer, params) checkpoint acts
    bit-identically, the optimizer and GAE kernels' launches (one each per
-   minibatch step), that the exported ONNX (numpy interpreter) matches the
+   minibatch step), the swish kernels' launches per replay of each captured
+   program (3 per policy or value forward at the recipe's widths, 3 per
+   backward: 60 per rollout, 1,920 per SGD step, 3 per eval step), that the exported ONNX (numpy interpreter) matches the
    policy on the card within 1e-5, and that the last full-state checkpoint
    loads back tensor for tensor; then holds the kernel against its twin on
    this path's inputs (trainer_vs_twin): the train env at 8192 envs with
@@ -181,7 +190,9 @@ outputs, each once) over 3.35 TB/s. Its last entry, duck_adam, is the
 optimizer's kernel: its launches in phases 4 and 6, the largest |kernel -
 plain functions| of phase 4a, its time per launch, the plain and the
 library step's, and its bound by bytes; duck_gae, the GAE kernel, the
-same from phase 4a's GAE half, bound by its dependent chain.
+same from phase 4a's GAE half, bound by its dependent chain; duck_swish,
+the swish's forward and backward kernels, the same from phase 4a's swish
+part, each bound by bytes, with its ptxas report.
 
 Assets: $OPEN_DUCK_ASSETS if set, else the generated stand-in duck
 (tests/duck_standin.py), written into build/standin_assets/.
@@ -194,6 +205,7 @@ stderr. The last line of stdout is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -278,6 +290,12 @@ ADAM_TIMED_LAUNCHES, ADAM_TIMED_STEPS = 200, 50
 GAE_SHAPES = ((20, 256), (5, 17))
 GAE_SCALINGS = (1.0, 0.37)
 GAE_TIMED_LAUNCHES, GAE_TIMED_STEPS = 200, 50
+# phase 4a: the swish's kernels at the SGD step's largest activation (the
+# policy's and value's first hidden layer over 20 x 256 rows); timed
+# graphs of SWISH_TIMED_LAUNCHES calls rotate over SWISH_TIMED_INPUTS
+# input sets (8 x 10.5 MB forward: past the 50 MB L2)
+SWISH_SHAPE = (5120, 512)
+SWISH_TIMED_LAUNCHES, SWISH_TIMED_INPUTS = 96, 8
 # the H100 SXM's boost clock (GHz) and the latency in cycles of a dependent
 # float32 multiply or add: the GAE kernel's bound by its chain
 SM_GHZ, FLOP_LATENCY_CYCLES = 1.98, 4
@@ -1188,6 +1206,132 @@ def phase_gae() -> dict:
                 bound_by=bound_by, bound_bytes=bound_bytes, **timed)
 
 
+def swish_values(shape, gen: torch.Generator):
+    """x (normal, scaled by 6) and g (normal) of `shape` drawn on the card,
+    with special values at the head of x (+-0, +-inf, NaN, subnormals,
+    |x| past 88, FLT_MAX) and g large where g * x overflows."""
+    dev = torch.device("cuda")
+    x = torch.randn(shape, generator=gen, device=dev) * 6
+    g = torch.randn(shape, generator=gen, device=dev)
+    tiny, big = torch.finfo(torch.float32).tiny, torch.finfo(torch.float32).max
+    special = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, tiny / 8, -tiny / 8, tiny,
+                            88.5, -88.5, 89.0, -89.0, 104.0, -104.0, 1e30, -1e30, big, -big,
+                            1e10, -1e10], device=dev)
+    x.view(-1)[:len(special)] = special
+    g.view(-1)[len(special) - 2:len(special)] = 1e30
+    return x, g
+
+
+def ptxas_report(log_text: str, needle: str) -> dict:
+    """Registers, stack and spill bytes of the one kernel whose mangled name
+    holds `needle`, from an nvcc -Xptxas -v log."""
+    out, on = {}, False
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            on = needle in line
+        elif on and "stack frame" in line:
+            words = line.replace(",", "").split()
+            out["stack_bytes"] = int(words[0])
+            out["spill_bytes"] = int(words[4]) + int(words[8])
+        elif on and "Used" in line and "registers" in line:
+            out["registers"] = int(line.split("Used")[1].split()[0])
+    return out
+
+
+def phase_swish() -> dict:
+    """Phase 4a, last part: the swish's kernels (ops/csrc/swish.cu, through
+    networks.swish) against torch's x * sigmoid(x) and its autograd
+    gradient on the card at SWISH_SHAPE with special values (swish_values):
+    output and gradient bit for bit (NaN for NaN), one launch each way.
+    Then device ms per call from calls recorded in one CUDA graph
+    (SWISH_TIMED_LAUNCHES, rotating over SWISH_TIMED_INPUTS input sets so
+    that each call reads from device memory, not the L2): each kernel (ms
+    forward and backward) and the plain torch kernels it replaces (plain_ms:
+    sigmoid and mul forward; g * s, g * x, sigmoid_backward and their add
+    backward) and torch's one-kernel silu and silu_backward (library_ms:
+    another rounding, a reading only). Bounds by bytes at 3.35 TB/s: forward x read and y written,
+    backward g and x read and gx written. The ptxas report of each kernel
+    from the library's build log."""
+    from open_duck_playground_tpu_torch.ops import cuda_step
+    from open_duck_playground_tpu_torch.train import networks as nets
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x, g = swish_values(SWISH_SHAPE, gen)
+    launches = cuda_step.SWISH.launches
+    xk = x.clone().requires_grad_()
+    y = nets.swish(xk)
+    y.backward(g)
+    launches = cuda_step.SWISH.launches - launches
+    xp = x.clone().requires_grad_()
+    want = xp * torch.sigmoid(xp)
+    want.backward(g)
+    torch.cuda.synchronize()
+
+    def same(a, b):
+        nan = torch.isnan(a)
+        return bool(torch.equal(nan, torch.isnan(b))
+                    and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+    def err(a, b):
+        return float((a.double() - b.double()).nan_to_num().abs().max())
+
+    equal = {"forward": same(y.detach(), want.detach()), "backward": same(xk.grad, xp.grad)}
+    worst = max(err(y.detach(), want.detach()), err(xk.grad, xp.grad))
+    ok = passed(f"swish kernels vs torch {list(SWISH_SHAPE)}", forward_equal=equal["forward"],
+                backward_equal=equal["backward"], two_launches=launches == 2)
+    log(f"[swish] {list(SWISH_SHAPE)}: forward bit for bit {equal['forward']}, backward "
+        f"{equal['backward']}, max |d| {worst}, launches {launches}")
+    del xk, xp, y, want
+
+    # timings; the launches recorded here are no step of the trainer
+    launches = cuda_step.SWISH.launches
+    sets = [swish_values(SWISH_SHAPE, gen) for _ in range(SWISH_TIMED_INPUTS)]
+    saved = [torch.sigmoid(a) for a, _ in sets]  # what autograd saves for the plain backward
+    turn = itertools.count()
+
+    def rotate(fn):
+        def call():
+            k = next(turn) % SWISH_TIMED_INPUTS
+            fn(*sets[k], saved[k])
+        return call
+
+    timed = {
+        "ms_forward": graph_ms(rotate(lambda a, b, s: cuda_step.swish_forward(a)),
+                               SWISH_TIMED_LAUNCHES),
+        "ms_backward": graph_ms(rotate(lambda a, b, s: cuda_step.swish_backward(b, a)),
+                                SWISH_TIMED_LAUNCHES),
+        "plain_ms_forward": graph_ms(rotate(lambda a, b, s: a * torch.sigmoid(a)),
+                                     SWISH_TIMED_LAUNCHES),
+        "plain_ms_backward": graph_ms(
+            rotate(lambda a, b, s: b * s + torch.ops.aten.sigmoid_backward(b * a, s)),
+            SWISH_TIMED_LAUNCHES),
+        "library_ms_forward": graph_ms(rotate(lambda a, b, s: torch.nn.functional.silu(a)),
+                                       SWISH_TIMED_LAUNCHES),
+        "library_ms_backward": graph_ms(rotate(lambda a, b, s: torch.ops.aten.silu_backward(b, a)),
+                                        SWISH_TIMED_LAUNCHES)}
+    torch.cuda.synchronize()
+    cuda_step.SWISH.launches = launches
+    n = x.numel()
+    bound_ms = {"forward": 2 * 4 * n / PEAK_BYTES_PER_S * 1e3,
+                "backward": 3 * 4 * n / PEAK_BYTES_PER_S * 1e3}
+    with open(cuda_step.build_library() + ".log") as f:
+        build_log = f.read()
+    ptxas = {way: ptxas_report(build_log, f"duck_swish_{way}_kernel")
+             for way in ("forward", "backward")}
+    for way in ("forward", "backward"):
+        log(f"[swish] {way}: kernel {timed[f'ms_{way}'] * 1e3:.3f} us a launch ({bound_ms[way] * 1e3:.3f} "
+            f"us bound by bytes, {100 * bound_ms[way] / timed[f'ms_{way}']:.1f}% of it); plain "
+            f"torch kernels {timed[f'plain_ms_{way}'] * 1e3:.3f} us, torch's silu "
+            f"{timed[f'library_ms_{way}'] * 1e3:.3f} us; ptxas {ptxas[way]}")
+    log(f"[swish] in graphs of {SWISH_TIMED_LAUNCHES} calls over {SWISH_TIMED_INPUTS} input "
+        f"sets; gpu {gpu_line()}")
+    ok &= passed("swish kernels' build", ptxas_read=all(len(p) == 3 for p in ptxas.values()))
+    log(f"[swish] {'OK' if ok else 'FAIL'}")
+    del sets, saved, x, g
+    torch.cuda.empty_cache()
+    return dict(ok=ok, equal=equal, max_abs_err=worst, bound_ms=bound_ms, ptxas=ptxas, **timed)
+
+
 def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> dict:
     """ppo.train through the runner on the card at the recipe's widths, with
     every kernel launch counted from 0 just before the call; then the kernel
@@ -1258,6 +1402,14 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
     sgd_per_replay = {name: (n - mb_steps) / want_replays["SGD step"]
                       for name, n in (("duck_adam", opt_launches), ("duck_gae", gae_launches))}
     bd = ppo.LAST_PROFILE_BREAKDOWN
+    # the swish's launches recorded per replay: one per hidden layer of each
+    # MLP forward and backward; per minibatch step the policy's and the
+    # value's forward and backward and the bootstrap value's forward
+    hidden = len(nf["policy_hidden_layer_sizes"])
+    swish_per_replay = {name: bd.get(key, {}).get("launches_per_replay", {}).get("duck_swish")
+                        for name, key in (("rollout", "rollout_graph"), ("SGD step", "sgd_graph"),
+                                          ("eval step", "eval_graph"))}
+    want_swish = {"rollout": hidden * T, "SGD step": 5 * hidden * mb_steps, "eval step": hidden}
     replays = {name: [c.replays for c in made.get(name, [])] for name in want_replays}
     graph_ok = replays == {name: [n] for name, n in want_replays.items()}
     log(f"[{label}] ppo.train {t_train:.1f} s; launches {launches} (want "
@@ -1270,6 +1422,8 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
         f"{want_opt} each: {mb_steps} per SGD replay and in the capture's warm-up); per SGD "
         f"replay {json.dumps(sgd_per_replay)}, both recorded per SGD replay "
         f"{bd.get('sgd_graph', {}).get('fused_launches_per_replay')}")
+    log(f"[{label}] swish kernel launches per replay {json.dumps(swish_per_replay)} (want "
+        f"{json.dumps(want_swish)})")
     log(f"[{label}] rollout_s {bd['rollout_s']}, training_step_s {bd['training_step_s']}, "
         f"eval_s {bd['eval_s']}, sgd_s {bd['sgd_s']}; gpu {gpu_line()}")
 
@@ -1356,10 +1510,12 @@ def phase_trainer(report: dict, args=TRAINER_ARGS, label: str = "trainer") -> di
                 rollout_graph_vs_eager=roll_graph["ok"], eval_graph_vs_eager=evals["ok"],
                 graph_replays=graph_ok, resume=resumed["ok"],
                 launches=launches == want_launches, optimizer_launches=opt_launches == want_opt,
-                gae_launches=gae_launches == want_opt)
+                gae_launches=gae_launches == want_opt,
+                swish_launches_per_replay=swish_per_replay == want_swish)
     log(f"[{label}] {'OK' if ok else 'FAIL'}")
     return dict(ok=ok, launches=launches, optimizer_launches=opt_launches,
-                gae_launches=gae_launches, sgd_per_replay=sgd_per_replay, breakdown=bd,
+                gae_launches=gae_launches, sgd_per_replay=sgd_per_replay,
+                swish_per_replay=swish_per_replay, breakdown=bd,
                 onnx=onnx_path, sgd_graph=graph,
                 rollout_graph=roll_graph, eval_graph=evals,
                 sps=[line["training/sps"] for line in lines if "training/sps" in line])
@@ -1939,8 +2095,8 @@ def sharded_rank(runner, shard, out: str, eager: bool = False) -> dict:
     fp = runner.env.physics
     replays = {name: [c.replays for c in objs] for name, objs in made.items()}
     n_collectives = ppo.sgd_collectives(hp, len(normalizer.mean))
-    per_replay = {"rollout": bd.get("rollout_graph", {}).get("fused_launches_per_replay"),
-                  "eval_step": bd.get("eval_graph", {}).get("fused_launches_per_replay")}
+    per_replay = {name: bd.get(key, {}).get("launches_per_replay", {}).get("fused_physics_step")
+                  for name, key in (("rollout", "rollout_graph"), ("eval_step", "eval_graph"))}
     checks = {"launches": launches == want,
               "launch_rows": seen == {name: {f"{n} rows on {dev}": want_seen[name]}
                                       for name, n in (("train_env", rows),
@@ -2885,6 +3041,33 @@ def gae_entry(gae: dict, trainer: dict, standing: dict) -> dict:
     }
 
 
+def swish_entry(swish: dict, trainer: dict, standing: dict) -> dict:
+    """The kernels line's entry of the swish's two kernels: launches per
+    replay of each captured program (phase 4; phase 6 for the standing
+    trainer); max_abs_err against torch and autograd, the times and the
+    ptxas report from phase 4a (ms_*: one launch at SWISH_SHAPE; plain_ms_*:
+    the torch kernels each replaces; library_ms_*: torch's silu and
+    silu_backward, which round otherwise)."""
+    return {
+        "name": "duck_swish",
+        "route": "cuda",
+        "source": "open_duck_playground_tpu_torch/ops/csrc/swish.cu",
+        "replaces": "none: the counterpart of XLA's fusion of the MLPs' swish and its gradient "
+                    "in open_duck_playground_tpu/train/ppo.py's jitted sgd_step",
+        "launches_per_replay": trainer["swish_per_replay"],
+        "launches_per_replay_standing": standing["swish_per_replay"],
+        "max_abs_err": swish["max_abs_err"],
+        "max_abs_err_of": f"phase 4a: output and gradient at {list(SWISH_SHAPE)}, special values",
+        **{k: swish[k] for k in ("ms_forward", "ms_backward", "plain_ms_forward",
+                                 "plain_ms_backward", "library_ms_forward",
+                                 "library_ms_backward", "ptxas")},
+        "bound_ms": swish["bound_ms"],
+        "bound_by": "bytes",
+        "library_of": "torch.nn.functional.silu and aten.silu_backward (x / (1 + exp(-x)): "
+                      "another rounding)",
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2915,6 +3098,7 @@ def main() -> int:
     rough = timed("3b rough main path", phase_main_path, *ROUGH_MAIN, report)
     optimizer = timed("4a optimizer kernel", phase_optimizer)
     gae = timed("4a GAE kernel", phase_gae)
+    swish = timed("4a swish kernels", phase_swish)
     trainer = timed("4 trainer", phase_trainer, report)
     torch.cuda.empty_cache()  # phase 5's ranks share the card with this process
     sharded = timed("5 sharded trainer", phase_sharded)
@@ -2923,12 +3107,13 @@ def main() -> int:
     pipeline = timed("8 pipeline", phase_pipeline, report)
     profiled = timed("9 profile and deploy tools", phase_profile, trainer["onnx"])
     log(f"[chip_smoke] seconds per phase {json.dumps(seconds)}")
-    if not (ok and flat["ok"] and rough["ok"] and optimizer["ok"] and gae["ok"] and trainer["ok"]
+    if not (ok and flat["ok"] and rough["ok"] and optimizer["ok"] and gae["ok"] and swish["ok"]
+            and trainer["ok"]
             and all(run["ok"] for run in sharded) and standing["ok"] and deploy["ok"]
             and pipeline["ok"] and profiled["ok"]):
         phases = {"2 kernel vs twin": ok, "3 flat main path": flat["ok"],
                   "3b rough main path": rough["ok"], "4a optimizer kernel": optimizer["ok"],
-                  "4a GAE kernel": gae["ok"],
+                  "4a GAE kernel": gae["ok"], "4a swish kernels": swish["ok"],
                   "4 trainer": trainer["ok"],
                   "5 sharded trainer": all(run["ok"] for run in sharded),
                   "6 standing trainer": standing["ok"], "7 deploy": deploy["ok"],
@@ -2967,9 +3152,9 @@ def main() -> int:
     # phase 4: the fused kernel's launches in each replay of the trainer's
     # captured rollout and eval step
     step_kernel["launches_per_replay_rollout"] = (
-        trainer["rollout_graph"]["capture"]["fused_launches_per_replay"])
+        trainer["rollout_graph"]["capture"]["launches_per_replay"]["fused_physics_step"])
     step_kernel["launches_per_replay_eval_step"] = (
-        trainer["eval_graph"]["capture"]["fused_launches_per_replay"])
+        trainer["eval_graph"]["capture"]["launches_per_replay"]["fused_physics_step"])
     log(json.dumps({"kernels": [
         step_kernel,
         kernel_entry("fused_physics_step_hfield",
@@ -2978,6 +3163,7 @@ def main() -> int:
         sharded_entry(sharded[0], sharded[1]),
         optimizer_entry(optimizer, trainer, standing),
         gae_entry(gae, trainer, standing),
+        swish_entry(swish, trainer, standing),
     ]}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

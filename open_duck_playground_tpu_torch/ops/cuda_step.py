@@ -22,8 +22,10 @@ the last substep, taken before its integration.
 
 The same library holds the optimizer's kernel (``csrc/adam.cu``, launched by
 ``adam_step`` for ``train/optim.py``'s ``clip_and_adam``), the trainer's GAE
-(``csrc/gae.cu``, launched by ``gae_step`` for ``train/ppo.py``'s ``gae``)
-and the tracer's stamp kernel (``csrc/stamp.cu``).
+(``csrc/gae.cu``, launched by ``gae_step`` for ``train/ppo.py``'s ``gae``),
+the MLPs' swish forward and backward (``csrc/swish.cu``, launched by
+``swish_forward`` and ``swish_backward`` for ``train/networks.py``'s
+``swish``) and the tracer's stamp kernel (``csrc/stamp.cu``).
 
 The model is data, not code: the structural arrays (and a rough scene's
 heightfield table) are packed once per device into tensors whose pointers
@@ -59,11 +61,12 @@ from open_duck_playground_tpu_torch.utils import profiling
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "physics_step.cu")
 # built into the same library: the tracer's device time stamps (utils/profiling.py),
-# the trainer's clip + Adam step (train/optim.py clip_and_adam) and its GAE
-# (train/ppo.py gae)
+# the trainer's clip + Adam step (train/optim.py clip_and_adam), its GAE
+# (train/ppo.py gae) and the MLPs' swish (train/networks.py swish)
 _STAMP_SRC = os.path.join(os.path.dirname(_SRC), "stamp.cu")
 _ADAM_SRC = os.path.join(os.path.dirname(_SRC), "adam.cu")
 _GAE_SRC = os.path.join(os.path.dirname(_SRC), "gae.cu")
+_SWISH_SRC = os.path.join(os.path.dirname(_SRC), "swish.cu")
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "kernels")
 NVCC_FLAGS = (
@@ -257,13 +260,13 @@ def _nvcc() -> str:
 
 def build_library(profile: bool = False) -> str:
     """Compile the kernel, the tracer's stamp kernel (``csrc/stamp.cu``), the
-    optimizer's kernel (``csrc/adam.cu``) and the GAE kernel (``csrc/gae.cu``)
-    into one library, or reuse an earlier build of the same sources; returns
-    the path of the shared library. Its ptxas report (registers, stack,
+    optimizer's kernel (``csrc/adam.cu``), the GAE kernel (``csrc/gae.cu``)
+    and the swish's two (``csrc/swish.cu``) into one library, or reuse an
+    earlier build of the same sources; returns the path of the shared library. Its ptxas report (registers, stack,
     spills) is written beside it as ``.log``. ``profile`` builds the variant that counts each stage's
     clock cycles (``-DDUCK_PROFILE``)."""
     src = b""
-    sources = (_SRC, _STAMP_SRC, _ADAM_SRC, _GAE_SRC)
+    sources = (_SRC, _STAMP_SRC, _ADAM_SRC, _GAE_SRC, _SWISH_SRC)
     for path in sources:
         with open(path, "rb") as f:
             src += f.read()
@@ -346,6 +349,10 @@ def _library(profile: bool = False):
     lib.duck_gae.restype = ctypes.c_int
     lib.duck_gae.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_float] * 3
                              + [ctypes.c_void_p])
+    lib.duck_swish_forward.restype = ctypes.c_int
+    lib.duck_swish_forward.argtypes = [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+    lib.duck_swish_backward.restype = ctypes.c_int
+    lib.duck_swish_backward.argtypes = [ctypes.c_longlong] + [ctypes.c_void_p] * 4
     return lib
 
 
@@ -364,14 +371,16 @@ ADAM_MAX_TENSORS = 32
 class KernelLaunches:
     """The launches of a hand-written kernel, kept as FusedPhysics keeps its
     own (`launches`; a CUDA graph's replay adds those its capture recorded,
-    utils.graphs.GraphedBody)."""
+    utils.graphs.GraphedBody); `name` is the kernel's in a graph's
+    ``launches_per_replay``."""
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
         self.launches = 0
 
 
 # the optimizer's kernel: one launch is one fused step (the tracer's optim.fused_steps)
-ADAM = KernelLaunches()
+ADAM = KernelLaunches("duck_adam")
 
 
 def adam_step(params, grads, mu, nu, norm: Optional[torch.Tensor], bc1: torch.Tensor,
@@ -415,7 +424,7 @@ def adam_step(params, grads, mu, nu, norm: Optional[torch.Tensor], bc1: torch.Te
 
 
 # the GAE kernel: one launch is one fused GAE (the tracer's gae.fused_steps)
-GAE = KernelLaunches()
+GAE = KernelLaunches("duck_gae")
 
 
 def gae_step(reward: torch.Tensor, discount: torch.Tensor, truncation: torch.Tensor,
@@ -453,6 +462,45 @@ def gae_step(reward: torch.Tensor, discount: torch.Tensor, truncation: torch.Ten
         raise RuntimeError(f"GAE kernel launch failed: cudaError {err}")
     GAE.launches += 1
     return vs, advantages
+
+
+# the swish's kernels: each launch, forward or backward, is one fused call
+# (the tracer's swish.fused_calls)
+SWISH = KernelLaunches("duck_swish")
+
+
+def _swish_launch(entry: str, out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
+    for t in (*inputs, out):
+        if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"the swish kernels take contiguous float32 CUDA tensors, not "
+                             f"{t.dtype} on {t.device} (contiguous: {t.is_contiguous()})")
+        if t.shape != out.shape or t.device != out.device:
+            raise ValueError(f"shape {tuple(t.shape)} on {t.device}, want "
+                             f"{tuple(out.shape)} on {out.device}")
+    if out.numel():
+        err = getattr(_library(), entry)(out.numel(), *[t.data_ptr() for t in (*inputs, out)],
+                                         torch.cuda.current_stream(out.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"swish kernel launch failed: cudaError {err}")
+        SWISH.launches += 1
+    return out
+
+
+def swish_forward(x: torch.Tensor) -> torch.Tensor:
+    """``x * torch.sigmoid(x)`` by the swish's forward kernel
+    (``csrc/swish.cu``) on the current stream, bit for bit: a new tensor,
+    after one launch counted in ``SWISH.launches`` (none for an empty `x`).
+    Raises ValueError on anything but a contiguous float32 CUDA tensor."""
+    return _swish_launch("duck_swish_forward", torch.empty_like(x), x)
+
+
+def swish_backward(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``x * torch.sigmoid(x)`` at `x` given the output's
+    gradient `g`, by the swish's backward kernel, as autograd computes it,
+    bit for bit: ``g * s + ((g * x) * (1 - s)) * s`` with ``s`` recomputed
+    from `x`. A new tensor after one launch counted in ``SWISH.launches``;
+    raises ValueError as `swish_forward`, or if the shapes differ."""
+    return _swish_launch("duck_swish_backward", torch.empty_like(x), g, x)
 
 
 def kernel_limits() -> Dict[str, int]:
@@ -687,7 +735,9 @@ def _stack(lanes, like: torch.Tensor) -> torch.Tensor:
 class FusedPhysics:
     """n-substep physics step of one scene, on CUDA through the fused kernel
     and on the CPU through its plain version. ``launches`` counts kernel
-    launches."""
+    launches (``name``: the kernel's in a graph's ``launches_per_replay``)."""
+
+    name = "fused_physics_step"
 
     def __init__(self, model: Model, profile: bool = False):
         self.model = model.to("cpu")

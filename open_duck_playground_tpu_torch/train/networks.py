@@ -1,7 +1,8 @@
 """Policy/value networks, tanh-squashed Normal policy, running obs stats.
 
 Counterpart of the JAX package's ``train/networks.py`` (Brax PPO semantics):
-lecun-uniform MLPs with swish activation, a 2*act_size policy head read as
+lecun-uniform MLPs with swish activation (on CUDA tensors two hand-written
+kernels, ``swish``), a 2*act_size policy head read as
 (loc, pre-softplus scale) of a tanh-squashed Normal (min_std 0.001), running
 mean/std obs normalization over every obs key, asymmetric actor ("state") /
 critic ("privileged_state") observations, deterministic action tanh(loc).
@@ -21,8 +22,12 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
+from open_duck_playground_tpu_torch.ops import cuda_step
 from open_duck_playground_tpu_torch.parallel.dist import Collectives, EnvShard, run_points
+from open_duck_playground_tpu_torch.train.optim import PlainSteps
+from open_duck_playground_tpu_torch.utils import profiling
 
 _MIN_STD = 0.001
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -36,8 +41,44 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# Swish and the MLP
 # ---------------------------------------------------------------------------
+
+
+class _FusedSwish(torch.autograd.Function):
+    """swish by the two kernels of ``ops/csrc/swish.cu``: the forward saves x
+    alone, the backward recomputes sigmoid(x) from it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x = x.contiguous()
+        ctx.save_for_backward(x)
+        return cuda_step.swish_forward(x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return cuda_step.swish_backward(g.contiguous(), x)
+
+
+# swish's calls on the plain expression (the CPU's path); a fused call is
+# one launch of either kernel, counted where it launches
+SWISH_PLAIN = PlainSteps()
+profiling.watch(SWISH_PLAIN, "steps", "swish.plain_calls")
+profiling.watch(cuda_step.SWISH, "launches", "swish.fused_calls")
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)``. CPU tensors run that expression (the tracer's
+    ``swish.plain_calls``); CUDA tensors one launch of the swish's forward
+    kernel, and one of its backward kernel in the backward pass
+    (``cuda_step.swish_forward`` / ``swish_backward``, ``swish.fused_calls``),
+    with torch's forward and autograd's gradient bit for bit."""
+    if x.device.type != "cuda":
+        SWISH_PLAIN.steps += 1
+        return x * torch.sigmoid(x)
+    return _FusedSwish.apply(x)
 
 
 class MLP(nn.Module):
@@ -74,7 +115,7 @@ class MLP(nn.Module):
         for i, layer in enumerate(layers):
             x = layer(x)
             if i < len(layers) - 1 or activate_final:
-                x = x * torch.sigmoid(x)  # swish
+                x = swish(x)
         return x
 
 

@@ -91,7 +91,7 @@ def _count_step(state: AdamState, b1: float, b2: float):
 
 class PlainSteps:
     """Steps of a trainer function on its plain functions (the CPU's path):
-    `clip_and_adam`'s here, ppo.gae's there."""
+    `clip_and_adam`'s here, ppo.gae's and networks.swish's there."""
 
     def __init__(self):
         self.steps = 0

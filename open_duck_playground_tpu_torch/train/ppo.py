@@ -12,9 +12,11 @@ per-minibatch entropy noise, as tensors. ``train`` makes them from its own
 ``torch.Generator``s on the device, one per purpose, seeded from ``seed``
 (``draw_training_step``), and reseeds the envs' own generators from it too.
 
-The learner's products are plain PyTorch, and so are its clip + Adam and
-its GAE on the CPU; on the card each of those two is one launch of a
-hand-written kernel (``optim.clip_and_adam``, ``gae``). Every env
+The learner's products are plain PyTorch, and so are its clip + Adam, its
+GAE and the MLPs' swish on the CPU; on the card each of the first two is
+one launch of a hand-written kernel (``optim.clip_and_adam``, ``gae``),
+and the swish one forward and one backward kernel (``networks.swish``,
+in the rollout, the SGD step and the eval step). Every env
 step goes through the env's physics (the fused CUDA kernel on the card, or
 the general pipeline with physics="pipeline"). The JAX package jits its
 rollout scan, its eval scan and its SGD step, one SPMD program at any
@@ -317,8 +319,9 @@ class RolloutProgram(Captured):
         super().__init__(lambda s: rollout_into(train_env, s["state"], normalizer, networks,
                                                 s["noise"]),
                          [train_env, *_policy_tensors(normalizer, networks)], train_env.generators,
-                         train_env.kernels, train_env.env.device, "[ppo] rollout", "ppo.rollout",
-                         what, log, extra={"env_steps_per_replay": span})
+                         [*train_env.kernels, cuda_step.SWISH], train_env.env.device,
+                         "[ppo] rollout", "ppo.rollout", what, log,
+                         extra={"env_steps_per_replay": span})
 
     def __call__(self, train_env: TrainEnv, env_state: State, normalizer,
                  networks: nets.PPONetworks, noise: torch.Tensor):
@@ -456,10 +459,10 @@ class SGDStepProgram(Captured):
     static copies of the Transition, the permutations and the entropy
     noise, and updates the params, Adam state and normalizer of the
     `training_state` it was made for in place (a restore copies into
-    them). On the card at world size 1 it is one CUDA graph of ~35,000
+    them). On the card at world size 1 it is one CUDA graph of ~31,400
     kernels (per minibatch step one launch each of the GAE and optimizer
-    kernels). With a `shard` of world > 1 it is a chain of
-    `sgd_collectives` + 1 segments in one memory pool, each point's fixed
+    kernels and 15 of the swish's: 9 forward, 6 backward). With a `shard`
+    of world > 1 it is a chain of `sgd_collectives` + 1 segments in one memory pool, each point's fixed
     buffer (dist.Collectives) summed over the ranks in place between two
     (EnvShard.all_reduce_sum_, eagerly: gloo cannot be captured, and
     NCCL's capture needs a card per rank to check). The loss terms come
@@ -482,7 +485,7 @@ class SGDStepProgram(Captured):
                      f"over the ranks between {n + 1} segments, on fixed buffers"
                      f"{' in pinned host memory' if shard.stages_on_host else ''})")
         super().__init__(body, [hp, shard, *learner_tensors(training_state)],
-                         kernels=[cuda_step.ADAM, cuda_step.GAE],
+                         kernels=[cuda_step.ADAM, cuda_step.GAE, cuda_step.SWISH],
                          device=training_state.env_steps.device, name="[ppo] SGD step",
                          prefix="ppo.sgd", what=what, log=log,
                          between=None if shard is None else shard.all_reduce_sum_, extra=extra)
@@ -628,8 +631,8 @@ class EvalStepProgram(Captured):
         gens = eval_env.generators if deterministic else [generator, *eval_env.generators]
         super().__init__(body, [eval_env, generator, bool(deterministic), shard,
                                 *_policy_tensors(normalizer, networks)],
-                         gens, eval_env.kernels, eval_env.env.device, "[ppo] eval step",
-                         "ppo.eval_step", "one replay per eval step", log)
+                         gens, [*eval_env.kernels, cuda_step.SWISH], eval_env.env.device,
+                         "[ppo] eval step", "ppo.eval_step", "one replay per eval step", log)
 
     def __call__(self, eval_env: TrainEnv, normalizer, networks: nets.PPONetworks,
                  generator: torch.Generator, carry: EvalCarry, deterministic: bool = False,

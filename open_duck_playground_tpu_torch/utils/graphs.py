@@ -151,11 +151,12 @@ class GraphedBody:
     `buffers`: the tensors the body overwrites that outlive it (its state);
     `generators`: every torch.Generator the body draws from; `kernels`: the
     objects that count the launches (`launches`) of each hand-written
-    kernel the body launches (the env's FusedPhysics, the optimizer's
-    ``ops.cuda_step.ADAM``, the GAE kernel's ``ops.cuda_step.GAE``). `log`,
-    if given, gets one line "<name> captured: {info}" (seconds of the
+    kernel the body launches, each with its `name` (the env's
+    FusedPhysics, the optimizer's ``ops.cuda_step.ADAM``, the GAE kernel's
+    ``ops.cuda_step.GAE``, the swish's ``ops.cuda_step.SWISH``). `log`, if
+    given, gets one line "<name> captured: {info}" (seconds of the
     warm-up, the capture and the instantiation, the graph pool's bytes, the fused
-    launches per replay, the kernel, memcpy and memset nodes summed over the
+    launches per replay, in all and by kernel name, the kernel, memcpy and memset nodes summed over the
     segments (`node_counts`; the kernel nodes without the tracer's stamp
     nodes, counted apart), the segments, and `extra`).
 
@@ -317,6 +318,8 @@ class GraphedBody:
                      "instantiate_s": round((t5 - t4) / 1e9, 4),
                      "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
                      "fused_launches_per_replay": sum(self.launches_per_replay),
+                     "launches_per_replay": {k.name: n for k, n in
+                                             zip(self.kernels, self.launches_per_replay)},
                      **nodes, **self._extra}
         if stamps:
             self.info["stamp_nodes"] = stamps

@@ -482,7 +482,9 @@ def test_captured_rollout_matches_eager(card, root):
     env.generator.set_state(g1)
     got = roll(te, state, ts.normalizer, ts.params, draws[2][0])
     assert _bitwise(got[0], want[0]) and _bitwise(got[1], want[1])
-    assert roll.replays == 3 and roll.graph.info["fused_launches_per_replay"] == hp.unroll_length
+    # per env step one fused physics launch and the policy's 2 swishes
+    assert roll.replays == 3 and roll.graph.info["launches_per_replay"] == {
+        "fused_physics_step": hp.unroll_length, "duck_swish": 2 * hp.unroll_length}
 
 
 @pytest.mark.cuda
@@ -857,3 +859,131 @@ def test_gae_kernel_in_a_captured_graph(card, T, b):
     assert profiling.summary()["counters"]["gae.fused_steps"] == 3
     assert graphed.info["fused_launches_per_replay"] == 1
     assert graphed.info["kernel_nodes"] == 1 and graphed.info["memcpy_nodes"] == 0, graphed.info
+
+
+def _swish_values(shape, seed, dev, unaligned=False):
+    """Seeded x (normal, scaled by 6) and g (normal) of `shape` on `dev`, with
+    special values at the head of x: +-0, +-inf, NaN, subnormals, |x| past 88
+    where exp(-x) overflows or sigmoid underflows, FLT_MAX; g large where
+    g * x overflows. With `unaligned`, each is a view into a buffer from a
+    one-float offset (not 16-byte aligned: the kernels' scalar path)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(shape, generator=gen) * 6).reshape(-1)
+    g = torch.randn(shape, generator=gen).reshape(-1)
+    tiny, big = torch.finfo(torch.float32).tiny, torch.finfo(torch.float32).max
+    special = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), float("nan"), tiny / 8,
+                            -tiny / 8, tiny, 88.5, -88.5, 89.0, -89.0, 104.0, -104.0, 1e30, -1e30,
+                            big, -big, 1e10, -1e10])
+    n = min(len(special), x.numel())
+    x[:n] = special[:n]
+    g[max(n - 2, 0):n] = 1e30  # g * x overflows at x = +-1e10
+    out = []
+    for t in (x, g):
+        t = t.to(dev)
+        if unaligned:
+            t = torch.cat([t.new_zeros(1), t])[1:]
+        out.append(t.view(shape))
+    return out
+
+
+def _same_floats(a, b) -> bool:
+    """Bit for bit where neither is NaN, and NaN where the other is."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+@pytest.mark.cuda
+def test_swish_forward_kernel_equals_torch_on_every_float(card):
+    """The swish's forward kernel (cuda_step.swish_forward) against
+    x * torch.sigmoid(x) on the card over every float32 bit pattern (2**32
+    values in chunks of 2**28): bit for bit, NaN where torch gives NaN
+    (payloads not compared). This holds the kernel's expf, built with
+    -fmad=false, to torch's."""
+    from open_duck_playground_tpu_torch.ops import cuda_step
+
+    chunk, bad, examples = 1 << 28, 0, []
+    for lo in range(0, 1 << 32, chunk):
+        bits = (torch.arange(lo, lo + chunk, dtype=torch.int64, device=card) - (1 << 31))
+        x = bits.to(torch.int32).view(torch.float32)
+        del bits
+        got, want = cuda_step.swish_forward(x), x * torch.sigmoid(x)
+        nan = torch.isnan(want)
+        diff = (torch.isnan(got) != nan) | (~nan & (got.view(torch.int32) != want.view(torch.int32)))
+        n = int(diff.sum())
+        if n and len(examples) < 8:
+            idx = diff.nonzero().flatten()[:8 - len(examples)]
+            examples += [(hex(int(x.view(torch.int32)[i]) & 0xFFFFFFFF), float(x[i]),
+                          float(got[i]), float(want[i])) for i in idx.tolist()]
+        bad += n
+        del x, got, want, nan, diff
+    assert bad == 0, f"{bad} floats differ; (x bits, x, kernel, torch): {examples}"
+
+
+SWISH_CASES = [((20, 256, 512), False), ((20, 256, 256), False), ((20, 256, 128), False),
+               ((7, 33), False), ((20, 256, 128), True)]  # the SGD step's, odd, unaligned
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,unaligned", SWISH_CASES)
+def test_swish_kernels_equal_torch_autograd(card, shape, unaligned):
+    """networks.swish on the card (the forward kernel, then the backward
+    kernel in the backward pass) against x * torch.sigmoid(x) and its
+    autograd gradient on the card, on special and random values: output
+    and gradient bit for bit; the tracer counts 2 fused calls and no plain
+    one."""
+    from open_duck_playground_tpu_torch.train import networks as nets
+    from open_duck_playground_tpu_torch.utils import profiling
+
+    x, g = _swish_values(shape, len(shape) + shape[-1], card, unaligned)
+    assert (x.data_ptr() % 16 != 0) == unaligned
+    xp = x.clone().requires_grad_()
+    want = xp * torch.sigmoid(xp)
+    want.backward(g)
+    profiling.reset()
+    xk = x.requires_grad_()
+    got = nets.swish(xk)
+    got.backward(g)
+    torch.cuda.synchronize()
+    counters = profiling.summary()["counters"]
+    assert counters["swish.fused_calls"] == 2 and counters["swish.plain_calls"] == 0
+    assert _same_floats(got.detach(), want.detach())
+    assert _same_floats(xk.grad, xp.grad)
+
+
+@pytest.mark.cuda
+def test_swish_kernels_in_a_captured_graph(card):
+    """networks.swish's forward and backward recorded as a CUDA graph
+    (utils.graphs.GraphedBody, as the SGD step records them) and replayed on
+    two new inputs copied into its static ones, against torch's swish and
+    autograd run eagerly: bit for bit after each replay; two swish launches
+    recorded per replay, the warm-up's and the replays' counted."""
+    from open_duck_playground_tpu_torch.ops import cuda_step
+    from open_duck_playground_tpu_torch.train import networks as nets
+    from open_duck_playground_tpu_torch.utils import profiling
+    from open_duck_playground_tpu_torch.utils.graphs import GraphedBody
+
+    shape = (20, 256, 512)
+    static_x, static_g = _swish_values(shape, 0, card)
+    out = {}
+
+    def body():
+        xr = static_x.detach().requires_grad_()
+        y = nets.swish(xr)
+        y.backward(static_g)
+        out.update(y=y.detach(), gx=xr.grad)
+
+    graphed = GraphedBody(body, [], device=card, kernels=[cuda_step.SWISH])
+    profiling.reset()
+    for seed in (1, 2):
+        x, g = _swish_values(shape, seed, card)
+        static_x.copy_(x)
+        static_g.copy_(g)
+        graphed.replay()
+        xp = x.clone().requires_grad_()
+        want = xp * torch.sigmoid(xp)
+        want.backward(g)
+        torch.cuda.synchronize()
+        assert _same_floats(out["y"], want.detach()) and _same_floats(out["gx"], xp.grad), seed
+    assert profiling.summary()["counters"]["swish.fused_calls"] == 6
+    assert graphed.info["launches_per_replay"] == {"duck_swish": 2}, graphed.info

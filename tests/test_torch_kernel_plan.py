@@ -175,17 +175,20 @@ def test_source_model_struct_matches_the_wrapper():
 
 
 def test_source_defines_every_entry_point_the_wrapper_binds():
-    """Every function bound from the library is defined in one of its four
+    """Every function bound from the library is defined in one of its five
     sources: the kernel's, the tracer's stamp (csrc/stamp.cu), the
-    optimizer's (csrc/adam.cu) and the GAE kernel's (csrc/gae.cu)."""
+    optimizer's (csrc/adam.cu), the GAE kernel's (csrc/gae.cu) and the
+    swish's (csrc/swish.cu)."""
     with open(cuda_step.__file__) as f:
         bound = set(re.findall(r"lib\.(duck_\w+)", f.read()))
     others = ""
-    for path in (cuda_step._STAMP_SRC, cuda_step._ADAM_SRC, cuda_step._GAE_SRC):
+    for path in (cuda_step._STAMP_SRC, cuda_step._ADAM_SRC, cuda_step._GAE_SRC,
+                 cuda_step._SWISH_SRC):
         with open(path) as f:
             others += f.read()
     defined = set(re.findall(r"^int (duck_\w+)\(", SOURCE + others, re.M))
-    assert bound and bound <= defined and {"duck_stamp", "duck_adam", "duck_gae"} <= bound
+    assert bound and bound <= defined and {"duck_stamp", "duck_adam", "duck_gae",
+                                           "duck_swish_forward", "duck_swish_backward"} <= bound
 
 
 def test_adam_tensor_limit_matches_the_source():

@@ -38,7 +38,7 @@ import torch
 from open_duck_playground_tpu_torch.envs import randomize, wrapper
 from open_duck_playground_tpu_torch.envs.joystick import Joystick
 from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
-from open_duck_playground_tpu_torch.ops import smooth
+from open_duck_playground_tpu_torch.ops import cuda_step, smooth
 from open_duck_playground_tpu_torch.train import ppo
 from open_duck_playground_tpu_torch.utils.graphs import clone_tree, tree_leaves
 from tests.torch_helpers import standin_assets
@@ -282,5 +282,6 @@ def test_pipeline_on_a_card_is_captured(root):
         "[ppo] eval step: one replay per eval step, CUDA graphs on cuda, captured at the "
         "first call"]
     kernel_roll = ppo.make_rollout(TrainEnv(kernel_env, num_envs=2, episode_length=1000), ts, hp)
-    assert kernel_roll.span == hp.unroll_length and kernel_roll.kernels == [kernel_env.physics]
-    assert roll.kernels == []  # the pipeline launches no fused kernel
+    assert kernel_roll.span == hp.unroll_length
+    assert kernel_roll.kernels == [kernel_env.physics, cuda_step.SWISH]  # and the policy's swish
+    assert roll.kernels == [cuda_step.SWISH]  # the pipeline launches no fused physics kernel

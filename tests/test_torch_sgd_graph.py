@@ -203,6 +203,82 @@ def test_gae_runs_compute_gae_on_the_cpu(reward_scaling):
         assert torch.isnan(x).any(0).nonzero().flatten().tolist() == [5]
 
 
+def _swish_grad_reference(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The gradient the swish's backward kernel (ops/csrc/swish.cu) computes,
+    written out: g * s + ((g * x) * (1 - s)) * s with s = sigmoid(x), every
+    product and sum rounded on its own."""
+    s = torch.sigmoid(x)
+    return g * s + ((g * x) * (1 - s)) * s
+
+
+def _swish_values(shape, seed: int):
+    """Seeded x (normal, scaled by 6) and g (normal) of `shape`, with special
+    values at the head of x: +-0, +-inf, NaN, subnormals, |x| past 88 where
+    exp(-x) overflows or sigmoid underflows, FLT_MAX; and g large where
+    g * x overflows."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(*shape) * 6).astype(np.float32).reshape(-1)
+    g = rng.randn(*shape).astype(np.float32).reshape(-1)
+    tiny = np.finfo(np.float32).tiny
+    big = np.finfo(np.float32).max
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, tiny / 8, -tiny / 8, tiny, 88.5,
+                        -88.5, 89.0, -89.0, 104.0, -104.0, 1e30, -1e30, big, -big, 1e10, -1e10],
+                       dtype=np.float32)
+    x[:len(special)] = special
+    g[len(special) - 2:len(special)] = 1e30  # g * x overflows at x = +-1e10
+    return torch.from_numpy(x.reshape(shape)), torch.from_numpy(g.reshape(shape))
+
+
+def _same_floats(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit where neither is NaN, and NaN where the other is."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+def test_swish_runs_the_plain_expression_on_the_cpu():
+    """networks.swish on CPU tensors is x * sigmoid(x) bit for bit, and so is
+    its gradient; an MLP's forward calls it once per hidden layer. The
+    tracer counts each call as plain and none as fused."""
+    x, g = _swish_values((5, 33), 1)
+    mlp = nets.MLP([33, 32, 16, 8], torch.Generator().manual_seed(0))
+    profiling.reset()
+    xr = x.clone().requires_grad_()
+    y = nets.swish(xr)
+    y.backward(g)
+    mlp(torch.randn(7, 33, generator=torch.Generator().manual_seed(1)))
+    counters = profiling.summary()["counters"]
+    assert counters["swish.plain_calls"] == 3 and counters["swish.fused_calls"] == 0
+    xp = x.clone().requires_grad_()
+    want = xp * torch.sigmoid(xp)
+    want.backward(g)
+    assert _same_floats(y.detach(), want.detach()) and _same_floats(xr.grad, xp.grad)
+
+
+@pytest.mark.parametrize("width", [512, 256, 128])
+def test_swish_backward_formula_equals_autograd(width):
+    """The backward kernel's formula as a plain function equals autograd's
+    gradient of x * sigmoid(x) bit for bit (g * s from mul, sigmoid_backward
+    of g * x, their sum), on the SGD step's [unroll, batch, width] shapes
+    with special values."""
+    x, g = _swish_values((20, 256, width), width)
+    xr = x.clone().requires_grad_()
+    (xr * torch.sigmoid(xr)).backward(g)
+    assert _same_floats(_swish_grad_reference(g, x), xr.grad)
+
+
+def test_swish_kernels_refuse_cpu_tensors():
+    """The swish's kernel wrappers raise on what the kernels do not take (a
+    CPU tensor here), before any build: nothing falls back."""
+    from open_duck_playground_tpu_torch.ops import cuda_step
+
+    x = torch.zeros(4, 8)
+    with pytest.raises(ValueError):
+        cuda_step.swish_forward(x)
+    with pytest.raises(ValueError):
+        cuda_step.swish_backward(x, x)
+
+
 @pytest.mark.parametrize("normalize_observations,max_grad_norm", [(True, 1.0), (False, None)])
 def test_sgd_body_equals_functional_step(normalize_observations, max_grad_norm):
     """Two consecutive SGD steps of the body against the functional step on

@@ -617,7 +617,8 @@ def sharded_graph_vs_eager(shard, task: str, n_global: int, seed: int) -> Dict[s
         if graphs:
             out.update(kinds=[type(roll).__name__, type(sgd).__name__],
                        replays=[roll.replays, sgd.replays], segments=sgd.info.get("segments"),
-                       fused_per_replay=roll.graph.info["fused_launches_per_replay"])
+                       fused_per_replay=roll.graph.info["launches_per_replay"][
+                           "fused_physics_step"])
         return out
 
     eager, graph = run(False), run(True)
