@@ -5,20 +5,24 @@ change might break it inside:
 
 - ``sgd_unchanged``: the SGD step returns the learner state unchanged;
 - ``half_batch``: the PPO loss leaves out half of each minibatch and takes
-  its means over the rest;
+  its means over the rest (on many ranks too: the minibatch's first half);
 - ``answer_altered``: the physics step's answer is altered where it is
   produced (one velocity of the first env, by 1e-3);
-- ``state_unchanged``: the physics step returns the state it was given.
+- ``state_unchanged``: the physics step returns the state it was given;
+- ``exchange_skipped``: the sums over the ranks are left out (each rank
+  goes on with its own part); nothing changes on one card.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Optional
 
 import torch
 
-FAULTS = ("sgd_unchanged", "half_batch", "answer_altered", "state_unchanged")
+FAULTS = ("sgd_unchanged", "half_batch", "answer_altered", "state_unchanged",
+          "exchange_skipped")
 LOSSES = ("total_loss", "policy_loss", "v_loss", "entropy_loss")
 
 
@@ -38,8 +42,10 @@ def planted(fault: Optional[str]):
         def half(networks, normalizer, data, entropy_noise, hp, mask=None, points=None):
             h = data.reward.shape[1] // 2
             data = ppo.tree_map(lambda x: x[:, :h], data)
-            return (yield from orig(networks, normalizer, data, entropy_noise[:, :h], hp, mask,
-                                    points))
+            # on many ranks the means divide by the minibatch's size: the half's
+            return (yield from orig(networks, normalizer, data, entropy_noise[:, :h],
+                                    dataclasses.replace(hp, batch_size=h),
+                                    None if mask is None else mask[:h], points))
 
         ppo.loss_points = half
         undo.append(lambda: setattr(ppo, "loss_points", orig))
@@ -59,6 +65,12 @@ def planted(fault: Optional[str]):
 
         FusedPhysics.__call__ = broken
         undo.append(lambda: setattr(FusedPhysics, "__call__", call))
+    if fault == "exchange_skipped":
+        from open_duck_playground_tpu_torch.parallel.dist import EnvShard
+
+        reduce = EnvShard.all_reduce_sum_
+        EnvShard.all_reduce_sum_ = lambda self, buf: buf
+        undo.append(lambda: setattr(EnvShard, "all_reduce_sum_", reduce))
     try:
         yield
     finally:

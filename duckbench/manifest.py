@@ -52,7 +52,8 @@ def validate(bench: dict, root: str = ROOT) -> List[str]:
     """Every way `bench` breaks the benchmark's rules, as sentences (empty
     when it keeps them): keys, names, units, sources, bounds, `moves` and
     `workloads` that point at nothing, files outside `paths` or missing,
-    and cells that report no setup_s, no other end-to-end metric or no
+    more four-chip cells than a quarter of the cells (one always may), and
+    cells that report no setup_s, no other end-to-end metric or no
     per-layer metric."""
     errs: List[str] = []
     if sorted(bench) != sorted(TOP_KEYS):
@@ -137,6 +138,10 @@ def validate(bench: dict, root: str = ROOT) -> List[str]:
         pairs.add((w["config"], w["traffic"]))
         if not os.path.isfile(limits_path(w["name"], root)):
             errs.append(f"workload {w['name']}: no limits file")
+    four = [w.get("name") for w in cells if w.get("chips") == 4]
+    if len(four) > max(1, len(cells) // 4):
+        errs.append(f"workloads {four} ask for 4 chips: at most a quarter of the cells, "
+                    "rounded down, or one")
     used = {w.get("config") for w in cells}
     for c in configs:
         if c.get("name") not in used:

@@ -12,7 +12,10 @@ control's test runs, as on the card.
 A rounding reading sets the room between a sound run and a limit: the plain
 reference in float32, TF32 off, with its sums in another order
 (``reordered``), put in the program's place. A later change to the program
-that only reorders its arithmetic reads about as much.
+that only reorders its arithmetic reads about as much. A run on many ranks
+sums over envs in parts, one per rank, and adds the parts: its own rounding
+reading is the reference with its sums over envs taken so
+(``rank_partials``).
 """
 
 from __future__ import annotations
@@ -92,5 +95,93 @@ def reordered(module: nn.Module):
         yield
     finally:
         TwinPhysics.__call__ = step
+        for m in layers:
+            del m.forward
+
+
+def _parts(x: torch.Tensor, dim: int, world: int) -> list:
+    """`x` in `world` parts along `dim` (as many as it has rows, at most)."""
+    return list(torch.tensor_split(x, min(world, max(x.shape[dim], 1)), dim=dim))
+
+
+def _added(parts) -> torch.Tensor:
+    """The parts' sum, the last part first."""
+    out = parts[-1]
+    for p in reversed(parts[:-1]):
+        out = out + p
+    return out
+
+
+class _PartialLinear(torch.autograd.Function):
+    """A Linear whose forward is the plain one and whose weight and bias
+    gradients are sums over `world` parts of the env axis (the second to
+    last of the input), added last part first."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, world):
+        ctx.save_for_backward(x, weight)
+        ctx.world = world
+        return torch.nn.functional.linear(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        env = grad.dim() - 2 if grad.dim() >= 2 else 0
+        gs, xs = _parts(grad, env, ctx.world), _parts(x, env, ctx.world)
+        gw = _added([torch.matmul(g.reshape(-1, g.shape[-1]).T, xp.reshape(-1, xp.shape[-1]))
+                     for g, xp in zip(gs, xs)])
+        gb = _added([g.reshape(-1, g.shape[-1]).sum(0) for g in gs])
+        return torch.matmul(grad, weight), gw, gb, None
+
+
+class _PartialTorch:
+    """The torch module with `sum` and `mean` over several axes (the
+    normalizer's statistics), or over all of them (the loss's means), taken
+    as `world` parts of the last axis reduced, added last part first."""
+
+    def __init__(self, world: int):
+        self.world = world
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def sum(self, x, dim=None, **kw):
+        if dim is None:
+            return _added([p.sum() for p in _parts(x, x.dim() - 1, self.world)])
+        if isinstance(dim, (tuple, list)) and len(dim) > 1:
+            last = max(d % x.dim() for d in dim)
+            return _added([torch.sum(p, dim=dim, **kw) for p in _parts(x, last, self.world)])
+        return torch.sum(x, dim=dim, **kw)
+
+    def mean(self, x, dim=None, **kw):
+        if dim is None:
+            return self.sum(x) / x.numel()
+        return torch.mean(x, dim=dim, **kw)
+
+
+@contextlib.contextmanager
+def rank_partials(module: nn.Module, world: int):
+    """Inside the block the reference sums over envs as `world` ranks do:
+    each rank its own part, the parts then added (last first): every
+    nn.Linear's weight and bias gradients under `module`, and the module
+    level sums and means of the reference's PPO loss and observation
+    normalizer over envs. The forward passes and each row's arithmetic are
+    the plain ones."""
+    from duckbench.ref.train import networks as ref_networks
+    from duckbench.ref.train import ppo as ref_ppo
+
+    layers = [m for m in module.modules() if isinstance(m, nn.Linear)]
+    for m in layers:
+        m.forward = (lambda layer: lambda x: _PartialLinear.apply(x, layer.weight, layer.bias,
+                                                                  world))(m)
+    proxy = _PartialTorch(world)
+    mods = (ref_networks, ref_ppo)
+    for mod in mods:
+        mod.torch = proxy
+    try:
+        yield
+    finally:
+        for mod in mods:
+            mod.torch = torch
         for m in layers:
             del m.forward

@@ -43,11 +43,14 @@ def param_shapes(cfg: dict) -> List[tuple]:
 
 
 def _env(cfg: dict, device):
+    """The configuration's env (``env``) on its task, on the engine its
+    optional ``physics`` names ("kernel", the fused step, by default)."""
     from open_duck_playground_tpu_torch.envs.joystick import Joystick
     from open_duck_playground_tpu_torch.envs.standing import Standing
 
     cls = {"joystick": Joystick, "standing": Standing}[cfg["env"]]
-    return cls(task=cfg["task"], config_overrides=cfg["env_overrides"] or None, device=device)
+    return cls(task=cfg["task"], config_overrides=cfg["env_overrides"] or None, device=device,
+               physics=cfg.get("physics", "kernel"))
 
 
 def _learner(cfg: dict, env, sd: Dict[str, int], device):
@@ -70,23 +73,30 @@ def _learner(cfg: dict, env, sd: Dict[str, int], device):
 
 
 class TrainProgram:
-    def __init__(self, cfg: dict, sd: Dict[str, int], device, log=None):
+    """With a `shard` (an EnvShard of world > 1, one rank of an env-sharded
+    run, as ppo.train builds it): the env draws at the global shape, the
+    TrainEnv holds the rank's rows, the SGD step sums over the ranks, and
+    every training step takes the global draws."""
+
+    def __init__(self, cfg: dict, sd: Dict[str, int], device, log=None, shard=None):
         from open_duck_playground_tpu_torch.envs import randomize
         from open_duck_playground_tpu_torch.envs.wrapper import TrainEnv
         from open_duck_playground_tpu_torch.train import ppo
 
-        self.ppo, self.cfg, self.device = ppo, cfg, device
+        self.ppo, self.cfg, self.device, self.shard = ppo, cfg, device, shard
         p = cfg["ppo"]
         self.hp = ppo.Hyper(**{k: p[k] for k in HYPER})
         self.env = _env(cfg, device)
         self.env.generator.manual_seed(sd["env"])
+        if shard is not None:
+            self.env.shard = shard
         self.train_env = TrainEnv(
-            self.env, num_envs=p["num_envs"], episode_length=p["episode_length"],
-            action_repeat=p["action_repeat"],
+            self.env, num_envs=p["num_envs"] if shard is None else shard.local(p["num_envs"]),
+            episode_length=p["episode_length"], action_repeat=p["action_repeat"],
             randomization_fn=randomize.domain_randomize if cfg["domain_randomization"] else None,
             randomization_generator=traffic.generator(sd["randomization"], device))
         self.ts = _learner(cfg, self.env, sd, device)
-        self.sgd = ppo.make_sgd_step(self.ts, self.hp, log=log)
+        self.sgd = ppo.make_sgd_step(self.ts, self.hp, shard, log=log)
         self.roll = ppo.make_rollout(self.train_env, self.ts, self.hp, log=log)
         self.state = self.train_env.reset(traffic.generator(sd["reset"], device))
         self.g_draws = traffic.generator(sd["draws"], device)
@@ -100,7 +110,7 @@ class TrainProgram:
     def step(self, draws, roll=None, sgd=None) -> Dict[str, torch.Tensor]:
         """One training step with `draws`; returns its mean losses."""
         self.ts, self.state, losses = self.ppo.training_step(
-            self.ts, self.train_env, self.state, draws, self.hp,
+            self.ts, self.train_env, self.state, draws, self.hp, self.shard,
             sgd=sgd or self.sgd, roll=roll or self.roll)
         self.env_steps += self.hp.env_steps_per_training_step
         return losses
@@ -148,8 +158,10 @@ class EvalProgram:
                 "eval/avg_episode_length": torch.mean(carry.length)}
 
 
-def program(cfg: dict, loop: str, sd: Dict[str, int], device, log=None):
-    return {"train": TrainProgram, "eval": EvalProgram}[loop](cfg, sd, device, log)
+def program(cfg: dict, loop: str, sd: Dict[str, int], device, log=None, shard=None):
+    if loop == "train":
+        return TrainProgram(cfg, sd, device, log, shard)
+    return EvalProgram(cfg, sd, device, log)
 
 
 def free(prog: Optional[object]) -> None:

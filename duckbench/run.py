@@ -26,6 +26,14 @@ With ``--trace 0`` the metrics are the cell's end-to-end metrics, with
 Without CUDA, or with fewer cards than the cell asks for, it exits 3 and
 prints no result; it exits 4 if jax, jaxlib, flax or the JAX package has
 been imported by the end. Every float32 product runs with TF32 off.
+
+A cell whose ``chips`` is more than 1 runs as that many ranks, one card
+each (``ranks.py``): the command starts them, and each runs steps 1 to 3 on
+its rows of the env batch, in step with the others; rank 0's clock closes
+the window, rank 0's units are traced, the followed steps are gathered on
+rank 0, and rank 0 alone runs the reference and prints the result, which
+the command passes on once every rank has ended well. ``setup_s`` counts
+from the command's start.
 """
 
 import time
@@ -38,7 +46,7 @@ import os  # noqa: E402
 import sys  # noqa: E402
 from typing import Dict, Optional  # noqa: E402
 
-from duckbench import manifest, standin  # noqa: E402
+from duckbench import manifest, ranks, standin  # noqa: E402
 
 BANNED = ("jax", "jaxlib", "flax", "open_duck_playground_tpu")
 BUILD = os.path.join(manifest.ROOT, "build", "duckbench")
@@ -147,14 +155,18 @@ UNITS = {"train": _train_unit, "eval": _eval_unit}
 IN_FLIGHT = 4  # units enqueued ahead of the one the host waits for
 
 
-def window(prog, loop: str, seconds: float, device, timer: Optional[Timer] = None) -> dict:
+def window(prog, loop: str, seconds: float, device, timer: Optional[Timer] = None,
+           shard=None) -> dict:
     """Whole units back to back until `seconds` have passed, then every unit
     enqueued finishes inside the window. The host waits for the card only
     at unit boundaries, keeping IN_FLIGHT units enqueued ahead of it, so
     that a stall of the host (it shares its cores with other machines) up
-    to that long does not idle the card."""
+    to that long does not idle the card. With a `shard` of world > 1,
+    ``window_ranks``."""
     import torch
 
+    if shard is not None and shard.world > 1:
+        return window_ranks(prog, loop, seconds, device, shard, timer)
     unit = UNITS[loop]
     cuda = torch.device(device).type == "cuda"
     _sync(device)
@@ -173,19 +185,69 @@ def window(prog, loop: str, seconds: float, device, timer: Optional[Timer] = Non
     return dict(units=units, window_s=time.monotonic() - start, env_steps=prog.env_steps - steps0)
 
 
-def traced(prog, loop: str, units: int, device) -> dict:
+def window_ranks(prog, loop: str, seconds: float, device, shard,
+                 timer: Optional[Timer] = None) -> dict:
+    """`window` on every rank of `shard`, each running the same whole units:
+    after each unit rank 0 says on the stream whether its clock has passed
+    `seconds` (a broadcast of one flag, copied to the host), and every rank
+    reads that unit's flag when it waits for the unit, IN_FLIGHT units
+    later on the card (at once on the CPU), so that all stop after the same
+    unit and the host waits for nothing more than the one-card window."""
+    import torch
+    import torch.distributed as dist
+
+    unit = UNITS[loop]
+    cuda = torch.device(device).type == "cuda"
+    ahead = IN_FLIGHT if cuda else 0
+    flag = torch.zeros(1, dtype=torch.int32, device=device)
+    seen = torch.zeros(ahead + 2, dtype=torch.int32, pin_memory=cuda)
+    shard.barrier()
+    _sync(device)
+    start = time.monotonic()
+    units, steps0, pending, end = 0, prog.env_steps, [], None
+    while end is None or units < end:
+        unit(prog, timer)
+        flag.fill_(int(shard.is_main and time.monotonic() - start >= seconds))
+        dist.broadcast(flag, 0)
+        slot = units % len(seen)
+        seen[slot:slot + 1].copy_(flag, non_blocking=cuda)
+        ev = None
+        if cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+        pending.append((slot, ev))
+        units += 1
+        if len(pending) > ahead:
+            slot, ev = pending.pop(0)
+            if ev is not None:
+                ev.synchronize()
+            if end is None and int(seen[slot]):
+                end = units
+    _sync(device)
+    return dict(units=units, window_s=time.monotonic() - start, env_steps=prog.env_steps - steps0)
+
+
+def traced(prog, loop: str, units: int, device, shard=None) -> Optional[dict]:
     """`units` more units under torch.profiler, each part annotated, after
     one unit under it untraced (the profiler's own warm-up); the trace's
     summary (trace.summarize). The host enqueues the traced units back to
     back, as in the window, and waits for the card only after the last;
     the traced window runs from the first device operation to the last.
-    The Chrome trace is written to a temporary file and deleted once read."""
+    The Chrome trace is written to a temporary file and deleted once read.
+    With a `shard`, rank 0 is traced and every other rank runs the same
+    units untraced (None)."""
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function, schedule
 
     from duckbench import roofline, trace
+
+    if shard is not None and not shard.is_main:
+        for _ in range(units + 1):
+            UNITS[loop](prog)
+        _sync(device)
+        return None
 
     def annotate(name, fn):
         def call(*a, **k):
@@ -221,12 +283,17 @@ def traced(prog, loop: str, units: int, device) -> dict:
 def run_cell(bench: dict, cell: dict, seed: int, seconds: float, with_trace: bool, device,
              cfg: Optional[dict] = None, traffic_mix: Optional[dict] = None,
              limits: Optional[Dict[str, float]] = None, fault: Optional[str] = None,
-             control: bool = False, rounding: bool = False, t0: float = T0) -> dict:
+             control: bool = False, rounding: bool = False, follow_only: bool = False,
+             t0: float = T0, shard=None) -> dict:
     """One run of `cell`; returns the result line's dict (without printing).
     `cfg`, `traffic_mix` and `limits` default to the cell's files; `fault`
     plants one of faults.FAULTS in the program; `control` adds the
     control's numbers under "control", `rounding` the rounding reading's
-    under "rounding"; set-up is counted from `t0`."""
+    under "rounding" and, on many ranks, the readings of ``rank_readings``;
+    `follow_only` leaves the reference's own start out (train cells: no
+    env_gap); set-up is counted from `t0`. With a `shard` (ranks.join) this
+    process runs its rows of the cell; on ranks other than 0 the dict holds
+    only the units run ("attempted") and the rank."""
     import torch
 
     from duckbench import check, faults, program, roofline, traffic
@@ -240,11 +307,15 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, with_trace: boo
     loop = mix["loop"]
     sd = traffic.seeds(seed)
     cuda = torch.device(device).type == "cuda"
+    world = 1 if shard is None else shard.world
+    main = shard is None or shard.is_main
+    if world > 1 and loop != "train":
+        raise ValueError(f"{cell['name']}: only the train loop runs on more than one card")
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
     with faults.planted(fault):
-        prog = program.program(cfg, loop, sd, device, log=log)
+        prog = program.program(cfg, loop, sd, device, log=log if main else None, shard=shard)
         faults.plant_in_program(fault, prog)
         if loop == "train":
             rec = check.follow_train(prog, mix["follow"])
@@ -254,32 +325,45 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, with_trace: boo
         _sync(device)
         setup_s = time.monotonic() - t0
         timer = Timer(device) if with_trace else None
-        win = window(prog, loop, seconds, device, timer)
+        win = window(prog, loop, seconds, device, timer, shard)
         parts = timer.ms() if timer is not None else {}
-        summary = traced(prog, loop, mix["trace_units"], device) if with_trace else None
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+        summary = traced(prog, loop, mix["trace_units"], device, shard) if with_trace else None
+    peak = ranks.fullest(torch.cuda.max_memory_allocated(device) if cuda else 0, shard)
+    if loop == "train":
+        rec = ranks.gather_train(rec, shard)
     params0 = traffic.weights(sd["weights"], program.param_shapes(cfg), device)
     program.free(prog)
+    if not main:
+        return {"attempted": win["units"], "rank": shard.rank}
 
     t_ref = time.monotonic()
+    variants = {}
     if loop == "train":
-        ref = check.reference_train(cfg, sd, device, rec, mix["physics_steps"])
-        numbers = check.compare_train(check.program_train(rec, mix["physics_steps"]), ref, params0)
+        steps = mix["physics_steps"]
+
+        def ref_train(follow_normalizer=world > 1, **kw):  # check.py: many cards follow
+            return check.reference_train(cfg, sd, device, rec, steps,
+                                         follow_normalizer=follow_normalizer, **kw)
+
+        start = {} if follow_only else check.reference_start(cfg, sd, device, rec, steps)
+        ref = ref_train(start=start)
+        got = check.program_train(rec, steps)
+        numbers = check.compare_train(got, ref, params0)
+        ref_s = time.monotonic() - t_ref
+        for name, on in (("control", control), ("rounding", rounding)):
+            if on:
+                variants[name] = check.compare_train(
+                    ref_train(start={} if follow_only else None, **{name: True}), ref, params0)
+        if rounding and world > 1:
+            variants.update(rank_readings(got, ref, params0, world, ref_train, start))
     else:
         ref = check.reference_eval(cfg, sd, device, rec)
         numbers = check.compare_eval(check.program_eval(rec), ref)
-    ref_s = time.monotonic() - t_ref
-    variants = {}
-    for name, on in (("control", control), ("rounding", rounding)):
-        if not on:
-            continue
-        kw = {name: True}
-        if loop == "train":
-            got = check.reference_train(cfg, sd, device, rec, mix["physics_steps"], **kw)
-            variants[name] = check.compare_train(got, ref, params0)
-        else:
-            variants[name] = check.compare_eval(check.reference_eval(cfg, sd, device, rec, **kw),
-                                                ref)
+        ref_s = time.monotonic() - t_ref
+        for name, on in (("control", control), ("rounding", rounding)):
+            if on:
+                variants[name] = check.compare_eval(
+                    check.reference_eval(cfg, sd, device, rec, **{name: True}), ref)
     correct = check.judge(numbers, limits)
 
     units = win["units"]
@@ -288,7 +372,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, with_trace: boo
                    for k, v in roofline.eval_step_flops(cfg).items()})
     ctx = dict(cfg=cfg, cell=cell, traffic=mix, loop=loop, spans=parts, trace=summary,
                window_s=win["window_s"], units=units, env_steps=win["env_steps"],
-               flops_per_unit=flops, setup_s=setup_s)
+               flops_per_unit=flops, setup_s=setup_s, world=world)
     kind = "per_layer" if with_trace else "end_to_end"
     metrics = {}
     for m in manifest.cell_metrics(bench, cell["name"], kind):
@@ -298,7 +382,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, with_trace: boo
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     dev = {"platform": "gpu" if cuda else "cpu",
            "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
-           "count": 1, "memory_peak_bytes": int(peak)}
+           "count": world, "memory_peak_bytes": int(peak)}
     result = {"correct": bool(correct), "attempted": units, "failed": 0, "metrics": metrics,
               "device": dev}
     if summary is not None:
@@ -310,6 +394,30 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, with_trace: boo
     result["reference_s"] = ref_s
     result["checks"] = {k: {"value": v, "limit": limits.get(k)} for k, v in numbers.items()}
     return result
+
+
+def rank_readings(got: dict, ref: dict, params0, world: int, ref_train, start: dict) -> dict:
+    """The readings of a cell on `world` ranks that its limits are set
+    from, beside the rounding reading: "partials", the reference with its
+    sums over envs taken as the ranks' partials in the program's place;
+    "unfollowed", the program against the reference with its own
+    normalizer; "partials_unfollowed", the partials' reference with its own
+    normalizer against the reference with its own, the room that rounding
+    alone would need without following; "leaves", grad_gap's and
+    change_gap's gap of each leaf, of the program and of the partials."""
+    from duckbench import check
+
+    partials = ref_train(partials=world, start=start)
+    own = ref_train(follow_normalizer=False, start=start)
+    leaves = {}
+    for name, side in (("program", got), ("partials", partials)):
+        leaves[name] = {"grad_gap": check.leaf_gaps(side["mu1"], ref["mu1"]),
+                        "change_gap": check.leaf_gaps(*check.changes(side, ref, params0))}
+    return {"partials": check.compare_train(partials, ref, params0),
+            "unfollowed": check.compare_train(got, own, params0),
+            "partials_unfollowed": check.compare_train(
+                ref_train(follow_normalizer=False, partials=world, start=start), own, params0),
+            "leaves": leaves}
 
 
 # the end-to-end metrics, taken by the benchmark itself on the host's clock;
@@ -340,27 +448,85 @@ def main(argv=None) -> int:
         log("[duckbench] BENCHMARK.json breaks the benchmark's rules:\n  " + "\n  ".join(errs))
         return 2
     cell = manifest.workload(bench, args.workload)
-    try:
+    if not cards_for(cell):
+        return 3
+    t0 = ranks.rank_t0()
+    if cell["chips"] > 1 and t0 is None:
+        code, out = ranks.launch([sys.executable, "-m", "duckbench.run", *launcher_argv(argv)],
+                                 cell["chips"], ranks.run_limit_s(), T0)
+        lines = out.strip().splitlines()
+        if code or not lines:
+            log(f"[duckbench] the ranks ended with {code}: no result")
+            return code or 5
+        for line in lines[:-1]:
+            log(line)
+        result, shard = json.loads(lines[-1]), None
+    else:
         import torch
-    except ImportError as e:
-        log(f"[duckbench] no torch: {e}")
-        return 3
-    if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
-        log(f"[duckbench] {args.workload} needs {cell['chips']} CUDA device(s); "
-            f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} available")
-        return 3
-    torch.set_num_threads(1)  # the host only enqueues work: one thread, fewer neighbours
-    result = run_cell(bench, cell, args.seed, args.seconds, bool(args.trace), "cuda")
+
+        torch.set_num_threads(1)  # the host only enqueues work: one thread, fewer neighbours
+        shard = join(cell, t0)
+        try:
+            result = run_cell(bench, cell, args.seed, args.seconds, bool(args.trace),
+                              "cuda" if shard is None else shard.device, t0=t0 or T0,
+                              shard=shard)
+        finally:
+            if shard is not None:
+                ranks.leave()
     found = banned_modules()
     if found:
         log(f"[duckbench] the run imported {', '.join(found)}: the benchmark measures the "
             "PyTorch port alone")
         return 4
+    if shard is not None and not shard.is_main:
+        return 0
+    report(result)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def launcher_argv(argv) -> list:
+    return list(sys.argv[1:] if argv is None else argv)
+
+
+def cards_for(cell: dict) -> bool:
+    """Whether CUDA has the cards `cell` asks for (logged when it has not)."""
+    try:
+        import torch
+    except ImportError as e:
+        log(f"[duckbench] no torch: {e}")
+        return False
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < cell["chips"]:
+        log(f"[duckbench] {cell['name']} needs {cell['chips']} CUDA device(s); {n} available")
+        return False
+    return True
+
+
+def join(cell: dict, t0: Optional[float], timeout_s: float = ranks.RUN_S):
+    """A rank's EnvShard (None for a one-card cell's single process, whose
+    `t0` is None): the stand-in scenes and caches first, then the process
+    group, whose collectives raise after waiting `timeout_s`. Only rank 0
+    keeps its standard output; the others' goes to standard error."""
+    if t0 is None:
+        return None
+    world = int(os.environ["WORLD_SIZE"])
+    if world != cell["chips"]:
+        raise ValueError(f"a rank of a world of {world}; {cell['name']} asks for "
+                         f"{cell['chips']} cards")
+    if int(os.environ["RANK"]) != 0:
+        sys.stdout.flush()
+        os.dup2(2, 1)
+    prepare()
+    return ranks.join(timeout_s=timeout_s)
+
+
+def report(result: dict) -> None:
+    """The numbers compared beside their limits, as the last lines of
+    standard error."""
     log(f"[duckbench] correct {result['correct']}")
     for k, v in result["checks"].items():
         log(f"[duckbench] check {k} {v['value']!r} limit {v['limit']!r}")
-    print(json.dumps(result), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

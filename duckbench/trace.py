@@ -66,9 +66,11 @@ def summarize(spans, work, kernel: str, top: int = 10) -> dict:
     that ends inside it, so that neither the host's start under the
     profiler nor its closing synchronize counts as idle. Its length and
     device-busy seconds, the named kernel's launches and device seconds,
-    the operations by device seconds (top `top`), and the longest idle
-    gaps (top `top`), each named by the host's innermost annotated span at
-    the gap's start ("host" outside every span)."""
+    the operations by device seconds (top `top`), the longest idle gaps
+    (top `top`), each named by the host's innermost annotated span at the
+    gap's start ("host" outside every span), and every device operation of
+    the window (`inside`: (category, name, start, end), microseconds), for
+    the readers of other kernels."""
     if spans.get(WINDOW):
         a, b = spans[WINDOW][0]
         inside = [w for w in work if w[2] >= a and w[3] <= b]
@@ -97,4 +99,4 @@ def summarize(spans, work, kernel: str, top: int = 10) -> dict:
     return dict(window_s=(b - a) / 1e6, busy_s=busy(merged, a, b) / 1e6,
                 kernel_launches=len(k), kernel_s=sum(w[3] - w[2] for w in k) / 1e6,
                 device_ops=sorted(([n, s] for n, s in by_name.items()), key=lambda x: -x[1])[:top],
-                idle_gaps=gaps[:top], device_events=len(inside))
+                idle_gaps=gaps[:top], device_events=len(inside), inside=inside)
